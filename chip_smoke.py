@@ -5,16 +5,29 @@
 
 Phases, one JSON line each:
 
-  device        the card (nvidia-smi name and power limit); TF32 off
-  build         nvcc builds every kernel of the port from csrc/
-  kernel_check  each kernel against its plain PyTorch version on the card,
-                at the decode path's shapes and a ragged one, all four
-                aggregators; kernel, plain and bound times at each shape
-  decode        the LDPC decoder at the reference width (seeded random
-                weights) decodes a 3840-word eval grid in 15 batches of 256
-                through ``train.ldpc.evaluate``; every kernel must have run
-                there, and no plain version
-  decode_vs_cpu one batch through the same weights on the port's CPU path
+  device           the card (nvidia-smi name and power limit); TF32 off
+  build            nvcc builds every kernel of the port from csrc/, one
+                   process per source, all started together
+  kernel_check     the forward kernel against its plain PyTorch version on
+                   the card, at the LDPC shapes and two ragged ones, all
+                   four aggregators; kernel (with and without the argmax),
+                   plain and bound times at each LDPC shape
+  kernel_check_bwd the backward kernel against its plain version, fed the
+                   same cotangent and argmax, at the same shapes and
+                   aggregators; two launches must give the same bits;
+                   kernel, plain and bound times at each LDPC shape
+  decode           the LDPC decoder at the reference width (seeded random
+                   weights) decodes a 3840-word eval grid in 15 batches of
+                   256 through ``train.ldpc.evaluate``; every kernel of the
+                   path must have run there, and no plain version
+  decode_vs_cpu    one batch through the same weights on the port's CPU path
+  train            ``train.ldpc.train`` at the reference width: one epoch of
+                   TRAIN_STEPS steps at B=256, seeded random init; every
+                   step launches both kernels and no plain version; finite
+                   logged losses and a checkpoint; the step time on one
+                   staged batch
+  train_vs_cpu     one train step from the same weights and batch on the
+                   card and on the port's CPU path: losses and gradients
 
 then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failed check raises and the script exits non-zero; without a
@@ -23,6 +36,7 @@ CUDA device, or outside a checkout, it exits non-zero before any phase.
 
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -35,21 +49,43 @@ from argparse import Namespace
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-# (name, B, N_src, Nd, K, T, C, launches per decode forward): the LDPC
-# type-0 convs at B=256 (C=128 in layer 2, C=64 in the other seven), and
-# ragged shapes (C=30 takes the scalar path)
+# (name, B, N_src, Nd, K, T, C, launches per decode forward, backward
+# launches per train step): the LDPC type-0 convs at B=256 (C=128 in layer
+# 2, C=64 in the other seven), and ragged shapes (C=30 takes the scalar
+# path).  A train step runs the 16 forwards and 15 backwards: the last
+# layer's v2f conv feeds no loss, so autograd skips its backward.
 SHAPES = [
-    ("f2v_c64", 256, 48, 96, 3, 4, 64, 7),
-    ("f2v_c128", 256, 48, 96, 3, 4, 128, 1),
-    ("v2f_c64", 256, 96, 48, 6, 4, 64, 7),
-    ("v2f_c128", 256, 96, 48, 6, 4, 128, 1),
-    ("ragged_c24", 5, 136, 8, 5, 3, 24, 0),
-    ("ragged_c30", 3, 17, 11, 2, 1, 30, 0),
+    ("f2v_c64", 256, 48, 96, 3, 4, 64, 7, 7),
+    ("f2v_c128", 256, 48, 96, 3, 4, 128, 1, 1),
+    ("v2f_c64", 256, 96, 48, 6, 4, 64, 7, 6),
+    ("v2f_c128", 256, 96, 48, 6, 4, 128, 1, 1),
+    ("ragged_c24", 5, 136, 8, 5, 3, 24, 0, 0),
+    ("ragged_c30", 3, 17, 11, 2, 1, 30, 0, 0),
 ]
 AGGS = ("max", "sum", "mean", "softmax")
+FWD_PER_STEP = sum(s[7] for s in SHAPES)   # 16
+BWD_PER_STEP = sum(s[8] for s in SHAPES)   # 15
 EDGES_PER_WORD = (96 * 3 + 48 * 6 + 96 + 96) * 8  # 6144, as bench.py
 EVAL_PER_CELL = 128
 BATCH = 256
+TRAIN_STEPS = 20
+# Kernel against plain version on the card: the same f32 arithmetic in
+# another order (fmaf, sums over c and over in-edges), so 1e-5 of the
+# largest reference value.
+KERNEL_TOL = 1e-5
+# Train step, card against CPU: cuBLAS and the CPU sum in other orders, and
+# a near-tie in max can route one element's cotangent to another k; both
+# grow through the 8 layers down to the edge MLPs.  So the loss to 1e-4 of
+# itself, and each gradient tensor to 3e-3 relative L2 error: on an H100
+# the worst of 192 tensors read 1.4e-3 and 14 read above 1e-3, all of them
+# in the first layers and the edge MLPs.  Gradients that are zero in exact
+# arithmetic (a bias before a norm)
+# are rounding noise on both sides: a tensor whose largest element is under
+# 100x GRAD_FLOOR of the model's largest gradient is held, element by
+# element, to GRAD_FLOOR of that largest gradient instead.
+LOSS_RTOL = 1e-4
+GRAD_REL_L2 = 3e-3
+GRAD_FLOOR = 1e-5
 
 
 def emit(phase, **kw):
@@ -121,11 +157,26 @@ def phase_device(torch):
 
 
 def phase_build(fused_mp):
-    seconds, log = fused_mp.build(force=True)
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", seconds=seconds, library=os.path.relpath(fused_mp.LIBRARY),
-         ptxas=ptxas)
+    t0 = time.perf_counter()
+    built = fused_mp.build(force=True)
+    seconds = time.perf_counter() - t0
+    require(sorted(built) == sorted(fused_mp.KERNELS), "every kernel built")
+    libs = {}
+    for name, (secs, log) in built.items():
+        libs[name] = dict(
+            seconds=secs, library=os.path.relpath(fused_mp.library(name)),
+            ptxas=[ln.strip() for ln in log.splitlines()
+                   if "registers" in ln or "spill" in ln])
+    emit("build", seconds=seconds, libraries=libs)
+
+
+def bound_ms(nbytes, ops):
+    return max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+
+
+def bound_by(nbytes, ops):
+    return ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+            else "operations")
 
 
 def _inputs(torch, B, N, Nd, K, T, C, seed):
@@ -140,7 +191,7 @@ def _inputs(torch, B, N, Nd, K, T, C, seed):
 def phase_kernel_check(torch, fused_mp):
     worst = 0.0
     shapes = []
-    for si, (name, B, N, Nd, K, T, C, per_fwd) in enumerate(SHAPES):
+    for si, (name, B, N, Nd, K, T, C, per_fwd, _) in enumerate(SHAPES):
         h, idx, et = _inputs(torch, B, N, Nd, K, T, C, si)
         for agg in AGGS:
             want = agg == "max"
@@ -152,8 +203,9 @@ def phase_kernel_check(torch, fused_mp):
             require(torch.isfinite(out).all().item(), f"{name} {agg} finite")
             err = (out - ref_out).abs().max().item()
             scale = ref_out.abs().max().item()
-            require(err <= 1e-5 * scale,
-                    f"{name} {agg}: max_abs_err {err} > 1e-5 * {scale}")
+            require(err <= KERNEL_TOL * scale,
+                    f"{name} {agg}: max_abs_err {err} > {KERNEL_TOL} * "
+                    f"{scale}")
             worst = max(worst, err)
             if want:
                 msgs = (h[:, idx.long()] * et[..., None]).sum(dim=3)
@@ -172,16 +224,26 @@ def phase_kernel_check(torch, fused_mp):
             torch)
         t_plain, _ = device_ms(lambda: fused_mp.typed_gather_mix_agg_plain(
             h, idx, et, "max"), 20, torch)
+        # the train path's call: max with the argmax
+        t_argmax, _ = device_ms(
+            lambda: fused_mp.typed_gather_mix_agg(h, idx, et, "max", 3.0,
+                                                  True), 200, torch)
+        t_plain_argmax, _ = device_ms(
+            lambda: fused_mp.typed_gather_mix_agg_plain(h, idx, et, "max",
+                                                        3.0, True), 20, torch)
         nbytes = 4 * (h.numel() + idx.numel() + et.numel() + B * Nd * C)
         ops = B * Nd * K * C * (2 * T + 1)
-        bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+        nbytes_argmax = nbytes + B * Nd * C
         shapes.append(dict(
             name=name, B=B, N_src=N, Nd=Nd, K=K, T=T, C=C,
             launches_per_forward=per_fwd, ms=t_kernel, plain_ms=t_plain,
-            wrapper_host_ms=host_kernel, bound_ms=bound, bytes=nbytes, ops=ops,
-            bound_by="bytes" if nbytes / HBM_BYTES_PER_S
-            >= ops / F32_OPS_PER_S else "operations",
-            gbytes_per_s=nbytes / t_kernel / 1e6))
+            wrapper_host_ms=host_kernel, bound_ms=bound_ms(nbytes, ops),
+            bytes=nbytes, ops=ops, bound_by=bound_by(nbytes, ops),
+            gbytes_per_s=nbytes / t_kernel / 1e6,
+            ms_argmax=t_argmax, plain_ms_argmax=t_plain_argmax,
+            bound_ms_argmax=bound_ms(nbytes_argmax, ops),
+            bytes_argmax=nbytes_argmax,
+            gbytes_per_s_argmax=nbytes_argmax / t_argmax / 1e6))
         emit("kernel_check", **shapes[-1], max_abs_err=worst)
 
     # all ties: every k slot equal, so the first-win argmax is 0 everywhere
@@ -194,6 +256,83 @@ def phase_kernel_check(torch, fused_mp):
     require(am.max().item() == 0, "all-ties argmax is 0")
     emit("kernel_check", name="all_ties", argmax_max=int(am.max().item()),
          max_abs_err=worst)
+    return worst, shapes
+
+
+def phase_kernel_check_bwd(torch, fused_mp):
+    from fgnn_tpu_torch.ops.typed_mp import GatherTable
+
+    worst = 0.0
+    shapes = []
+    for si, (name, B, N, Nd, K, T, C, _, per_step) in enumerate(SHAPES):
+        h, idx, et = _inputs(torch, B, N, Nd, K, T, C, 100 + si)
+        table = GatherTable(idx.cpu().numpy(), N).to("cuda")
+        gen = torch.Generator(device="cuda").manual_seed(200 + si)
+        g = torch.randn(B, Nd, C, device="cuda", generator=gen)
+        for agg in AGGS:
+            res = fused_mp.typed_gather_mix_agg(h, idx, et, agg, 3.0,
+                                                agg == "max")
+            out, am = res if agg == "max" else (res, None)
+
+            def kernel(agg=agg, am=am, out=out):
+                return fused_mp.typed_gather_mix_agg_bwd(
+                    g, h, idx, table.src_ptr, table.src_edge, et, agg, 3.0,
+                    argmax=am, out=out)
+
+            dh, det = kernel()
+            dh2, det2 = kernel()
+            ref_dh, ref_det = fused_mp.typed_gather_mix_agg_bwd_plain(
+                g, h, idx, et, agg, 3.0, argmax=am, out=out)
+            torch.cuda.synchronize()
+            require(torch.equal(dh, dh2) and torch.equal(det, det2),
+                    f"{name} {agg}: two launches give the same bits")
+            for what, got, ref in (("dh", dh, ref_dh),
+                                   ("d_etype", det, ref_det)):
+                require(torch.isfinite(got).all().item(),
+                        f"{name} {agg} {what} finite")
+                err = (got - ref).abs().max().item()
+                scale = ref.abs().max().item()
+                require(err <= KERNEL_TOL * scale,
+                        f"{name} {agg} {what}: max_abs_err {err} > "
+                        f"{KERNEL_TOL} * {scale}")
+                worst = max(worst, err)
+            if agg == "max":
+                timed = kernel
+        if per_step == 0:
+            continue
+        # the train path's call: max, with the forward's argmax
+        t_kernel, host_kernel = device_ms(timed, 200, torch)
+        _, am = fused_mp.typed_gather_mix_agg(h, idx, et, "max", 3.0, True)
+        t_plain, _ = device_ms(
+            lambda: fused_mp.typed_gather_mix_agg_bwd_plain(
+                g, h, idx, et, "max", 3.0, argmax=am), 20, torch)
+        # read g, argmax, h, etype and both tables once; write dh, d_etype
+        nbytes = (4 * B * Nd * C + B * Nd * C + 2 * 4 * h.numel()
+                  + 2 * 4 * et.numel() + 4 * (2 * idx.numel() + N + 1))
+        # dm (one select per edge and channel), then an FMA per (t, c) for
+        # d_etype and another for dh
+        ops = B * Nd * K * C * (4 * T + 1)
+        shapes.append(dict(
+            name=name, B=B, N_src=N, Nd=Nd, K=K, T=T, C=C,
+            launches_per_step=per_step, ms=t_kernel, plain_ms=t_plain,
+            wrapper_host_ms=host_kernel, bound_ms=bound_ms(nbytes, ops),
+            bytes=nbytes, ops=ops, bound_by=bound_by(nbytes, ops),
+            gbytes_per_s=nbytes / t_kernel / 1e6))
+        emit("kernel_check_bwd", **shapes[-1], max_abs_err=worst)
+
+    # all ties: every k slot equal; the whole cotangent goes to k = 0
+    B, N, Nd, K, T, C = 8, 16, 16, 3, 2, 16
+    h = torch.randn(1, 1, T, C, device="cuda").expand(B, N, T, C).contiguous()
+    idx = torch.zeros(Nd, K, dtype=torch.int32, device="cuda")
+    table = GatherTable(idx.cpu().numpy(), N).to("cuda")
+    et = torch.ones(B, Nd, K, T, device="cuda")
+    _, am = fused_mp.typed_gather_mix_agg(h, idx, et, "max", want_argmax=True)
+    g = torch.randn(B, Nd, C, device="cuda")
+    _, det = fused_mp.typed_gather_mix_agg_bwd(
+        g, h, idx, table.src_ptr, table.src_edge, et, "max", argmax=am)
+    require(not det[:, :, 1:].any().item() and det[:, :, 0].any().item(),
+            "all ties: d_etype only at k = 0")
+    emit("kernel_check_bwd", name="all_ties", max_abs_err=worst)
     return worst, shapes
 
 
@@ -261,6 +400,124 @@ def phase_decode_vs_cpu(torch, model, batch, dev):
          decisions_compared=int(sure.sum().item()))
 
 
+def phase_train(torch, fused_mp, dev, tmp):
+    from fgnn_tpu_torch.data import ContinuousCodesSP
+    from fgnn_tpu_torch.models import LDPCModel, init_weights
+    from fgnn_tpu_torch.train.common import make_optimizer
+    from fgnn_tpu_torch.train.ldpc import (
+        BASE_LR,
+        stage_batch,
+        train,
+        train_step,
+    )
+    from fgnn_tpu_torch.utils.logging import MetricsWriter
+
+    args = Namespace(samples_per_epoch=TRAIN_STEPS * BATCH, snr=None, seed=0,
+                     batch_size=BATCH, n_epochs=1,
+                     steps_per_epoch=TRAIN_STEPS, model_path="",
+                     clean_weight=0.0)
+    model = init_weights(LDPCModel(), seed=0).to(dev)
+    # warm-up (the first call of each library, cuBLAS handles): one step
+    # on another model, so that the counted run starts from the seed
+    warm = init_weights(LDPCModel(), seed=1).to(dev)
+    warm_batch = next(ContinuousCodesSP(length=BATCH, seed=9).batches(BATCH))
+    train_step(warm, make_optimizer(warm.parameters(), BASE_LR), warm_batch,
+               dev)
+    torch.cuda.synchronize()
+
+    run_dir = os.path.join(tmp, "train")
+    fused_mp.reset_counts()
+    t0 = time.perf_counter()
+    with MetricsWriter(os.path.join(run_dir, "tf_logs")) as writer:
+        train(args, model, writer, run_dir, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    fwd, bwd = dict(fused_mp.COUNTS), dict(fused_mp.BWD_COUNTS)
+    require(fwd["kernel_launches"] == FWD_PER_STEP * TRAIN_STEPS,
+            f"forward launches {fwd['kernel_launches']} != "
+            f"{FWD_PER_STEP} x {TRAIN_STEPS}")
+    require(bwd["kernel_launches"] == BWD_PER_STEP * TRAIN_STEPS,
+            f"backward launches {bwd['kernel_launches']} != "
+            f"{BWD_PER_STEP} x {TRAIN_STEPS}")
+    require(fwd["plain_calls"] == 0 and bwd["plain_calls"] == 0,
+            "no plain calls on the card")
+    with open(os.path.join(run_dir, "tf_logs", "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    losses = [r["value"] for r in logged if r["tag"] == "syn_train/loss"]
+    require(len(losses) == TRAIN_STEPS // 10, "a loss every 10 steps")
+    require(all(math.isfinite(r["value"]) for r in logged),
+            "finite logged metrics")
+    for ckpt in ("ldpc_latest.ckpt", "ldpc_final.ckpt"):
+        require(os.path.getsize(os.path.join(run_dir, ckpt)) > 0,
+                f"{ckpt} written")
+
+    # the step alone, on one batch already on the card (as bench.py times
+    # the JAX step)
+    opt = make_optimizer(model.parameters(), BASE_LR)
+    staged = stage_batch(model, warm_batch, dev)
+    step_ms = cuda_ms(lambda: train_step(model, opt, staged, dev), 20, torch)
+    emit("train", steps=TRAIN_STEPS, batch_size=BATCH, seconds=seconds,
+         steps_per_s=TRAIN_STEPS / seconds, train_step_ms=step_ms,
+         train_edges_per_s=EDGES_PER_WORD * BATCH / step_ms * 1e3,
+         losses=losses, fwd_launches=fwd["kernel_launches"],
+         bwd_launches=bwd["kernel_launches"],
+         plain_calls=fwd["plain_calls"] + bwd["plain_calls"])
+    return fwd, bwd
+
+
+def phase_train_vs_cpu(torch, dev):
+    from fgnn_tpu_torch.data import ContinuousCodesSP
+    from fgnn_tpu_torch.models import LDPCModel, init_weights
+    from fgnn_tpu_torch.train.common import make_optimizer
+    from fgnn_tpu_torch.train.ldpc import BASE_LR, train_step
+
+    model = init_weights(LDPCModel(), seed=2)
+    batch = next(ContinuousCodesSP(length=BATCH, seed=3).batches(BATCH))
+    runs = {}
+    for where in (dev, "cpu"):
+        m = copy.deepcopy(model).to(where)
+        metrics = train_step(m, make_optimizer(m.parameters(), BASE_LR),
+                             batch, where)
+        runs[str(where)] = (
+            {k: float(v) for k, v in metrics.items()},
+            {n: None if p.grad is None else p.grad.cpu()
+             for n, p in m.named_parameters()})
+    (gm, gg), (cm, cg) = runs[str(dev)], runs["cpu"]
+    for k in ("loss", "sigma_b_loss"):
+        require(math.isfinite(gm[k]), f"finite {k}")
+        require(abs(gm[k] - cm[k]) <= LOSS_RTOL * abs(cm[k]),
+                f"{k}: card {gm[k]} vs CPU {cm[k]}")
+    floor = GRAD_FLOOR * max(g.abs().max().item() for g in cg.values()
+                             if g is not None)
+    rel, noise, bad = {}, {}, []
+    for n, ref in cg.items():
+        got = gg[n]
+        if ref is None or got is None:
+            if not (ref is None and got is None):
+                bad.append(f"{n}: a gradient on one side only")
+            continue
+        if not torch.isfinite(got).all().item():
+            bad.append(f"{n}: a gradient that is not finite")
+        elif ref.abs().max().item() > 100 * floor:
+            rel[n] = ((got - ref).norm() / ref.norm()).item()
+            if rel[n] > GRAD_REL_L2:
+                bad.append(f"{n}: relative L2 error {rel[n]}")
+        else:
+            noise[n] = (got - ref).abs().max().item()
+            if noise[n] > floor:
+                bad.append(f"{n}: max abs err {noise[n]} > {floor}")
+    emit("train_vs_cpu", loss=gm["loss"], loss_cpu=cm["loss"],
+         sigma_b_loss=gm["sigma_b_loss"], sigma_b_loss_cpu=cm["sigma_b_loss"],
+         acc=gm["acc"], acc_cpu=cm["acc"], tensors_rel_l2=len(rel),
+         grad_rel_l2_worst=max(rel.values()),
+         grad_rel_l2_worst_tensor=max(rel, key=rel.get),
+         tensors_rel_l2_over_1e_3=sum(v > 1e-3 for v in rel.values()),
+         tensors_at_noise_floor=len(noise), noise_floor=floor,
+         noise_abs_err_worst=max(noise.values(), default=0.0),
+         failed=bad)
+    require(not bad, "gradients on the card and on the CPU agree")
+
+
 def main():
     import torch
 
@@ -281,27 +538,53 @@ def main():
     phase_device(torch)
     phase_build(fused_mp)
     worst, shapes = phase_kernel_check(torch, fused_mp)
+    worst_bwd, shapes_bwd = phase_kernel_check_bwd(torch, fused_mp)
     with tempfile.TemporaryDirectory() as tmp:
         model, batch, counts = phase_decode(torch, fused_mp, dev, tmp)
-    phase_decode_vs_cpu(torch, model, batch, dev)
+        phase_decode_vs_cpu(torch, model, batch, dev)
+        fwd_train, bwd_train = phase_train(torch, fused_mp, dev, tmp)
+    phase_train_vs_cpu(torch, dev)
 
-    def per_forward(key):
-        return sum(s[key] * s["launches_per_forward"] for s in shapes)
+    def per_call(rows, key, per):
+        return sum(r[key] * r[per] for r in rows)
 
-    fwd_bytes = per_forward("bytes") / HBM_BYTES_PER_S
-    fwd_ops = per_forward("ops") / F32_OPS_PER_S
+    def entry(rows, per, suffix=""):
+        nbytes = per_call(rows, "bytes" + suffix, per)
+        ops = per_call(rows, "ops", per)
+        return {"ms": per_call(rows, "ms" + suffix, per),
+                "plain_ms": per_call(rows, "plain_ms" + suffix, per),
+                "bound_ms": bound_ms(nbytes, ops),
+                "bound_by": bound_by(nbytes, ops)}
+
     print(json.dumps({"kernels": [{
         "name": "typed_mp_fwd", "route": "cuda",
         "source": "fgnn_tpu_torch/csrc/typed_mp_fwd.cu",
         "replaces": "fgnn_tpu/ops/fused_mp.py:243",
         "tpu_kernel": "_fwd_kernel",
-        "checked": True, "launches": counts["kernel_launches"],
+        "checked": True,
+        "launches": counts["kernel_launches"] + fwd_train["kernel_launches"],
+        "launches_by_path": {"decode": counts["kernel_launches"],
+                             "train": fwd_train["kernel_launches"]},
         "max_abs_err": worst,
-        "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
-        "bound_ms": max(fwd_bytes, fwd_ops) * 1e3,
-        "bound_by": "bytes" if fwd_bytes >= fwd_ops else "operations",
+        **entry(shapes, "launches_per_forward"),
         "library_ms": None,
         "per": "one decode forward at B=256: 16 launches",
+        "train_step": {**entry(shapes, "launches_per_forward", "_argmax"),
+                       "per": "one train step at B=256: 16 launches with "
+                              "the argmax"},
+    }, {
+        "name": "typed_mp_bwd", "route": "cuda",
+        "source": "fgnn_tpu_torch/csrc/typed_mp_bwd.cu",
+        "replaces": "fgnn_tpu/ops/fused_mp.py:297",
+        "tpu_kernel": "_bwd_kernel",
+        "checked": True,
+        "launches": bwd_train["kernel_launches"],
+        "launches_by_path": {"decode": 0,
+                             "train": bwd_train["kernel_launches"]},
+        "max_abs_err": worst_bwd,
+        **entry(shapes_bwd, "launches_per_step"),
+        "library_ms": None,
+        "per": f"one train step at B=256: {BWD_PER_STEP} launches",
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,33 +1,46 @@
-"""The typed-edge gather + edge-type mix + K-aggregation forward on Hopper.
+"""The typed-edge gather + edge-type mix + K-aggregation on Hopper, forward
+and backward.
 
-Counterpart of ``fgnn_tpu/ops/fused_mp.py``: the CUDA kernel in
-``csrc/typed_mp_fwd.cu`` replaces the Pallas TPU kernel
-``fgnn_tpu/ops/fused_mp.py:_fwd_kernel`` (NO_EXTENSION mode).  For h
-(B, N_src, T, C), a shared table nn_idx (Nd, K) and etype (B, Nd, K, T):
+Counterpart of ``fgnn_tpu/ops/fused_mp.py``: two hand-written CUDA kernels
+replace the Pallas TPU kernels of its NO_EXTENSION mode,
 
-    m[b, d, k, c] = sum_t etype[b, d, k, t] * h[b, nn_idx[d, k], t, c]
-    out[b, d, c]  = AGG_k m[b, d, k, c]       (max / sum / mean / softmax)
+* ``csrc/typed_mp_fwd.cu`` for ``_fwd_kernel``.  For h (B, N_src, T, C),
+  a shared table nn_idx (Nd, K) and etype (B, Nd, K, T):
 
-plus, for max, the first-win argmax over k (strict ``>``, as the TPU
-kernel) as uint8.  ``h = x @ W_tmajor`` stays a plain matmul outside.
+      m[b, d, k, c] = sum_t etype[b, d, k, t] * h[b, nn_idx[d, k], t, c]
+      out[b, d, c]  = AGG_k m[b, d, k, c]     (max / sum / mean / softmax)
 
-Bound on the H100: bytes and launches, not operations (f2v at B=256,
-C=64 moves about 20 MB, 6 us at 3.35 TB/s, for 38 MFLOP); the kernel
-streams each byte once and keeps the per-edge messages in registers.  The
-source's header note has the details.
+  plus, for max, the first-win argmax over k (strict ``>``, as the TPU
+  kernel) as uint8;
+* ``csrc/typed_mp_bwd.cu`` for ``_bwd_kernel``.  From the cotangent g of
+  out, the per-edge cotangent ``dm[b, d, k, c]`` (max: g where the argmax
+  is k; sum: g; mean: g / K; softmax: g * exp(gamma (m_k - out))), then
 
-Beside the kernel, as every kernel of the port has them:
+      d_etype[b, d, k, t] = sum_c dm[b, d, k, c] * h[b, nn_idx[d, k], t, c]
+      dh[b, j, t, c] = sum_{(d, k): nn_idx[d, k] = j} dm[b, d, k, c]
+                                                      * etype[b, d, k, t]
 
-* ``typed_gather_mix_agg_plain``: the plain PyTorch version (index gather,
-  T-contraction, aggregation with an explicit first-win argmax);
-* ``COUNTS``: plain integer counters of kernel launches and plain calls;
-* ``typed_gather_mix_agg``: the wrapper.  A CPU tensor goes to the plain
-  version, a CUDA tensor to the kernel, or the wrapper raises; nothing
-  falls back;
-* ``TypedGatherMixAgg``: the ``autograd.Function`` around the wrapper.
+  dh walks the transposed table (``GatherTable.src_ptr`` / ``src_edge``),
+  so each element is one sum in a fixed order: no atomics, and two runs
+  give the same bits.
 
-The kernel library is built with ``nvcc`` at first use, from the package's
-own source, into ``csrc/build/`` and loaded with ``ctypes``.
+``h = x @ W_tmajor`` stays a plain matmul outside, as does its gradient.
+Both kernels are bound by bytes, not operations; the sources' header notes
+have the details.
+
+Beside each kernel, as every kernel of the port has them:
+
+* a plain PyTorch version (``typed_gather_mix_agg_plain``,
+  ``typed_gather_mix_agg_bwd_plain``);
+* plain integer counters of kernel launches and plain calls (``COUNTS``
+  for the forward, ``BWD_COUNTS`` for the backward);
+* a wrapper (``typed_gather_mix_agg``, ``typed_gather_mix_agg_bwd``).  A
+  CPU tensor goes to the plain version, a CUDA tensor to the kernel, or
+  the wrapper raises; nothing falls back.
+
+``TypedGatherMixAgg`` is the ``autograd.Function`` around the two.  The
+kernel libraries are built with ``nvcc`` at first use, from the package's
+own sources, into ``csrc/build/`` and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -41,27 +54,41 @@ import time
 import torch
 
 AGGREGATORS = {"max": 0, "sum": 1, "mean": 2, "softmax": 3}
-MAX_K = 255  # the argmax is stored as uint8
+MAX_K = 255     # the argmax is stored as uint8
+MAX_T_BWD = 16  # the backward keeps T partial sums in registers
 
 COUNTS = {"kernel_launches": 0, "plain_calls": 0}
+BWD_COUNTS = {"kernel_launches": 0, "plain_calls": 0}
 
-_NO_BWD = ("the backward of the typed-mp forward kernel is not ported yet: "
-           "ROADMAP.md, port queue item 1 (fgnn_tpu/ops/fused_mp.py:"
-           "_bwd_kernel as this Function's backward)")
-
+KERNELS = ("typed_mp_fwd", "typed_mp_bwd")
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
-SOURCE = os.path.join(_CSRC, "typed_mp_fwd.cu")
 BUILD_DIR = os.path.join(_CSRC, "build")
-LIBRARY = os.path.join(BUILD_DIR, "libtyped_mp_fwd.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-_lib = None
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    # h, nn_idx, etype, out, argmax; B N Nd K T C agg; gamma; vec4; stream
+    "typed_mp_fwd": [_PTR] * 5 + [_INT] * 7 + [ctypes.c_float, _INT, _PTR],
+    # g, argmax, h, nn_idx, src_ptr, src_edge, etype, out, dh, d_etype;
+    # B N Nd K T C agg; gamma; vec4; stream
+    "typed_mp_bwd": [_PTR] * 10 + [_INT] * 7 + [ctypes.c_float, _INT, _PTR],
+}
+_libs = {}
+
+
+def source(name: str) -> str:
+    return os.path.join(_CSRC, f"{name}.cu")
+
+
+def library(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
 def reset_counts() -> None:
-    for k in COUNTS:
-        COUNTS[k] = 0
+    for counts in (COUNTS, BWD_COUNTS):
+        for k in counts:
+            counts[k] = 0
 
 
 def nvcc_path() -> str:
@@ -72,34 +99,60 @@ def nvcc_path() -> str:
     return path
 
 
-def build(force: bool = False):
-    """Compile ``csrc/typed_mp_fwd.cu`` unless the library is newer than
-    the source.  Returns (seconds spent, compiler log)."""
-    if (not force and os.path.exists(LIBRARY)
-            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
-        return 0.0, ""
+def build(names=KERNELS, force: bool = False) -> dict:
+    """Compile ``csrc/<name>.cu`` for each name whose library is missing or
+    older than its source (all of them with ``force``), one ``nvcc`` per
+    source, all started together.  Returns {name: (seconds, compiler
+    log)} for the libraries it built."""
+    procs = {}
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, LIBRARY)  # atomic: concurrent builders never see half
-    return time.perf_counter() - t0, proc.stdout + proc.stderr
+    for name in names:
+        lib, src = library(name), source(name)
+        if (not force and os.path.exists(lib)
+                and os.path.getmtime(lib) >= os.path.getmtime(src)):
+            continue
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        procs[name] = (tmp, time.perf_counter(), subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    built, failed = {}, []
+    for name, (tmp, t0, proc) in procs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {source(name)}:\n{stderr}")
+            continue
+        os.replace(tmp, library(name))  # atomic: no process sees half a file
+        built[name] = (time.perf_counter() - t0, stdout + stderr)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return built
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        build()
-        lib = ctypes.CDLL(LIBRARY)
-        fn = lib.typed_mp_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+def _function(name: str):
+    if name not in _libs:
+        build((name,))
+        fn = getattr(ctypes.CDLL(library(name)), name)
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[name] = fn
+    return _libs[name]
+
+
+def _launch(name: str, device, *args) -> None:
+    with torch.cuda.device(device):
+        err = _function(name)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err} "
+                           f"(B, N, Nd, K, T, C = {args[-9:-3]})")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+# --------------------------------------------------------------------------
+# forward
 
 
 def _first_win_max(msgs: torch.Tensor):
@@ -115,7 +168,7 @@ def _first_win_max(msgs: torch.Tensor):
 
 def typed_gather_mix_agg_plain(h, nn_idx, etype, aggregator: str,
                                gamma: float = 3.0, want_argmax: bool = False):
-    """Plain PyTorch version of the kernel, on any device."""
+    """Plain PyTorch version of the forward kernel, on any device."""
     from .typed_mp import aggregate
 
     hg = h[:, nn_idx.long()]                            # (B, Nd, K, T, C)
@@ -126,14 +179,11 @@ def typed_gather_mix_agg_plain(h, nn_idx, etype, aggregator: str,
     return aggregate(msgs, aggregator, gamma)
 
 
-def check_kernel_args(h, nn_idx, etype, aggregator: str, want_argmax: bool):
-    """Raise unless the kernel takes these arguments: one CUDA device, f32
-    h (B, N, T, C) and etype (B, Nd, K, T), an int32 shared table (Nd, K)
-    with 0 < K <= 255, all contiguous, one of the four aggregators."""
+def _check_common(h, nn_idx, etype, aggregator: str):
+    """Shapes (B, N, T, C), (Nd, K), (B, Nd, K, T); f32 h and etype, an
+    int32 table, 0 < K <= 255, one of the four aggregators."""
     if aggregator not in AGGREGATORS:
         raise ValueError(f"unknown aggregator {aggregator!r}")
-    if want_argmax and aggregator != "max":
-        raise ValueError("the argmax exists for the max aggregator only")
     if h.dim() != 4 or nn_idx.dim() != 2 or etype.dim() != 4:
         raise ValueError(
             f"expected h (B, N, T, C), a shared nn_idx (Nd, K) and etype "
@@ -151,11 +201,26 @@ def check_kernel_args(h, nn_idx, etype, aggregator: str, want_argmax: bool):
             or nn_idx.dtype != torch.int32:
         raise TypeError(f"expected f32 h and etype and an int32 table; got "
                         f"{h.dtype}, {etype.dtype}, {nn_idx.dtype}")
-    for name, t in (("h", h), ("nn_idx", nn_idx), ("etype", etype)):
+
+
+def _check_placed(h, **tensors):
+    """Raise unless every tensor lies on h's device and is contiguous."""
+    for name, t in {"h": h, **tensors}.items():
         if t.device != h.device:
             raise ValueError(f"{name} is on {t.device}, h on {h.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def check_kernel_args(h, nn_idx, etype, aggregator: str, want_argmax: bool):
+    """Raise unless the forward kernel takes these arguments: one CUDA
+    device, f32 h (B, N, T, C) and etype (B, Nd, K, T), an int32 shared
+    table (Nd, K) with 0 < K <= 255, all contiguous, one of the four
+    aggregators."""
+    _check_common(h, nn_idx, etype, aggregator)
+    if want_argmax and aggregator != "max":
+        raise ValueError("the argmax exists for the max aggregator only")
+    _check_placed(h, nn_idx=nn_idx, etype=etype)
 
 
 def typed_gather_mix_agg(h, nn_idx, etype, aggregator: str,
@@ -179,33 +244,159 @@ def typed_gather_mix_agg(h, nn_idx, etype, aggregator: str,
     am = (torch.empty((B, Nd, C), dtype=torch.uint8, device=h.device)
           if want_argmax else None)
     vec4 = int(C % 4 == 0 and h.data_ptr() % 16 == 0)
-    lib = _library()
-    with torch.cuda.device(h.device):
-        err = lib.typed_mp_fwd(
-            h.data_ptr(), nn_idx.data_ptr(), etype.data_ptr(),
-            out.data_ptr(), am.data_ptr() if am is not None else None,
-            B, N, Nd, K, T, C, AGGREGATORS[aggregator], float(gamma), vec4,
-            torch.cuda.current_stream(h.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"typed_mp_fwd kernel launch failed: cudaError "
-                           f"{err} (B={B} N={N} Nd={Nd} K={K} T={T} C={C})")
+    _launch("typed_mp_fwd", h.device, h.data_ptr(), nn_idx.data_ptr(),
+            etype.data_ptr(), out.data_ptr(), _ptr(am),
+            B, N, Nd, K, T, C, AGGREGATORS[aggregator], float(gamma), vec4)
     COUNTS["kernel_launches"] += 1
     return (out, am) if want_argmax else out
 
 
+# --------------------------------------------------------------------------
+# backward
+
+
+def typed_gather_mix_agg_bwd_plain(g, h, nn_idx, etype, aggregator: str,
+                                   gamma: float = 3.0, argmax=None,
+                                   out=None):
+    """Plain PyTorch version of the backward kernel, on any device:
+    (dh (B, N, T, C), d_etype (B, Nd, K, T)) from the cotangent g
+    (B, Nd, C).  Max needs the forward's argmax, softmax its out."""
+    B, N, T, C = h.shape
+    Nd, K = nn_idx.shape
+    idx = nn_idx.long()
+    hg = h[:, idx]                                      # (B, Nd, K, T, C)
+    gk = g[:, :, None, :]                               # (B, Nd, 1, C)
+    if aggregator == "max":
+        ks = torch.arange(K, device=g.device).view(1, 1, K, 1)
+        dm = torch.where(argmax[:, :, None, :].long() == ks, gk, 0.0)
+    elif aggregator == "sum":
+        dm = gk.expand(B, Nd, K, C)
+    elif aggregator == "mean":
+        dm = (gk * (1.0 / K)).expand(B, Nd, K, C)
+    elif aggregator == "softmax":
+        msgs = (hg * etype[..., None]).sum(dim=3)       # (B, Nd, K, C)
+        dm = gk * torch.exp(gamma * (msgs - out[:, :, None, :]))
+    else:
+        raise ValueError(f"unknown aggregator {aggregator!r}")
+    d_etype = torch.einsum("bdkc,bdktc->bdkt", dm, hg)
+    per_edge = dm[:, :, :, None, :] * etype[..., None]  # (B, Nd, K, T, C)
+    dh = torch.zeros_like(h).index_add_(
+        1, idx.reshape(-1), per_edge.reshape(B, Nd * K, T, C))
+    return dh, d_etype
+
+
+def check_bwd_args(g, h, nn_idx, src_ptr, src_edge, etype, aggregator: str,
+                   argmax=None, out=None):
+    """Raise unless the backward kernel takes these arguments: the forward
+    kernel's h, nn_idx and etype with T <= 16; f32 g (B, Nd, C); the
+    transposed table as int32 src_ptr (N + 1,) and src_edge (Nd * K,);
+    the uint8 argmax (B, Nd, C) for max and the f32 out (B, Nd, C) for
+    softmax; all on h's device and contiguous."""
+    _check_common(h, nn_idx, etype, aggregator)
+    B, N, T, C = h.shape
+    Nd, K = nn_idx.shape
+    if T > MAX_T_BWD:
+        raise ValueError(f"the backward kernel takes T <= {MAX_T_BWD}; "
+                         f"got T={T}")
+    rows = (B, Nd, C)
+    if tuple(g.shape) != rows or g.dtype != torch.float32:
+        raise ValueError(f"g must be f32 {rows}; got {g.dtype} "
+                         f"{tuple(g.shape)}")
+    if tuple(src_ptr.shape) != (N + 1,) or tuple(src_edge.shape) != (
+            Nd * K,) or src_ptr.dtype != torch.int32 \
+            or src_edge.dtype != torch.int32:
+        raise ValueError(f"the transposed table is int32 src_ptr "
+                         f"({N + 1},) and src_edge ({Nd * K},); got "
+                         f"{src_ptr.dtype} {tuple(src_ptr.shape)}, "
+                         f"{src_edge.dtype} {tuple(src_edge.shape)}")
+    extra = {}
+    for name, t, dtype, needed in (
+            ("argmax", argmax, torch.uint8, aggregator == "max"),
+            ("out", out, torch.float32, aggregator == "softmax")):
+        if not needed:
+            continue
+        if t is None or tuple(t.shape) != rows or t.dtype != dtype:
+            raise ValueError(f"{aggregator} needs {name} {dtype} {rows}")
+        extra[name] = t
+    _check_placed(h, g=g, nn_idx=nn_idx, src_ptr=src_ptr,
+                  src_edge=src_edge, etype=etype, **extra)
+
+
+def typed_gather_mix_agg_bwd(g, h, nn_idx, src_ptr, src_edge, etype,
+                             aggregator: str, gamma: float = 3.0,
+                             argmax=None, out=None):
+    """(dh (B, N, T, C), d_etype (B, Nd, K, T)) f32.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise.  ``src_ptr``/``src_edge`` must be the transposed table of
+    ``nn_idx`` (``GatherTable`` builds both once, on the host)."""
+    if h.device.type == "cpu":
+        BWD_COUNTS["plain_calls"] += 1
+        return typed_gather_mix_agg_bwd_plain(g, h, nn_idx, etype,
+                                              aggregator, gamma, argmax, out)
+    if h.device.type != "cuda":
+        raise ValueError(f"no typed-mp backward for device {h.device}")
+    check_bwd_args(g, h, nn_idx, src_ptr, src_edge, etype, aggregator,
+                   argmax, out)
+    B, N, T, C = h.shape
+    Nd, K = nn_idx.shape
+    if aggregator != "max":
+        argmax = None
+    if aggregator != "softmax":
+        out = None
+    dh = torch.empty_like(h)
+    d_etype = torch.empty_like(etype)
+    vec4 = int(C % 4 == 0
+               and all(t.data_ptr() % 16 == 0 for t in (g, h, dh))
+               and (out is None or out.data_ptr() % 16 == 0)
+               and (argmax is None or argmax.data_ptr() % 4 == 0))
+    _launch("typed_mp_bwd", h.device, g.data_ptr(), _ptr(argmax),
+            h.data_ptr(), nn_idx.data_ptr(), src_ptr.data_ptr(),
+            src_edge.data_ptr(), etype.data_ptr(), _ptr(out), dh.data_ptr(),
+            d_etype.data_ptr(), B, N, Nd, K, T, C, AGGREGATORS[aggregator],
+            float(gamma), vec4)
+    BWD_COUNTS["kernel_launches"] += 1
+    return dh, d_etype
+
+
+# --------------------------------------------------------------------------
+# autograd
+
+
 class TypedGatherMixAgg(torch.autograd.Function):
-    """``typed_gather_mix_agg`` as an autograd node.  The backward (the
-    port of ``_bwd_kernel``) comes with the training slice."""
+    """``typed_gather_mix_agg`` as an autograd node, with
+    ``typed_gather_mix_agg_bwd`` as its backward (the port of
+    ``_fused``'s custom VJP).  ``for_grad`` says whether a gradient can be
+    asked for: only then does the forward write the argmax (max) and keep
+    its inputs; a decode under ``inference_mode`` runs as without
+    autograd."""
 
     @staticmethod
-    def forward(ctx, h, etype, nn_idx, aggregator, gamma):
-        return typed_gather_mix_agg(h, nn_idx, etype, aggregator, gamma)
+    def forward(ctx, h, etype, nn_idx, src_ptr, src_edge, aggregator, gamma,
+                for_grad):
+        want_argmax = for_grad and aggregator == "max"
+        res = typed_gather_mix_agg(h, nn_idx, etype, aggregator, gamma,
+                                   want_argmax)
+        out, am = res if want_argmax else (res, None)
+        if for_grad:
+            ctx.aggregator, ctx.gamma = aggregator, gamma
+            ctx.save_for_backward(h, etype, nn_idx, src_ptr, src_edge, am,
+                                  out if aggregator == "softmax" else None)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(_NO_BWD)
+        h, etype, nn_idx, src_ptr, src_edge, am, out = ctx.saved_tensors
+        dh, d_etype = typed_gather_mix_agg_bwd(
+            grad_out.contiguous(), h, nn_idx, src_ptr, src_edge, etype,
+            ctx.aggregator, ctx.gamma, argmax=am, out=out)
+        return dh, d_etype, None, None, None, None, None, None
 
 
-def typed_mp_fwd(h, nn_idx, etype, aggregator: str, gamma: float = 3.0):
-    """The autograd entry: out (B, Nd, C)."""
-    return TypedGatherMixAgg.apply(h, etype, nn_idx, aggregator, float(gamma))
+def typed_mp_fwd(h, table, etype, aggregator: str, gamma: float = 3.0):
+    """The autograd entry over a ``GatherTable``: out (B, Nd, C)."""
+    for_grad = torch.is_grad_enabled() and (h.requires_grad
+                                            or etype.requires_grad)
+    return TypedGatherMixAgg.apply(h, etype, table.idx, table.src_ptr,
+                                   table.src_edge, aggregator, float(gamma),
+                                   for_grad)

@@ -18,8 +18,9 @@ classified once, on the host:
   f2v conv; an exact broadcast;
 * ``identity``: nn_idx.ravel() == arange(N_src), the global-factor v2f
   conv; an exact reshape;
-* ``gather``: everything else, which runs the typed-mp forward kernel
-  (``ops/fused_mp.py``) on h = x @ W_tmajor.
+* ``gather``: everything else, which runs the typed-mp kernels
+  (``ops/fused_mp.py``) on h = x @ W_tmajor: the forward, and under
+  autograd the backward, which walks the table's transposed form.
 """
 
 from __future__ import annotations
@@ -64,7 +65,12 @@ class GatherTable(nn.Module):
 
     The indices are checked and the shortcut is chosen once, here, on the
     host; the table itself is a non-persistent buffer, so it moves with
-    ``.to(device)`` and stays out of the state dict."""
+    ``.to(device)`` and stays out of the state dict.
+
+    The transposed table, each source row's in-edges ``e = d * K + k``, is
+    built here too, as CSR: the edges of source j are
+    ``src_edge[src_ptr[j]:src_ptr[j + 1]]``, in ascending order, so the
+    backward sums them in a fixed order (``ops/fused_mp.py``)."""
 
     def __init__(self, idx, n_src: int):
         super().__init__()
@@ -87,6 +93,14 @@ class GatherTable(nn.Module):
             self.kind = "gather"
         self.register_buffer("idx", torch.as_tensor(idx.astype(np.int32)),
                              persistent=False)
+        flat = idx.reshape(-1)
+        counts = np.bincount(flat, minlength=self.n_src)
+        self.register_buffer("src_ptr", torch.as_tensor(
+            np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)),
+            persistent=False)
+        self.register_buffer("src_edge", torch.as_tensor(
+            np.argsort(flat, kind="stable").astype(np.int32)),
+            persistent=False)
 
     def extra_repr(self) -> str:
         return f"({self.nd}, {self.k}) over {self.n_src}, {self.kind}"
@@ -127,7 +141,7 @@ def typed_mp_conv(x: torch.Tensor, table, etype: torch.Tensor,
     if table.kind == "gather":
         h = torch.matmul(x, tmajor_filters(filters, nout, T))
         h = h.reshape(B, table.n_src, T, nout)
-        out = fused_mp.typed_mp_fwd(h, table.idx, etype.contiguous(),
+        out = fused_mp.typed_mp_fwd(h, table, etype.contiguous(),
                                     aggregator, gamma)
     else:
         h = torch.matmul(x, filters).reshape(B, table.n_src, nout, T)

@@ -1,0 +1,100 @@
+"""Shared training pieces (counterpart of ``fgnn_tpu/train/common.py``):
+the per-epoch LR schedule, the optimizer and the port's checkpoints.
+
+* Adam with the L2 weight decay folded into the gradient, as the reference
+  (``torch.optim.Adam(weight_decay=...)``): the same update as the JAX
+  package's ``optax.add_decayed_weights`` followed by ``adam`` (b1 0.9,
+  b2 0.999, eps 1e-8).
+* The LR is set once per epoch: ``base * Schedules.ldpc()(epoch)``.
+* A checkpoint is a ``torch.save`` of {format_version, model, optimizer,
+  epoch, gcnt} (state dicts), written atomically, resumed with
+  ``load_checkpoint``.  JAX pickle checkpoints are not read (ROADMAP.md,
+  port queue item 7).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import pickle
+
+import torch
+
+CKPT_FORMAT_VERSION = 1
+
+log = logging.getLogger(__name__)
+
+
+class Schedules:
+    """Per-epoch LR multipliers (LambdaLR equivalents)."""
+
+    @staticmethod
+    def ldpc(start: int = 10):
+        """Linear warm-up to 1 over ``start`` epochs (floor 1e-2), then
+        0.99 per epoch (floor 1e-6)."""
+        def f(epoch):
+            if epoch <= start:
+                return max(1e-2, epoch / start)
+            return max(0.99 ** (epoch - start), 1e-6)
+        return f
+
+
+def make_optimizer(params, base_lr: float, weight_decay: float = 1e-8):
+    return torch.optim.Adam(params, lr=base_lr, weight_decay=weight_decay)
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+
+
+def is_train_checkpoint(payload) -> bool:
+    return isinstance(payload, dict) and "format_version" in payload
+
+
+def read_checkpoint(path: str):
+    """What ``torch.save`` wrote at ``path`` (tensors and plain values
+    only): a trainer checkpoint of this format version, or a bare state
+    dict.  Raises ``ValueError`` for anything else, such as a JAX pickle
+    checkpoint."""
+    try:
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+    except (pickle.UnpicklingError, RuntimeError) as e:
+        raise ValueError(
+            f"{path} is not a port checkpoint (a torch.save of a state "
+            "dict); JAX pickle checkpoints are ROADMAP.md, port queue "
+            "item 7") from e
+    if is_train_checkpoint(payload) \
+            and payload["format_version"] != CKPT_FORMAT_VERSION:
+        raise ValueError(f"{path} has format version "
+                         f"{payload['format_version']}; this build reads "
+                         f"{CKPT_FORMAT_VERSION}")
+    return payload
+
+
+def save_checkpoint(path: str, model: torch.nn.Module,
+                    optimizer: torch.optim.Optimizer, epoch: int,
+                    gcnt: int) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    payload = {"format_version": CKPT_FORMAT_VERSION,
+               "model": model.state_dict(),
+               "optimizer": optimizer.state_dict(),
+               "epoch": int(epoch), "gcnt": int(gcnt)}
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    log.info("saved checkpoint to %s (epoch %d)", path, epoch)
+
+
+def load_checkpoint(path: str, model: torch.nn.Module,
+                    optimizer: torch.optim.Optimizer):
+    """Restore model and optimizer in place; returns (epoch, gcnt)."""
+    payload = read_checkpoint(path)
+    if not is_train_checkpoint(payload):
+        raise ValueError(f"{path} holds no optimizer state: resume needs a "
+                         "checkpoint written by the trainer")
+    model.load_state_dict(payload["model"])
+    optimizer.load_state_dict(payload["optimizer"])
+    log.info("restored checkpoint from %s (epoch %d)", path,
+             payload["epoch"])
+    return payload["epoch"], payload["gcnt"]

@@ -1,34 +1,55 @@
-"""LDPC neural-decoder evaluation: the decode half of
-``fgnn_tpu/train/ldpc.py``.
+"""LDPC neural-decoder training and evaluation (counterpart of
+``fgnn_tpu/train/ldpc.py``).
 
-Decodes the MacKay 96.3.963 code under AWGN + burst noise and reports the
-5 SNR x 6 sigma_b bit-error matrix over a pre-generated evaluation grid.
+Decodes the MacKay 96.3.963 code under AWGN + burst noise.  Training
+synthesises batches on the fly (``ContinuousCodesSP``) and runs the
+reference recipe: Adam, lr 1e-2 times the per-epoch warm-up/decay
+schedule, weight decay 1e-8, loss = BCE-with-logits over the 48 info bits
++ 0.1 * MSE of the predicted 10^(sigma_b/20).  Evaluation reports the
+5 SNR x 6 sigma_b bit-error matrix over a pre-generated grid.
 
+    python -m fgnn_tpu_torch.train.ldpc --train --work-dir runs
     python -m fgnn_tpu_torch.train.ldpc --model-path model.pt \\
         --test-path dataset/ldpc_valid.npz
 
-Runs on ``cuda`` unless ``--device cpu`` is given.  ``--model-path`` is a
-port checkpoint, a ``torch.save`` of ``LDPCModel.state_dict()`` (for
-example after ``models.load_flax_variables``); without it the decoder runs
-a seeded random init.  Training, ``--bf16``, ``--bp-features``, ``--mesh``
-and ``--workers`` are not ported yet (ROADMAP.md, port queue).
+Runs on ``cuda`` unless ``--device cpu`` is given.  For training,
+``--model-path`` names a trainer checkpoint to resume from when it exists.
+For decoding it is a port checkpoint: a trainer checkpoint, or a
+``torch.save`` of ``LDPCModel.state_dict()`` (for example after
+``models.load_flax_variables``); without it the decoder runs a seeded
+random init.  ``--bf16``, ``--bp-features``, ``--mesh`` and ``--workers``
+are not ported yet (ROADMAP.md, port queue).
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
 import logging
 import os
-import pickle
+import time
+from itertools import islice
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import resolve_device
-from ..data import Codes, generate_eval_set
+from ..data import Codes, ContinuousCodesSP, generate_eval_set
 from ..models import LDPCModel, init_weights
+from ..utils.logging import MetricsWriter, init_logger
+from .common import (
+    Schedules,
+    is_train_checkpoint,
+    load_checkpoint as load_train_checkpoint,
+    make_optimizer,
+    read_checkpoint,
+    save_checkpoint,
+    set_lr,
+)
 
 N_INFO = 48
+BASE_LR = 1e-2
 SNRS = (0, 1, 2, 3, 4)
 SIGMA_BS = (0, 1, 2, 3, 4, 5)
 _INPUTS = ("node_feature", "hop_feature", "efeature_f2v", "efeature_v2f")
@@ -72,13 +93,10 @@ def decode_step(model: LDPCModel, batch: dict, device) -> torch.Tensor:
 
 
 def load_checkpoint(path: str, model: LDPCModel) -> LDPCModel:
-    try:
-        state = torch.load(path, map_location="cpu", weights_only=True)
-    except (pickle.UnpicklingError, RuntimeError) as e:
-        raise ValueError(
-            f"{path} is not a port checkpoint (a torch.save of the model's "
-            "state dict); JAX pickle checkpoints are ROADMAP.md, port queue "
-            "item 7") from e
+    """Load a trainer checkpoint's model, or a bare state dict."""
+    state = read_checkpoint(path)
+    if is_train_checkpoint(state):
+        state = state["model"]
     model.load_state_dict(state)
     return model
 
@@ -137,27 +155,143 @@ def evaluate(args, model: LDPCModel = None, *, device=None):
     return ber_total, err
 
 
+def stage_batch(model: LDPCModel, batch: dict, device) -> dict:
+    """``model_inputs`` plus the info-bit labels and sigma_b, on ``device``."""
+    staged = model_inputs(model, batch, device)
+    staged["label"] = torch.as_tensor(batch["label"][:, :N_INFO]).to(device)
+    staged["sigma_b"] = torch.as_tensor(batch["sigma_b"]).to(device)
+    return staged
+
+
+def train_step(model: LDPCModel, optimizer: torch.optim.Optimizer,
+               batch: dict, device, clean_weight: float = 0.0) -> dict:
+    """One Adam step on one batch: a numpy batch, or one that
+    ``stage_batch`` already put on ``device``.  Returns the JAX trainer's
+    metrics as device scalars, {loss (the BCE), sigma_b_loss, acc}, and
+    leaves the step's gradients in the parameters' ``.grad``."""
+    if not isinstance(batch["label"], torch.Tensor):
+        batch = stage_batch(model, batch, device)
+    model.train()
+    label = batch["label"].float()
+    sigma_b = batch["sigma_b"].float().reshape(-1)
+    logits, sb_pred = model(**{k: batch[k] for k in _INPUTS})
+    per_bit = F.binary_cross_entropy_with_logits(
+        logits.reshape(label.shape), label, reduction="none")
+    if clean_weight:
+        # --clean-weight: upweight the sigma_b <= 1 samples, where
+        # classical BP is near-ML
+        w = 1.0 + clean_weight * (sigma_b <= 1.0).float()
+        bce = (w * per_bit.mean(dim=-1)).sum() / w.sum()
+    else:
+        bce = per_bit.mean()
+    mse = (sb_pred.reshape(-1) - torch.pow(10.0, sigma_b / 20.0)).square() \
+        .mean()
+    optimizer.zero_grad(set_to_none=True)
+    (bce + 0.1 * mse).backward()
+    optimizer.step()
+    with torch.no_grad():
+        acc = ((logits > 0).to(batch["label"].dtype)
+               == batch["label"]).float().mean()
+    return {"loss": bce.detach(), "sigma_b_loss": mse.detach(), "acc": acc}
+
+
+def train(args, model: LDPCModel, writer: MetricsWriter, model_dir: str, *,
+          device=None) -> LDPCModel:
+    """Train ``model`` (already initialised) for ``args.n_epochs`` epochs,
+    resuming from ``args.model_path`` when that checkpoint exists.  Saves
+    ``ldpc_latest.ckpt`` after each epoch and ``ldpc_final.ckpt`` at the
+    end, in ``model_dir``."""
+    dev = resolve_device(device)
+    model = model.to(dev)
+    dataset = ContinuousCodesSP(length=args.samples_per_epoch, snr=args.snr,
+                                seed=args.seed)
+    # The JAX trainer draws one batch for its parameter init before it
+    # trains (fgnn_tpu/train/ldpc.py:236); drawing and dropping it here
+    # gives both trainers the same batches for one seed.
+    next(dataset.batches(args.batch_size))
+    optimizer = make_optimizer(model.parameters(), BASE_LR)
+    sched = Schedules.ldpc()
+
+    start_epoch, gcnt = 0, 0
+    if args.model_path and os.path.exists(args.model_path):
+        start_epoch, gcnt = load_train_checkpoint(args.model_path, model,
+                                                  optimizer)
+    steps_per_epoch = (args.steps_per_epoch
+                       or len(dataset) // args.batch_size)
+    log.info("training: %d epochs x %d steps on %s", args.n_epochs,
+             steps_per_epoch, dev)
+    ckpt_path = os.path.join(model_dir, "ldpc_latest.ckpt")
+    for epoch in range(start_epoch, args.n_epochs):
+        set_lr(optimizer, BASE_LR * sched(epoch))
+        t0 = time.time()
+        # metrics stay on the device until the logging boundary
+        pending = []
+        for bcnt, batch in enumerate(islice(
+                dataset.batches(args.batch_size), steps_per_epoch)):
+            pending.append(train_step(model, optimizer, batch, dev,
+                                      args.clean_weight))
+            gcnt += 1
+            if gcnt % 10 == 0:
+                mm = {k: float(torch.stack([m[k] for m in pending])
+                               .double().mean()) for k in pending[0]}
+                pending = []
+                for k in ("loss", "sigma_b_loss", "acc"):
+                    writer.add_scalar(f"syn_train/{k}", mm[k], gcnt)
+                log.info("epoch=%d bcnt=%d loss=%.4f acc=%.4f", epoch, bcnt,
+                         mm["loss"], mm["acc"])
+        log.info("epoch %d done in %.1fs", epoch, time.time() - t0)
+        save_checkpoint(ckpt_path, model, optimizer, epoch + 1, gcnt)
+    save_checkpoint(os.path.join(model_dir, "ldpc_final.ckpt"), model,
+                    optimizer, args.n_epochs, gcnt)
+    return model
+
+
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="fgnn_tpu_torch LDPC decoder")
+    p = argparse.ArgumentParser(description="fgnn_tpu_torch LDPC trainer "
+                                            "and decoder")
+    p.add_argument("--train", action="store_true", default=False)
+    p.add_argument("--n-epochs", "--n_epochs", type=int, default=10)
     p.add_argument("--model-path", "--model_path", type=str, default="",
-                   help="port checkpoint (torch.save of the state dict); "
-                        "empty = seeded random init")
+                   help="decoding: a port checkpoint (empty = seeded "
+                        "random init); training: the checkpoint to resume "
+                        "from when it exists")
+    p.add_argument("--model-name", "--model_name", type=str,
+                   default="FactorNN")
+    p.add_argument("--snr", type=int, default=None)
     p.add_argument("--test-path", "--test_path", type=str,
                    default="dataset/ldpc_valid.npz")
     p.add_argument("--batch-size", "--batch_size", type=int, default=32)
     p.add_argument("--aggregator", type=str, default="max")
+    p.add_argument("--samples-per-epoch", type=int, default=10000)
+    p.add_argument("--steps-per-epoch", type=int, default=None,
+                   help="override for smoke tests")
     p.add_argument("--eval-per-cell", type=int, default=1000)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--work-dir", type=str, default="runs")
+    p.add_argument("--clean-weight", "--clean_weight", type=float,
+                   default=0.0,
+                   help="extra loss weight on sigma_b<=1 samples; 0=off")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s [%(levelname)s] %(message)s")
+    dev = resolve_device(args.device)
+    if not args.train:
+        logging.basicConfig(level=logging.INFO,
+                            format="%(asctime)s [%(levelname)s] %(message)s")
+        log.info("%s", args)
+        evaluate(args, device=dev)
+        return
+    stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+    work = os.path.join(args.work_dir,
+                        f"ldpc_{args.model_name}_snr_{args.snr}_at_{stamp}")
+    init_logger(os.path.join(work, "logs"), "train", print_log=True)
     log.info("%s", args)
-    evaluate(args, device=args.device)
+    model = init_weights(LDPCModel(aggregator=args.aggregator), args.seed)
+    with MetricsWriter(os.path.join(work, "tf_logs")) as writer:
+        train(args, model, writer, work, device=dev)
 
 
 if __name__ == "__main__":

@@ -1,20 +1,25 @@
-"""Where the decode time goes on the card.
+"""Where the decode and the train-step time go on the card.
 
     python -m fgnn_tpu_torch.utils.profiling [--batch-size 256] [--steps 10]
+    python -m fgnn_tpu_torch.utils.profiling --train [--batch-size 256]
 
-Runs the LDPC decoder forward at the reference width (seeded random
-weights) on one batch already on the card and prints one JSON object:
+Runs the LDPC decoder forward (or, with ``--train``, one Adam train step of
+``train.ldpc.train_step``) at the reference width, seeded random weights,
+on one batch already on the card, and prints one JSON object:
 
 * ``batch_build_ms``: host clock of ``batch_to_features`` for one batch,
   the host work of ``Codes.batches`` in ``train.ldpc.evaluate``;
 * ``inputs_ms``: host clock of ``train.ldpc.model_inputs`` (the table
   check and the host-to-device copies), ending in a synchronize;
-* ``wall_ms``: host clock per forward, ending in a synchronize, without
-  the profiler;
+* ``wall_ms``: host clock per forward (or step), ending in a synchronize,
+  without the profiler;
 * ``device_busy_ms``: the union of the kernels' device intervals per
-  forward, from a ``torch.profiler`` trace (CUPTI) of ``--steps`` forwards;
+  forward (or step), from a ``torch.profiler`` trace (CUPTI) of
+  ``--steps`` of them;
 * ``idle_share``: 1 - device_busy_ms / wall_ms;
-* ``kernels_per_forward`` and the kernels with the most device time.
+* ``kernels_per_forward`` (``kernels_per_step``), the typed-mp kernels'
+  launches per forward (step), the device time of each of the port's
+  ``__global__`` functions, and the kernels with the most device time.
 
 Needs a CUDA device; it does not run on the CPU.
 """
@@ -29,6 +34,10 @@ import time
 from collections import defaultdict
 
 import torch
+
+
+# the port's __global__ functions (csrc/*.cu), by name
+PORT_KERNELS = ("typed_mp_fwd_kernel", "d_etype_kernel", "dh_kernel")
 
 
 def _kernel_events(trace_path: str):
@@ -46,49 +55,32 @@ def _union_us(intervals) -> float:
     return total
 
 
-def profile_decode(batch_size: int = 256, steps: int = 10, seed: int = 0,
-                   top: int = 12) -> dict:
+def _host_ms(fn, steps: int) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def _trace(fn, steps: int, wall_ms: float, per: str, top: int) -> dict:
+    """Device busy time, idle share, launches and top kernels of ``steps``
+    calls of ``fn`` under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
-    from ..data import ContinuousCodesSP, batch_to_features
-    from ..models import LDPCModel, init_weights
     from ..ops import fused_mp
-    from ..train.ldpc import model_inputs
-
-    if not torch.cuda.is_available():
-        raise RuntimeError("profiling the decoder needs a CUDA device")
-    dev = torch.device("cuda", 0)
-    model = init_weights(LDPCModel(), seed).to(dev).eval()
-    batch = next(ContinuousCodesSP(length=batch_size, seed=seed)
-                 .batches(batch_size))
-    inputs = model_inputs(model, batch, dev)
-
-    def forward():
-        with torch.inference_mode():
-            model(**inputs)
-
-    def host_ms(fn):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / steps * 1e3
-
-    ys = batch["node_feature"][..., 0]
-    batch_build_ms = host_ms(lambda: batch_to_features(ys, batch["snr_db"]))
-    inputs_ms = host_ms(lambda: model_inputs(model, batch, dev))
-    wall_ms = host_ms(forward)
 
     fused_mp.reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            forward()
+            fn()
         torch.cuda.synchronize()
-    launches = fused_mp.COUNTS["kernel_launches"]
+    fwd = fused_mp.COUNTS["kernel_launches"]
+    bwd = fused_mp.BWD_COUNTS["kernel_launches"]
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -103,28 +95,103 @@ def profile_decode(batch_size: int = 256, steps: int = 10, seed: int = 0,
     busy_ms = _union_us((e["ts"], e["ts"] + e["dur"]) for e in kernels) \
         / steps / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    port = defaultdict(lambda: [0, 0.0])
+    for name, (n, us) in by_name.items():
+        for kernel in PORT_KERNELS:
+            if f"::{kernel}<" in name:
+                port[kernel][0] += n
+                port[kernel][1] += us
+    out = {
+        "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+        f"kernels_per_{per}": len(kernels) / steps,
+        f"typed_mp_fwd_launches_per_{per}": fwd / steps,
+    }
+    if bwd:
+        out[f"typed_mp_bwd_launches_per_{per}"] = bwd / steps
+    out["port_kernels"] = {
+        kernel: {f"per_{per}": n / steps, f"ms_per_{per}": us / steps / 1e3}
+        for kernel, (n, us) in port.items()}
+    out["top_kernels"] = [
+        {"name": name[:80], f"per_{per}": n / steps,
+         f"ms_per_{per}": us / steps / 1e3} for name, (n, us) in ranked]
+    return out
+
+
+def _setup(batch_size: int, seed: int, train: bool):
+    from ..data import ContinuousCodesSP
+    from ..models import LDPCModel, init_weights
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("profiling the decoder needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    model = init_weights(LDPCModel(), seed).to(dev).train(train)
+    batch = next(ContinuousCodesSP(length=batch_size, seed=seed)
+                 .batches(batch_size))
+    return dev, model, batch
+
+
+def profile_decode(batch_size: int = 256, steps: int = 10, seed: int = 0,
+                   top: int = 12) -> dict:
+    from ..data import batch_to_features
+    from ..train.ldpc import model_inputs
+
+    dev, model, batch = _setup(batch_size, seed, train=False)
+    inputs = model_inputs(model, batch, dev)
+
+    def forward():
+        with torch.inference_mode():
+            model(**inputs)
+
+    ys = batch["node_feature"][..., 0]
+    batch_build_ms = _host_ms(
+        lambda: batch_to_features(ys, batch["snr_db"]), steps)
+    inputs_ms = _host_ms(lambda: model_inputs(model, batch, dev), steps)
+    wall_ms = _host_ms(forward, steps)
     return {
         "device": torch.cuda.get_device_name(0),
         "batch_size": batch_size, "steps": steps,
         "batch_build_ms": batch_build_ms, "inputs_ms": inputs_ms,
         "wall_ms": wall_ms,
-        "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
-        "kernels_per_forward": len(kernels) / steps,
-        "typed_mp_fwd_launches_per_forward": launches / steps,
-        "top_kernels": [
-            {"name": name[:80], "per_forward": n / steps,
-             "ms_per_forward": us / steps / 1e3}
-            for name, (n, us) in ranked],
+        **_trace(forward, steps, wall_ms, "forward", top),
+    }
+
+
+def profile_train(batch_size: int = 256, steps: int = 10, seed: int = 0,
+                  top: int = 12) -> dict:
+    """One Adam step of ``train.ldpc.train_step`` on a batch staged on the
+    card (``stage_batch``), f32, TF32 off."""
+    from ..train.common import make_optimizer
+    from ..train.ldpc import BASE_LR, stage_batch, train_step
+
+    dev, model, batch = _setup(batch_size, seed, train=True)
+    opt = make_optimizer(model.parameters(), BASE_LR)
+    staged = stage_batch(model, batch, dev)
+    inputs_ms = _host_ms(lambda: stage_batch(model, batch, dev), steps)
+
+    def step():
+        train_step(model, opt, staged, dev)
+
+    wall_ms = _host_ms(step, steps)
+    return {
+        "device": torch.cuda.get_device_name(0),
+        "batch_size": batch_size, "steps": steps, "inputs_ms": inputs_ms,
+        "wall_ms": wall_ms,
+        **_trace(step, steps, wall_ms, "step", top),
     }
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--train", action="store_true",
+                   help="profile one train step instead of a forward")
     p.add_argument("--batch-size", type=int, default=256)
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
-    print(json.dumps(profile_decode(args.batch_size, args.steps, args.seed)))
+    fn = profile_train if args.train else profile_decode
+    print(json.dumps(fn(args.batch_size, args.steps, args.seed)))
 
 
 if __name__ == "__main__":

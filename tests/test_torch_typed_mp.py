@@ -1,12 +1,15 @@
 """The port's typed-mp conv and its kernel wrapper against the JAX package.
 
-On the CPU the wrapper runs the kernel's plain PyTorch version; it is held
-against ``fgnn_tpu.ops.typed_mp.typed_mp_conv`` (the XLA path) and against
-the Pallas forward ``_fused_fwd_impl`` in interpret mode (out and the
-first-win argmax).  The kernel itself is checked on the card by
-tests/test_torch_cuda.py and chip_smoke.py.
+On the CPU the wrappers run the kernels' plain PyTorch versions; they are
+held against ``fgnn_tpu.ops.typed_mp.typed_mp_conv`` (the XLA path) and
+against the Pallas kernels in interpret mode: the forward
+``_fused_fwd_impl`` (out and the first-win argmax), the backward
+``_fused_bwd_impl``, and ``jax.grad`` through ``fused_typed_mp``.  The
+kernels themselves are checked on the card by tests/test_torch_cuda.py and
+chip_smoke.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -212,13 +215,195 @@ def test_kernel_predicate_raises(case):
         fused_mp.check_kernel_args(h, nn, et, agg, want)
 
 
-def test_backward_is_not_ported_yet(rng):
-    h = torch.randn(2, 5, 3, 4, requires_grad=True)
-    nn = torch.zeros(3, 2, dtype=torch.int32)
-    et = torch.randn(2, 3, 2, 3)
-    out = fused_mp.typed_mp_fwd(h, nn, et, "max")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        out.sum().backward()
+# --------------------------------------------------------------------------
+# the backward
+
+
+def _pred_args(B=2, N=5, Nd=3, K=2, T=4, C=8):
+    h = torch.zeros(B, N, T, C)
+    nn = torch.zeros(Nd, K, dtype=torch.int32)
+    table = GatherTable(nn.numpy(), N)
+    return dict(g=torch.zeros(B, Nd, C), h=h, nn_idx=nn,
+                src_ptr=table.src_ptr, src_edge=table.src_edge,
+                etype=torch.zeros(B, Nd, K, T),
+                argmax=torch.zeros(B, Nd, C, dtype=torch.uint8),
+                out=torch.zeros(B, Nd, C))
+
+
+@pytest.mark.parametrize("agg", AGGS)
+def test_kernel_predicates_take_what_the_kernels_take(agg):
+    a = _pred_args()
+    fused_mp.check_kernel_args(a["h"], a["nn_idx"], a["etype"], agg,
+                               agg == "max")
+    fused_mp.check_bwd_args(aggregator=agg, **a)
+    # max needs only the argmax, softmax only out
+    fused_mp.check_bwd_args(aggregator=agg, **{
+        **a, "argmax": a["argmax"] if agg == "max" else None,
+        "out": a["out"] if agg == "softmax" else None})
+
+
+@pytest.mark.parametrize("case,match", [
+    ("no_argmax", "needs argmax"), ("no_out", "needs out"),
+    ("argmax_dtype", "needs argmax"), ("g_shape", "g must be"),
+    ("g_dtype", "g must be"), ("ptr_dtype", "transposed table"),
+    ("edge_len", "transposed table"), ("t_limit", "T <= 16"),
+    ("contiguous", "contiguous")])
+def test_bwd_predicate_raises(case, match):
+    agg = "softmax" if case == "no_out" else "max"
+    if case == "t_limit":
+        a = _pred_args(T=17)
+    else:
+        a = _pred_args()
+    B, N, T, C = a["h"].shape
+    if case == "no_argmax":
+        a["argmax"] = None
+    elif case == "no_out":
+        a["out"] = None
+    elif case == "argmax_dtype":
+        a["argmax"] = a["argmax"].long()
+    elif case == "g_shape":
+        a["g"] = a["g"][:, :-1]
+    elif case == "g_dtype":
+        a["g"] = a["g"].double()
+    elif case == "ptr_dtype":
+        a["src_ptr"] = a["src_ptr"].long()
+    elif case == "edge_len":
+        a["src_edge"] = a["src_edge"][:-1]
+    elif case == "contiguous":
+        a["g"] = torch.zeros(B, C, a["g"].shape[1]).transpose(1, 2)
+    with pytest.raises(ValueError, match=match):
+        fused_mp.check_bwd_args(aggregator=agg, **a)
+
+
+def _port_grads(x, nn, et, w, b, C, agg):
+    """dx, d_etype, d_filters, d_bias of sum(sin(conv)) through the port."""
+    ts = [torch.from_numpy(a).requires_grad_() for a in (x, et, w, b)]
+    out = typed_mp_conv(ts[0], nn, ts[1], ts[2], C, aggregator=agg,
+                        bias=ts[3])
+    out.sin().sum().backward()
+    return [t.grad.numpy() for t in ts]
+
+
+def _jax_grads(conv, x, nn, et, w, b):
+    def loss(x, et, w, b):
+        return jnp.sum(jnp.sin(conv(x, jnp.asarray(nn), et, w, b)))
+
+    return [np.asarray(a) for a in jax.grad(loss, argnums=(0, 1, 2, 3))(
+        *map(jnp.asarray, (x, et, w, b)))]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("agg", AGGS)
+def test_conv_grads_match_pallas_and_xla(rng, shape, agg):
+    """Against jax.grad through the Pallas kernels in interpret mode (f32)
+    and through the XLA conv; rtol/atol 5e-5, as tests/test_fused_mp.py
+    holds the two JAX paths to each other."""
+    x, nn, et, w, b = _mk(rng, *shape)
+    C = shape[-1]
+    fused_mp.reset_counts()
+    got = _port_grads(x, nn, et, w, b, C, agg)
+    assert fused_mp.BWD_COUNTS == {"kernel_launches": 0, "plain_calls": 1}
+    pallas = _jax_grads(lambda x, nn, et, w, b: j_fused.fused_typed_mp(
+        x, nn, et, w, C, aggregator=agg, bias=b, precision="float32"),
+        x, nn, et, w, b)
+    xla = _jax_grads(lambda x, nn, et, w, b: j_conv(
+        x, nn, et, w, C, extension=JExtension.NO_EXTENSION, aggregator=agg,
+        bias=b), x, nn, et, w, b)
+    for name, g, p, q in zip(["dx", "d_etype", "d_filters", "d_bias"], got,
+                             pallas, xla):
+        np.testing.assert_allclose(g, p, rtol=5e-5, atol=5e-5,
+                                   err_msg=f"{name} vs Pallas")
+        np.testing.assert_allclose(g, q, rtol=5e-5, atol=5e-5,
+                                   err_msg=f"{name} vs XLA")
+
+
+def test_max_ties_send_the_cotangent_to_the_first_slot(rng):
+    """Every k slot ties exactly (tests/test_fused_mp.py:167-192): the port
+    routes the whole cotangent to k=0, as the Pallas backward does, where
+    the XLA path splits it."""
+    B, N, Cin, Nd, K, T, C = 8, 16, 4, 16, 3, 2, 16
+    x = np.ones((B, N, Cin), np.float32)
+    nn = np.zeros((Nd, K), np.int32)
+    et = np.ones((B, Nd, K, T), np.float32)
+    w = (rng.randn(Cin, C * T) * 0.1).astype(np.float32)
+    b = np.zeros(C, np.float32)
+    got = _port_grads(x, nn, et, w, b, C, "max")[1]
+    pallas = _jax_grads(lambda x, nn, et, w, b: j_fused.fused_typed_mp(
+        x, nn, et, w, C, aggregator="max", precision="float32"),
+        x, nn, et, w, b)[1]
+    assert not got[:, :, 1:].any()
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", SHAPES[:2] + SHAPES[3:])
+@pytest.mark.parametrize("agg", AGGS)
+def test_plain_backward_matches_pallas_bwd(rng, shape, agg):
+    """The plain backward against ``_fused_bwd_impl`` (interpret mode, f32)
+    called directly with the same argmax and cotangent."""
+    B, N, Cin, Nd, K, T, C = shape
+    h = rng.randn(B, N, T, C).astype(np.float32)
+    nn = rng.randint(0, N, (Nd, K)).astype(np.int32)
+    et = rng.randn(B, Nd, K, T).astype(np.float32)
+    g = rng.randn(B, Nd, C).astype(np.float32)
+    res = _plain(h, nn, et, agg, want_argmax=agg == "max")
+    out, am = res if agg == "max" else (res, None)
+    dh, det = fused_mp.typed_gather_mix_agg_bwd(
+        torch.from_numpy(g), torch.from_numpy(h), torch.from_numpy(nn),
+        None, None, torch.from_numpy(et), agg, 3.0, argmax=am, out=out)
+
+    def rows(a, dtype=jnp.float32):  # (B, Nd, C) -> (Nd, B * C)
+        return jnp.asarray(np.transpose(a, (1, 0, 2)).reshape(Nd, B * C),
+                           dtype)
+
+    h5 = jnp.asarray(np.transpose(h, (2, 1, 0, 3)).reshape(T, N, B * C))
+    et3 = jnp.asarray(np.transpose(et, (3, 0, 2, 1)).reshape(T, B, K * Nd))
+    oh = np.zeros((K * Nd, N), np.float32)
+    oh[np.arange(K * Nd), nn.T.reshape(-1)] = 1.0
+    amax = rows(am.numpy() if am is not None else np.zeros_like(g),
+                jnp.bfloat16)
+    dh5, det3 = j_fused._fused_bwd_impl(
+        h5, et3, jnp.asarray(oh), jnp.asarray(oh.T.copy()), amax, C, agg,
+        3.0, "float32", Nd, K, B, B, rows(g))
+    ref_dh = np.transpose(np.asarray(dh5).reshape(T, N, B, C), (2, 1, 0, 3))
+    ref_det = np.transpose(np.asarray(det3).reshape(T, B, K, Nd),
+                           (1, 3, 2, 0))
+    np.testing.assert_allclose(dh.numpy(), ref_dh, rtol=5e-5, atol=5e-5)
+    np.testing.assert_allclose(det.numpy(), ref_det, rtol=5e-5, atol=5e-5)
+
+
+def test_transposed_table_lists_in_edges_in_order(rng):
+    nn = rng.randint(0, 7, (9, 4))
+    table = GatherTable(nn, 7)
+    ptr, edge = table.src_ptr.numpy(), table.src_edge.numpy()
+    assert ptr[0] == 0 and ptr[-1] == nn.size
+    for j in range(7):
+        es = edge[ptr[j]:ptr[j + 1]]
+        np.testing.assert_array_equal(es, np.flatnonzero(nn.ravel() == j))
+    assert "src_ptr" not in table.state_dict()
+
+
+def test_argmax_only_when_a_gradient_can_be_asked_for(rng):
+    x, nn, et, w, b = _mk(rng, *SHAPES[0])
+    C = SHAPES[0][-1]
+    wt = torch.from_numpy(w).requires_grad_()
+    calls = []
+    real = fused_mp.typed_gather_mix_agg
+
+    def spy(*args, **kw):
+        calls.append(args[-1])
+        return real(*args, **kw)
+
+    fused_mp.typed_gather_mix_agg = spy
+    try:
+        with torch.inference_mode():
+            typed_mp_conv(torch.from_numpy(x), nn, torch.from_numpy(et), wt,
+                          C, aggregator="max")
+        out = typed_mp_conv(torch.from_numpy(x), nn, torch.from_numpy(et),
+                            wt, C, aggregator="max")
+    finally:
+        fused_mp.typed_gather_mix_agg = real
+    assert calls == [False, True]  # want_argmax
+    assert out.grad_fn is not None
 
 
 def test_extensions_and_bad_tables_raise(rng):
