@@ -28,6 +28,22 @@ Phases, one JSON line each:
                    staged batch
   train_vs_cpu     one train step from the same weights and batch on the
                    card and on the port's CPU path: losses and gradients
+  kernel_check_ext the DIFF/NEIGHBOR mode of the forward kernel against its
+                   plain version at the synthetic models' shapes (B=32) and
+                   a ragged one, all four aggregators; kernel, plain and
+                   bound times at each path shape
+  kernel_check_ext_bwd  the same for the backward kernel's DIFF/NEIGHBOR
+                   mode; two launches must give the same bits
+  syn_train        ``train.synthetic.train_and_eval("hop", ...)`` at the
+                   reference width: one epoch of 20 steps at B=32 and an
+                   eval of 4 batches, seeded random init; every step
+                   launches both extension kernels 12 times and no plain
+                   version; finite losses, a checkpoint, accuracies in
+                   [0, 1]; the step time on one staged batch
+  syn_train_vs_cpu one hop train step from the same weights and batch on
+                   the card and on the port's CPU path
+  syn_fixed        ``train_and_eval("fixed", ...)`` (mp_nn), 5 steps at
+                   B=32 and one eval batch: the NEIGHBOR mode on a path
 
 then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failed check raises and the script exits non-zero; without a
@@ -86,6 +102,44 @@ KERNEL_TOL = 1e-5
 LOSS_RTOL = 1e-4
 GRAD_REL_L2 = 3e-3
 GRAD_FLOOR = 1e-5
+
+# The synthetic paths (train.synthetic) at the reference width, B=32, chain
+# length 30: the hop model runs its 12 convs on the joint [30 vars ; 30
+# factors] graphs, 5 DIFF max convs (C=64) and 1 DIFF softmax conv (C=2) on
+# each of the pw table (60, 2) and the hop table (60, 9); the fixed model
+# (mp_nn) runs 1 NEIGHBOR softmax conv and 5 DIFF max convs on the chain
+# table (30, 8), C=64.  All with T=16.  (name, B, N = Nd, K, T, C, the
+# path's aggregator, forward = backward launches per step of the hop model,
+# of the fixed model); a ragged shape on the scalar path.  Each step
+# launches the forward with the argmax for every max conv: 10 of 12 (hop),
+# 5 of 6 (fixed).
+SYN_BATCH = 32
+EXT_SHAPES = [
+    ("hop_pw_c64", 32, 60, 2, 16, 64, "max", 5, 0),
+    ("hop_high_c64", 32, 60, 9, 16, 64, "max", 5, 0),
+    ("hop_pw_c2", 32, 60, 2, 16, 2, "softmax", 1, 0),
+    ("hop_high_c2", 32, 60, 9, 16, 2, "softmax", 1, 0),
+    ("fixed_nbr_c64", 32, 30, 8, 16, 64, "softmax", 0, 1),
+    ("fixed_diff_c64", 32, 30, 8, 16, 64, "max", 0, 5),
+    ("ragged_c6", 3, 13, 3, 5, 6, None, 0, 0),
+]
+HOP_PER_STEP = sum(s[7] for s in EXT_SHAPES)     # 12
+FIXED_PER_STEP = sum(s[8] for s in EXT_SHAPES)   # 6
+SYN_STEPS = 20
+SYN_EVAL_BATCHES = 4
+FIXED_STEPS = 5
+# The hop model's gradient at a random init is ill-conditioned: max
+# near-ties between factors with the same features flip the first-win
+# argmax, and with it the routing of the cotangent, under rounding, and
+# BatchNorm channels that are nearly constant over the batch amplify
+# rounding by up to 1/sqrt(eps).  On the CPU the f32 path lies up to 0.8%
+# (relative L2) from an f64 run, and moving the node features by one ulp
+# moves its gradients by up to 2.2%.  So the card's f32 gradients are held
+# to the f64 CPU reference: no more than SYN_GRAD_RATIO times as far from
+# it as the CPU's f32 gradients are, with and without that one-ulp change,
+# measured in the same run.
+SYN_GRAD_RATIO = 2.0
+ULP = 2.0 ** -23
 
 
 def emit(phase, **kw):
@@ -465,6 +519,33 @@ def phase_train(torch, fused_mp, dev, tmp):
     return fwd, bwd
 
 
+def _grad_errors(torch, got, ref):
+    """Gradients ``got`` against ``ref`` (name -> tensor or None), in f64:
+    relative L2 error per tensor where the reference stands clear of the
+    noise floor (GRAD_FLOOR of its largest gradient), else max abs error
+    (the tensors that are zero or tiny in exact arithmetic).  Returns
+    (rel, abs, floor, failures: a gradient on one side only or not
+    finite)."""
+    floor = GRAD_FLOOR * max(g.abs().max().item() for g in ref.values()
+                             if g is not None)
+    rel, err, bad = {}, {}, []
+    for n, r in ref.items():
+        g = got[n]
+        if r is None or g is None:
+            if not (r is None and g is None):
+                bad.append(f"{n}: a gradient on one side only")
+            continue
+        if not torch.isfinite(g).all().item():
+            bad.append(f"{n}: a gradient that is not finite")
+            continue
+        g, r = g.double(), r.double()
+        if r.abs().max().item() > 100 * floor:
+            rel[n] = ((g - r).norm() / r.norm()).item()
+        else:
+            err[n] = (g - r).abs().max().item()
+    return rel, err, floor, bad
+
+
 def phase_train_vs_cpu(torch, dev):
     from fgnn_tpu_torch.data import ContinuousCodesSP
     from fgnn_tpu_torch.models import LDPCModel, init_weights
@@ -487,25 +568,11 @@ def phase_train_vs_cpu(torch, dev):
         require(math.isfinite(gm[k]), f"finite {k}")
         require(abs(gm[k] - cm[k]) <= LOSS_RTOL * abs(cm[k]),
                 f"{k}: card {gm[k]} vs CPU {cm[k]}")
-    floor = GRAD_FLOOR * max(g.abs().max().item() for g in cg.values()
-                             if g is not None)
-    rel, noise, bad = {}, {}, []
-    for n, ref in cg.items():
-        got = gg[n]
-        if ref is None or got is None:
-            if not (ref is None and got is None):
-                bad.append(f"{n}: a gradient on one side only")
-            continue
-        if not torch.isfinite(got).all().item():
-            bad.append(f"{n}: a gradient that is not finite")
-        elif ref.abs().max().item() > 100 * floor:
-            rel[n] = ((got - ref).norm() / ref.norm()).item()
-            if rel[n] > GRAD_REL_L2:
-                bad.append(f"{n}: relative L2 error {rel[n]}")
-        else:
-            noise[n] = (got - ref).abs().max().item()
-            if noise[n] > floor:
-                bad.append(f"{n}: max abs err {noise[n]} > {floor}")
+    rel, noise, floor, bad = _grad_errors(torch, gg, cg)
+    bad += ([f"{n}: relative L2 error {v}" for n, v in rel.items()
+             if v > GRAD_REL_L2]
+            + [f"{n}: max abs err {v} > {floor}" for n, v in noise.items()
+               if v > floor])
     emit("train_vs_cpu", loss=gm["loss"], loss_cpu=cm["loss"],
          sigma_b_loss=gm["sigma_b_loss"], sigma_b_loss_cpu=cm["sigma_b_loss"],
          acc=gm["acc"], acc_cpu=cm["acc"], tensors_rel_l2=len(rel),
@@ -516,6 +583,296 @@ def phase_train_vs_cpu(torch, dev):
          noise_abs_err_worst=max(noise.values(), default=0.0),
          failed=bad)
     require(not bad, "gradients on the card and on the CPU agree")
+
+
+def _ext_inputs(torch, B, N, K, T, C, seed):
+    """h with two rows per node (self, neighbour), a table over the N
+    nodes (Nd = N) and etype, on the card."""
+    from fgnn_tpu_torch.ops.typed_mp import GatherTable
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randn(B, 2 * N, T, C, device="cuda", generator=g)
+    idx = torch.randint(0, N, (N, K), device="cuda", generator=g,
+                        dtype=torch.int32)
+    et = torch.randn(B, N, K, T, device="cuda", generator=g)
+    return h, GatherTable(idx.cpu().numpy(), N).to("cuda"), et
+
+
+def _check_close(torch, got, ref, what):
+    require(torch.isfinite(got).all().item(), f"{what} finite")
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    require(err <= KERNEL_TOL * scale,
+            f"{what}: max_abs_err {err} > {KERNEL_TOL} * {scale}")
+    return err
+
+
+def phase_kernel_check_ext(torch, fused_mp):
+    worst, rows = 0.0, []
+    for si, (name, B, N, K, T, C, path_agg, per_hop, per_fixed) in \
+            enumerate(EXT_SHAPES):
+        h, table, et = _ext_inputs(torch, B, N, K, T, C, 300 + si)
+        idx = table.idx
+        for agg in AGGS:
+            want = agg == "max"
+            got = fused_mp.typed_gather_mix_agg(h, idx, et, agg, 3.0, want,
+                                                ext=True)
+            ref = fused_mp.typed_gather_mix_agg_plain(h, idx, et, agg, 3.0,
+                                                      want, ext=True)
+            torch.cuda.synchronize()
+            out, ref_out = (got[0], ref[0]) if want else (got, ref)
+            worst = max(worst, _check_close(torch, out, ref_out,
+                                            f"{name} {agg}"))
+            if want:
+                hg = h[:, 0::2, None] + h[:, 1::2][:, idx.long()]
+                msgs = (hg * et[..., None]).sum(dim=3)
+                top2 = msgs.topk(2, dim=2).values
+                clear = ((top2[:, :, 0] - top2[:, :, 1])
+                         > 1e-5 * top2[:, :, 0].abs())
+                require((got[1] == ref[1])[clear].all().item(),
+                        f"{name}: argmax differs where the gap is clear")
+        if path_agg is None:
+            continue
+        # the train path's call: the path's aggregator, the argmax for max
+        want = path_agg == "max"
+        t_kernel, host_kernel = device_ms(
+            lambda: fused_mp.typed_gather_mix_agg(h, idx, et, path_agg, 3.0,
+                                                  want, ext=True), 200, torch)
+        t_plain, _ = device_ms(
+            lambda: fused_mp.typed_gather_mix_agg_plain(
+                h, idx, et, path_agg, 3.0, want, ext=True), 20, torch)
+        # read h (both rows), the table and etype once; write out (+argmax)
+        nbytes = (4 * (h.numel() + idx.numel() + et.numel() + B * N * C)
+                  + (B * N * C if want else 0))
+        # per edge and channel: T adds of the two rows, T FMAs, one
+        # aggregation step
+        ops = B * N * K * C * (3 * T + 1)
+        rows.append(dict(
+            name=name, B=B, N=N, Nd=N, K=K, T=T, C=C, aggregator=path_agg,
+            argmax=want, per_hop_step=per_hop, per_fixed_step=per_fixed,
+            ms=t_kernel, plain_ms=t_plain, wrapper_host_ms=host_kernel,
+            bytes=nbytes, ops=ops, bound_ms=bound_ms(nbytes, ops),
+            bound_by=bound_by(nbytes, ops),
+            gbytes_per_s=nbytes / t_kernel / 1e6))
+        emit("kernel_check_ext", **rows[-1], max_abs_err=worst)
+    return worst, rows
+
+
+def phase_kernel_check_ext_bwd(torch, fused_mp):
+    worst, rows = 0.0, []
+    for si, (name, B, N, K, T, C, path_agg, per_hop, per_fixed) in \
+            enumerate(EXT_SHAPES):
+        h, table, et = _ext_inputs(torch, B, N, K, T, C, 400 + si)
+        idx = table.idx
+        gen = torch.Generator(device="cuda").manual_seed(500 + si)
+        g = torch.randn(B, N, C, device="cuda", generator=gen)
+        kernels = {}
+        for agg in AGGS:
+            res = fused_mp.typed_gather_mix_agg(h, idx, et, agg, 3.0,
+                                                agg == "max", ext=True)
+            out, am = res if agg == "max" else (res, None)
+
+            def kernel(agg=agg, am=am, out=out):
+                return fused_mp.typed_gather_mix_agg_bwd(
+                    g, h, idx, table.ext_ptr, table.ext_edge, et, agg, 3.0,
+                    argmax=am, out=out, ext=True)
+
+            def plain(agg=agg, am=am, out=out):
+                return fused_mp.typed_gather_mix_agg_bwd_plain(
+                    g, h, idx, et, agg, 3.0, argmax=am, out=out, ext=True)
+
+            first, second, ref = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, b) for a, b in zip(first, second)),
+                    f"{name} {agg}: two launches give the same bits")
+            for what, got, want in zip(("dh", "d_etype"), first, ref):
+                worst = max(worst, _check_close(torch, got, want,
+                                                f"{name} {agg} {what}"))
+            kernels[agg] = (kernel, plain)
+        if path_agg is None:
+            continue
+        kernel, plain = kernels[path_agg]
+        t_kernel, host_kernel = device_ms(kernel, 200, torch)
+        t_plain, _ = device_ms(plain, 20, torch)
+        # read g, the argmax (max) or out (softmax), h, etype and the
+        # tables once; write dh and d_etype
+        saved = B * N * C * (1 if path_agg == "max" else 4)
+        nbytes = (4 * B * N * C + saved + 2 * 4 * h.numel()
+                  + 2 * 4 * et.numel()
+                  + 4 * (idx.numel() + table.ext_ptr.numel()
+                         + table.ext_edge.numel()))
+        # per edge and channel: dm, then T adds and T FMAs for d_etype and
+        # T FMAs into each of the two rows for dh; softmax also needs the
+        # message (T adds and T FMAs) for its weight
+        ops = B * N * K * C * (7 * T + 1 + (3 * T if path_agg == "softmax"
+                                            else 0))
+        rows.append(dict(
+            name=name, B=B, N=N, Nd=N, K=K, T=T, C=C, aggregator=path_agg,
+            per_hop_step=per_hop, per_fixed_step=per_fixed, ms=t_kernel,
+            plain_ms=t_plain, wrapper_host_ms=host_kernel, bytes=nbytes,
+            ops=ops, bound_ms=bound_ms(nbytes, ops),
+            bound_by=bound_by(nbytes, ops),
+            gbytes_per_s=nbytes / t_kernel / 1e6))
+        emit("kernel_check_ext_bwd", **rows[-1], max_abs_err=worst)
+    return worst, rows
+
+
+def _syn_args(workload, tmp, steps, eval_batches):
+    from fgnn_tpu_torch.train.synthetic import parse_args
+
+    return parse_args([
+        "--train-epoches", "1",
+        "--train-size", str(steps * SYN_BATCH),
+        "--test-size", str(eval_batches * SYN_BATCH),
+        "--batch-size", str(SYN_BATCH), "--seed", "0",
+        "--work-dir", os.path.join(tmp, workload)], workload)
+
+
+def _run_syn(torch, fused_mp, dev, workload, args, steps, eval_batches,
+             per_step):
+    """``train_and_eval`` as the CLI runs it, counted: every step and eval
+    batch launches the extension kernels ``per_step`` times and nothing
+    else runs a kernel or a plain version."""
+    from fgnn_tpu_torch.train.synthetic import train_and_eval
+
+    fused_mp.reset_counts()
+    t0 = time.perf_counter()
+    acc, lp_acc = train_and_eval(workload, args, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    fwd, bwd = dict(fused_mp.EXT_COUNTS), dict(fused_mp.EXT_BWD_COUNTS)
+    require(fwd["kernel_launches"] == per_step * (steps + eval_batches),
+            f"{workload}: forward launches {fwd['kernel_launches']} != "
+            f"{per_step} x ({steps} + {eval_batches})")
+    require(bwd["kernel_launches"] == per_step * steps,
+            f"{workload}: backward launches {bwd['kernel_launches']} != "
+            f"{per_step} x {steps}")
+    require(fwd["plain_calls"] == 0 and bwd["plain_calls"] == 0
+            and fused_mp.COUNTS["kernel_launches"] == 0
+            and fused_mp.BWD_COUNTS["kernel_launches"] == 0,
+            f"{workload}: no plain calls and no NO_EXTENSION kernel")
+    require(0.0 <= acc <= 1.0 and 0.0 <= lp_acc <= 1.0,
+            f"{workload}: acc and lp_acc in [0, 1]")
+    (run,) = os.listdir(args.work_dir)
+    run = os.path.join(args.work_dir, run)
+    require(os.path.getsize(os.path.join(run, "latest.ckpt")) > 0,
+            f"{workload}: latest.ckpt written")
+    with open(os.path.join(run, "tf_logs", "metrics.jsonl")) as f:
+        logged = {}
+        for line in f:
+            r = json.loads(line)
+            logged.setdefault(r["tag"], []).append(r["value"])
+    require(all(math.isfinite(v) for vs in logged.values() for v in vs),
+            f"{workload}: finite logged metrics")
+    require(len(logged.get("syn_train/loss", [])) == steps // 10,
+            f"{workload}: a loss every 10 steps")
+    return dict(steps=steps, eval_batches=eval_batches, seconds=seconds,
+                acc=acc, lp_acc=lp_acc,
+                losses=logged.get("syn_train/loss", []),
+                samples_per_s=logged["syn_train/samples_per_s"][0],
+                eval_samples_per_s=logged["syn_test/samples_per_s"][0],
+                fwd_launches=fwd["kernel_launches"],
+                bwd_launches=bwd["kernel_launches"],
+                plain_calls=fwd["plain_calls"] + bwd["plain_calls"])
+
+
+def phase_syn_train(torch, fused_mp, dev, tmp):
+    from fgnn_tpu_torch.data import batches
+    from fgnn_tpu_torch.models import init_weights
+    from fgnn_tpu_torch.train.common import make_optimizer
+    from fgnn_tpu_torch.train.synthetic import BASE_LR, SynWorkload, \
+        train_step
+
+    args = _syn_args("hop", tmp, SYN_STEPS, SYN_EVAL_BATCHES)
+    res = _run_syn(torch, fused_mp, dev, "hop", args, SYN_STEPS,
+                   SYN_EVAL_BATCHES, HOP_PER_STEP)
+    # the step alone, on one batch already on the card
+    wl = SynWorkload("hop", args)
+    init_weights(wl.model, 1)
+    wl.to(dev)
+    opt = make_optimizer(wl.model.parameters(), BASE_LR, weight_decay=0.0)
+    staged = wl.stage(next(batches(wl.dataset, SYN_BATCH, 1)), dev)
+    step_ms = cuda_ms(lambda: train_step(wl, opt, staged, dev), 20, torch)
+    emit("syn_train", batch_size=SYN_BATCH, **res, syn_train_step_ms=step_ms,
+         step_samples_per_s=SYN_BATCH / step_ms * 1e3,
+         params=sum(p.numel() for p in wl.model.parameters()))
+    return res
+
+
+def phase_syn_train_vs_cpu(torch, dev):
+    from fgnn_tpu_torch.data import batches
+    from fgnn_tpu_torch.models import init_weights
+    from fgnn_tpu_torch.train.common import make_optimizer
+    from fgnn_tpu_torch.train.synthetic import BASE_LR, SynWorkload, \
+        parse_args, train_step
+
+    args = parse_args(["--seed", "3"], "hop")
+    batch = next(batches(SynWorkload("hop", args).dataset, SYN_BATCH, 1))
+    runs = {}
+    for name, where, dtype in (("card", dev, torch.float32),
+                               ("cpu", "cpu", torch.float32),
+                               ("cpu_ulp", "cpu", torch.float32),
+                               ("f64", "cpu", torch.float64)):
+        wl = SynWorkload("hop", args)
+        init_weights(wl.model, 2)
+        wl.to(where)
+        wl.model.to(dtype)
+        wl.static = {k: v.to(dtype) if k.startswith("ef") else v
+                     for k, v in wl.static.items()}
+        staged = {k: v.to(dtype) if v.is_floating_point() else v
+                  for k, v in wl.stage(batch, where).items()}
+        if name == "cpu_ulp":
+            staged["node_feature"] = staged["node_feature"] * (1 + ULP)
+        opt = make_optimizer(wl.model.parameters(), BASE_LR,
+                             weight_decay=0.0)
+        metrics = train_step(wl, opt, staged, where)
+        runs[name] = ({k: float(v) for k, v in metrics.items()},
+                      {n: None if p.grad is None else p.grad.cpu().double()
+                       for n, p in wl.model.named_parameters()})
+    (gm, gg), (cm, cg), (_, rg) = runs["card"], runs["cpu"], runs["f64"]
+    require(math.isfinite(gm["loss"]), "finite loss")
+    require(abs(gm["loss"] - cm["loss"]) <= LOSS_RTOL * abs(cm["loss"]),
+            f"loss: card {gm['loss']} vs CPU {cm['loss']}")
+    # The f32 paths against the f64 reference: the card may be no more
+    # than SYN_GRAD_RATIO times as far from it as the CPU's f32 paths are
+    # at worst (or GRAD_REL_L2 / the noise floor, when that is larger).
+    card_rel, card_abs, floor, bad = _grad_errors(torch, gg, rg)
+    cpu_rel, cpu_abs, _, _ = _grad_errors(torch, cg, rg)
+    ulp_rel, ulp_abs, _, _ = _grad_errors(torch, runs["cpu_ulp"][1], rg)
+    cpu_worst = max(max(cpu_rel.values()), max(ulp_rel.values()))
+    tol_rel = max(GRAD_REL_L2, SYN_GRAD_RATIO * cpu_worst)
+    tol_abs = max(floor, SYN_GRAD_RATIO * max(
+        list(cpu_abs.values()) + list(ulp_abs.values()), default=0.0))
+    bad += ([f"{n}: relative L2 error {v}" for n, v in card_rel.items()
+             if v > tol_rel]
+            + [f"{n}: max abs err {v}" for n, v in card_abs.items()
+               if v > tol_abs])
+    vs_cpu, _, _, _ = _grad_errors(torch, gg, cg)
+    emit("syn_train_vs_cpu", loss=gm["loss"], loss_cpu=cm["loss"],
+         acc=gm["acc"], acc_cpu=cm["acc"], lp_acc=gm["lp_acc"],
+         tensors_rel_l2=len(card_rel),
+         card_vs_f64_rel_l2_worst=max(card_rel.values()),
+         card_vs_f64_worst_tensor=max(card_rel, key=card_rel.get),
+         cpu_vs_f64_rel_l2_worst=max(cpu_rel.values()),
+         cpu_ulp_vs_f64_rel_l2_worst=max(ulp_rel.values()),
+         card_vs_cpu_rel_l2_worst=max(vs_cpu.values()),
+         tol_rel_l2=tol_rel, tensors_at_noise_floor=len(card_abs),
+         card_vs_f64_abs_worst=max(card_abs.values(), default=0.0),
+         cpu_vs_f64_abs_worst=max(cpu_abs.values(), default=0.0),
+         cpu_ulp_vs_f64_abs_worst=max(ulp_abs.values(), default=0.0),
+         tol_abs=tol_abs, failed=bad)
+    require(not bad, "hop gradients on the card as close to the f64 "
+                     "reference as the CPU's f32 path")
+
+
+def phase_syn_fixed(torch, fused_mp, dev, tmp):
+    args = _syn_args("fixed", tmp, FIXED_STEPS, 1)
+    require(args.model_name == "mp_nn", "the fixed workload runs mp_nn")
+    res = _run_syn(torch, fused_mp, dev, "fixed", args, FIXED_STEPS, 1,
+                   FIXED_PER_STEP)
+    emit("syn_fixed", batch_size=SYN_BATCH, model_name=args.model_name,
+         **res)
+    return res
 
 
 def main():
@@ -539,11 +896,17 @@ def main():
     phase_build(fused_mp)
     worst, shapes = phase_kernel_check(torch, fused_mp)
     worst_bwd, shapes_bwd = phase_kernel_check_bwd(torch, fused_mp)
+    worst_ext, shapes_ext = phase_kernel_check_ext(torch, fused_mp)
+    worst_ext_bwd, shapes_ext_bwd = phase_kernel_check_ext_bwd(torch,
+                                                               fused_mp)
     with tempfile.TemporaryDirectory() as tmp:
         model, batch, counts = phase_decode(torch, fused_mp, dev, tmp)
         phase_decode_vs_cpu(torch, model, batch, dev)
         fwd_train, bwd_train = phase_train(torch, fused_mp, dev, tmp)
-    phase_train_vs_cpu(torch, dev)
+        phase_train_vs_cpu(torch, dev)
+        syn = phase_syn_train(torch, fused_mp, dev, tmp)
+        phase_syn_train_vs_cpu(torch, dev)
+        fixed = phase_syn_fixed(torch, fused_mp, dev, tmp)
 
     def per_call(rows, key, per):
         return sum(r[key] * r[per] for r in rows)
@@ -585,6 +948,40 @@ def main():
         **entry(shapes_bwd, "launches_per_step"),
         "library_ms": None,
         "per": f"one train step at B=256: {BWD_PER_STEP} launches",
+    }, {
+        "name": "typed_mp_fwd (DIFF/NEIGHBOR mode)", "route": "cuda",
+        "source": "fgnn_tpu_torch/csrc/typed_mp_fwd.cu",
+        "replaces": "fgnn_tpu/ops/fused_mp.py:243",
+        "tpu_kernel": "_fwd_kernel, extension mode (fused_mp.py:588-620)",
+        "checked": True,
+        "launches": syn["fwd_launches"] + fixed["fwd_launches"],
+        "launches_by_path": {"syn_train": syn["fwd_launches"],
+                             "syn_fixed": fixed["fwd_launches"]},
+        "max_abs_err": worst_ext,
+        **entry(shapes_ext, "per_hop_step"),
+        "library_ms": None,
+        "per": f"one hop train step at B={SYN_BATCH}: {HOP_PER_STEP} "
+               "launches, 10 with the argmax",
+        "fixed_step": {**entry(shapes_ext, "per_fixed_step"),
+                       "per": f"one fixed (mp_nn) train step: "
+                              f"{FIXED_PER_STEP} launches"},
+    }, {
+        "name": "typed_mp_bwd (DIFF/NEIGHBOR mode)", "route": "cuda",
+        "source": "fgnn_tpu_torch/csrc/typed_mp_bwd.cu",
+        "replaces": "fgnn_tpu/ops/fused_mp.py:297",
+        "tpu_kernel": "_bwd_kernel, extension mode",
+        "checked": True,
+        "launches": syn["bwd_launches"] + fixed["bwd_launches"],
+        "launches_by_path": {"syn_train": syn["bwd_launches"],
+                             "syn_fixed": fixed["bwd_launches"]},
+        "max_abs_err": worst_ext_bwd,
+        **entry(shapes_ext_bwd, "per_hop_step"),
+        "library_ms": None,
+        "per": f"one hop train step at B={SYN_BATCH}: {HOP_PER_STEP} "
+               "launches",
+        "fixed_step": {**entry(shapes_ext_bwd, "per_fixed_step"),
+                       "per": f"one fixed (mp_nn) train step: "
+                              f"{FIXED_PER_STEP} launches"},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,25 +1,37 @@
 // Typed-edge gather + edge-type mix + K-aggregation, forward (Hopper, sm_90a).
 //
-// Replaces the Pallas TPU kernel fgnn_tpu/ops/fused_mp.py:_fwd_kernel
-// (its NO_EXTENSION mode).  For every sample b, destination row d and
-// output channel c:
+// Replaces the Pallas TPU kernel fgnn_tpu/ops/fused_mp.py:_fwd_kernel in
+// both of its modes.  For every sample b, destination row d and output
+// channel c:
 //
-//   m[k] = sum_t etype[b, d, k, t] * h[b, nn_idx[d, k], t, c]
+//   NO_EXTENSION   m[k] = sum_t etype[b, d, k, t] * h[b, nn_idx[d, k], t, c]
+//   DIFF/NEIGHBOR  m[k] = sum_t etype[b, d, k, t]
+//                         * (h[b, 2 d, t, c] + h[b, 2 nn_idx[d, k] + 1, t, c])
 //   out  = AGG_k m[k]   max (first-win argmax, strict >, as the TPU kernel),
 //                       sum, mean, or softmax mx + log(sum_k exp(g (m - mx))) / g
 //
 // h = x @ W_tmajor is computed outside (a plain matmul), as the JAX package
 // leaves it to XLA; the bias is added after the kernel.  Layouts:
-// h (B, N_src, T, C) f32, nn_idx (Nd, K) int32, etype (B, Nd, K, T) f32,
-// out (B, Nd, C) f32, argmax (B, Nd, C) uint8 (max only, optional).
+// h (B, R N_src, T, C) f32, nn_idx (Nd, K) int32, etype (B, Nd, K, T) f32,
+// out (B, Nd, C) f32, argmax (B, Nd, C) uint8 (max only, optional).  R is 1
+// for NO_EXTENSION and 2 for the extensions, whose h holds two rows per
+// node, interleaved: row 2 n is the self row x_n W_a and row 2 n + 1 the
+// neighbour row x_n W_b, with W_a = W_self + W_nbr, W_b = -W_nbr (DIFF) or
+// W_a = W_self, W_b = W_nbr (NEIGHBOR): the sign is folded into the
+// weights, as fused_mp.py:603 folds it into the stacked operand.  The
+// extensions index the self row by destination, so they need Nd == N_src.
 //
 // What bounds it on the H100: bytes and launches, not operations.  At the
 // LDPC f2v shape (B=256, N_src=48, Nd=96, K=3, T=4, C=64) the kernel must
 // read h 12.6 MB + etype 1.2 MB and write out 6.3 MB (+ argmax 1.6 MB):
 // about 20 MB, or 6 us at 3.35 TB/s, against 38 MFLOP (under 1 us of f32
-// FMA).  So the design only streams those bytes once:
-//   * no one-hot gather matmul and none of the TPU kernel's (T, N, B*C)
-//     k-major layouts or tile/VMEM policy: h rows are indexed by nn_idx;
+// FMA).  At the synthetic hop conv (B=32, N=Nd=60, K=9, T=16, C=64, an
+// extension) it reads h 15.7 MB and etype 1.1 MB and writes 0.6 MB with the
+// argmax: 17 MB, or 5 us, against 53 MFLOP.  The design only streams those
+// bytes once:
+//   * no one-hot gather matmul (the TPU kernel's [onehot(dst) | onehot(src)]
+//     for the extensions) and none of its (T, N, B*C) k-major layouts or
+//     tile/VMEM policy: h rows are indexed by nn_idx (and by d);
 //   * threads run along c in 16-byte vectors where C % 4 == 0, so h rows
 //     (T*C contiguous floats) and out rows are read and written coalesced;
 //   * each thread reads the K indices and K*T etype values of its row once;
@@ -27,8 +39,8 @@
 //   * the K reduction runs in registers as the messages are formed (softmax
 //     by the online log-sum-exp), so per-edge messages never reach memory;
 //   * an h row is read by every edge that sources it (6x for f2v, 3x for
-//     v2f); at these sizes h fits the 50 MB L2, so device memory sees each
-//     byte about once.
+//     v2f, K x for the extensions' rows); at these sizes h fits the 50 MB
+//     L2, so device memory sees each byte about once.
 // The kernel allocates nothing and never synchronises; the wrapper
 // (fgnn_tpu_torch/ops/fused_mp.py) checks the arguments and allocates the
 // outputs.
@@ -66,7 +78,7 @@ struct Vec<4> {
 
 // blockIdx.x walks (b, tile of blockDim.y destination rows); threadIdx.y
 // picks the row, threadIdx.x strides over the row's C / VEC vectors.
-template <int AGG, int VEC>
+template <int AGG, int VEC, bool EXT>
 __global__ void typed_mp_fwd_kernel(const float* __restrict__ h,
                                     const int32_t* __restrict__ nn_idx,
                                     const float* __restrict__ etype,
@@ -79,8 +91,10 @@ __global__ void typed_mp_fwd_kernel(const float* __restrict__ h,
   const int d = (blockIdx.x % tiles) * blockDim.y + threadIdx.y;
   if (d >= Nd) return;
 
+  constexpr int R = EXT ? 2 : 1;  // rows of h per node
   const size_t TC = (size_t)T * C;
-  const float* h_b = h + (size_t)b * N * TC;
+  const float* h_b = h + (size_t)b * N * R * TC;
+  const float* h_self = h_b + (size_t)d * R * TC;  // read by EXT only
   const float* et_bd = etype + ((size_t)b * Nd + d) * K * T;
   const int32_t* idx_d = nn_idx + (size_t)d * K;
   const size_t o_row = ((size_t)b * Nd + d) * C;
@@ -90,7 +104,8 @@ __global__ void typed_mp_fwd_kernel(const float* __restrict__ h,
     float s[VEC];    // softmax: sum_k exp(g (m_k - acc))
     int am[VEC];     // max: first-win argmax
     for (int k = 0; k < K; ++k) {
-      const float* hs = h_b + (size_t)__ldg(idx_d + k) * TC + c;
+      const float* hs =
+          h_b + ((size_t)__ldg(idx_d + k) * R + (R - 1)) * TC + c;
       const float* e = et_bd + (size_t)k * T;
       float m[VEC];
 #pragma unroll
@@ -99,6 +114,12 @@ __global__ void typed_mp_fwd_kernel(const float* __restrict__ h,
         const float w = __ldg(e + t);
         float hv[VEC];
         Vec<VEC>::load(hs + (size_t)t * C, hv);
+        if (EXT) {
+          float sv[VEC];
+          Vec<VEC>::load(h_self + (size_t)t * C + c, sv);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) hv[i] = sv[i] + hv[i];
+        }
 #pragma unroll
         for (int i = 0; i < VEC; ++i) m[i] = fmaf(w, hv[i], m[i]);
       }
@@ -134,32 +155,33 @@ __global__ void typed_mp_fwd_kernel(const float* __restrict__ h,
   }
 }
 
-template <int AGG, int VEC>
+template <int AGG, int VEC, bool EXT>
 void launch(unsigned blocks, int threads_x, int rows, cudaStream_t stream,
             const float* h, const int32_t* nn_idx, const float* etype,
             float* out, uint8_t* argmax, int N, int Nd, int K, int T, int C,
             float gamma) {
-  typed_mp_fwd_kernel<AGG, VEC><<<blocks, dim3(threads_x, rows), 0, stream>>>(
-      h, nn_idx, etype, out, argmax, N, Nd, K, T, C, gamma);
+  typed_mp_fwd_kernel<AGG, VEC, EXT>
+      <<<blocks, dim3(threads_x, rows), 0, stream>>>(
+          h, nn_idx, etype, out, argmax, N, Nd, K, T, C, gamma);
 }
 
-template <int VEC>
+template <int VEC, bool EXT>
 int dispatch(int aggregator, unsigned blocks, int threads_x, int rows,
              cudaStream_t s, const float* h, const int32_t* nn_idx,
              const float* etype, float* out, uint8_t* argmax, int N, int Nd,
              int K, int T, int C, float gamma) {
   switch (aggregator) {
     case AGG_MAX:
-      launch<AGG_MAX, VEC>(blocks, threads_x, rows, s, h, nn_idx, etype, out, argmax, N, Nd, K, T, C, gamma);
+      launch<AGG_MAX, VEC, EXT>(blocks, threads_x, rows, s, h, nn_idx, etype, out, argmax, N, Nd, K, T, C, gamma);
       break;
     case AGG_SUM:
-      launch<AGG_SUM, VEC>(blocks, threads_x, rows, s, h, nn_idx, etype, out, argmax, N, Nd, K, T, C, gamma);
+      launch<AGG_SUM, VEC, EXT>(blocks, threads_x, rows, s, h, nn_idx, etype, out, argmax, N, Nd, K, T, C, gamma);
       break;
     case AGG_MEAN:
-      launch<AGG_MEAN, VEC>(blocks, threads_x, rows, s, h, nn_idx, etype, out, argmax, N, Nd, K, T, C, gamma);
+      launch<AGG_MEAN, VEC, EXT>(blocks, threads_x, rows, s, h, nn_idx, etype, out, argmax, N, Nd, K, T, C, gamma);
       break;
     case AGG_SOFTMAX:
-      launch<AGG_SOFTMAX, VEC>(blocks, threads_x, rows, s, h, nn_idx, etype, out, argmax, N, Nd, K, T, C, gamma);
+      launch<AGG_SOFTMAX, VEC, EXT>(blocks, threads_x, rows, s, h, nn_idx, etype, out, argmax, N, Nd, K, T, C, gamma);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -172,14 +194,15 @@ int dispatch(int aggregator, unsigned blocks, int threads_x, int rows,
 // Plain C entry point (loaded with ctypes).  Launches on `stream` and
 // returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
 // arguments it does not take.  `argmax` may be null; `vec4` asks for the
-// 16-byte path, which needs C % 4 == 0 and 16-byte aligned h and out.
+// 16-byte path, which needs C % 4 == 0 and 16-byte aligned h and out; `ext`
+// selects the DIFF/NEIGHBOR mode, whose h has 2 N rows and needs Nd == N.
 extern "C" int typed_mp_fwd(const float* h, const int32_t* nn_idx,
                             const float* etype, float* out, uint8_t* argmax,
                             int B, int N, int Nd, int K, int T, int C,
-                            int aggregator, float gamma, int vec4,
+                            int aggregator, float gamma, int vec4, int ext,
                             void* stream) {
   if (B <= 0 || N <= 0 || Nd <= 0 || K <= 0 || K > 255 || T <= 0 || C <= 0 ||
-      (vec4 && C % 4 != 0))
+      (vec4 && C % 4 != 0) || (ext && Nd != N))
     return (int)cudaErrorInvalidValue;
   const int vec = vec4 ? 4 : 1;
   const int cv = C / vec;                     // vectors per row
@@ -188,9 +211,16 @@ extern "C" int typed_mp_fwd(const float* h, const int32_t* nn_idx,
   const long long blocks = (long long)B * ((Nd + rows - 1) / rows);
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const unsigned nb = (unsigned)blocks;
+  if (vec4 && ext)
+    return dispatch<4, true>(aggregator, nb, threads_x, rows, s, h, nn_idx,
+                             etype, out, argmax, N, Nd, K, T, C, gamma);
   if (vec4)
-    return dispatch<4>(aggregator, (unsigned)blocks, threads_x, rows, s, h,
-                       nn_idx, etype, out, argmax, N, Nd, K, T, C, gamma);
-  return dispatch<1>(aggregator, (unsigned)blocks, threads_x, rows, s, h,
-                     nn_idx, etype, out, argmax, N, Nd, K, T, C, gamma);
+    return dispatch<4, false>(aggregator, nb, threads_x, rows, s, h, nn_idx,
+                              etype, out, argmax, N, Nd, K, T, C, gamma);
+  if (ext)
+    return dispatch<1, true>(aggregator, nb, threads_x, rows, s, h, nn_idx,
+                             etype, out, argmax, N, Nd, K, T, C, gamma);
+  return dispatch<1, false>(aggregator, nb, threads_x, rows, s, h, nn_idx,
+                            etype, out, argmax, N, Nd, K, T, C, gamma);
 }

@@ -8,6 +8,20 @@ from .ldpc_datasets import (
     generate_eval_set,
 )
 from .ldpc_graph import LDPCStructure, default_structure
+from .rpgm import (
+    RandomPGM,
+    RandomPGMHop,
+    RandomPGMNoHop,
+    RandomPGMPw,
+    RandomPGMPwNoHop,
+    batches,
+)
+from .tables import (
+    chain_knn_table,
+    global_factor_table,
+    high_factor_table,
+    pw_factor_table,
+)
 
 __all__ = [
     "AlistMatrix", "read_alist", "read_mod2mat", "default_paths",
@@ -15,4 +29,8 @@ __all__ = [
     "LDPCStructure", "default_structure",
     "ContinuousCodesSP", "Codes", "batch_to_features", "gen_sample",
     "generate_eval_set",
+    "RandomPGM", "RandomPGMNoHop", "RandomPGMPw", "RandomPGMPwNoHop",
+    "RandomPGMHop", "batches",
+    "chain_knn_table", "pw_factor_table", "high_factor_table",
+    "global_factor_table",
 ]

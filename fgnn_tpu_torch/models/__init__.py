@@ -1,12 +1,17 @@
 from .norm import BatchNorm, Dense, init_weights, instance_norm, leaky_relu
 from .base import IIDMap, IIDMapBN, IIDMapIN, MLP
 from .mp_conv import MPConv, MPConvResidual
+from .containers import IIDBlock, MPSequential
 from .factor_nn import FactorNN
+from .factor_mpnn import FactorMPNN
 from .ldpc_model import LDPCModel, SigmaBRegressor
+from .synthetic import SynFixedModel, SynHopFactorModel, SynPwFactorModel
 from .from_jax import load_flax_variables
 
 __all__ = [
     "BatchNorm", "Dense", "init_weights", "instance_norm", "leaky_relu",
     "IIDMap", "IIDMapBN", "IIDMapIN", "MLP", "MPConv", "MPConvResidual",
     "FactorNN", "LDPCModel", "SigmaBRegressor", "load_flax_variables",
+    "IIDBlock", "MPSequential", "FactorMPNN", "SynFixedModel",
+    "SynPwFactorModel", "SynHopFactorModel",
 ]

@@ -1,5 +1,9 @@
 """MPConv: the module around the typed-edge conv (counterpart of
-``fgnn_tpu/models/mp_conv.py``, dense-table branch, NO_EXTENSION)."""
+``fgnn_tpu/models/mp_conv.py``, dense-table branch).
+
+The JAX modules default to ``ORIG_WITH_DIFF``; the port's default is
+``NO_EXTENSION``, the LDPC models' mode, and the synthetic models
+(``factor_mpnn.py``, ``synthetic.py``) name their extension."""
 
 from __future__ import annotations
 
@@ -8,21 +12,24 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.typed_mp import GatherTable, typed_mp_conv
+from ..ops.typed_mp import Extension, GatherTable, typed_mp_conv
 from .norm import BatchNorm, Dense, leaky_relu, uniform_
 
 
 class MPConv(nn.Module):
     """gather -> filter bank -> etype mix -> aggregate -> bias -> BatchNorm
-    -> ReLU.  ``filters`` (nin, nout * T) keeps the JAX column layout
-    c * T + t."""
+    -> ReLU.  ``filters`` (nin, nout * T), or (2 nin, nout * T) for the
+    extensions, keeps the JAX column layout c * T + t."""
 
     def __init__(self, nin: int, nout: int, nedge_types: int, *,
+                 extension: Extension = Extension.NO_EXTENSION,
                  aggregator: str = "softmax"):
         super().__init__()
         self.nout = nout
+        self.extension = extension
         self.aggregator = aggregator
-        self.filters = nn.Parameter(torch.empty(nin, nout * nedge_types))
+        cin = nin if extension == Extension.NO_EXTENSION else 2 * nin
+        self.filters = nn.Parameter(torch.empty(cin, nout * nedge_types))
         self.bias = nn.Parameter(torch.empty(nout))
         self.bn = BatchNorm(nout)
 
@@ -33,6 +40,7 @@ class MPConv(nn.Module):
     def forward(self, x: torch.Tensor, table: GatherTable,
                 etype: torch.Tensor) -> torch.Tensor:
         y = typed_mp_conv(x, table, etype, self.filters, self.nout,
+                          extension=self.extension,
                           aggregator=self.aggregator, bias=self.bias)
         return torch.relu(self.bn(y))
 
@@ -42,6 +50,7 @@ class MPConvResidual(nn.Module):
     -> Dense(nmed->nout)+BN+LeakyReLU [+ x when ``with_residual``]."""
 
     def __init__(self, nin: int, nmed: int, nedge_types: int, *,
+                 extension: Extension = Extension.NO_EXTENSION,
                  with_residual: bool = True, aggregator: str = "max",
                  nout: Optional[int] = None):
         super().__init__()
@@ -49,7 +58,8 @@ class MPConvResidual(nn.Module):
         self.with_residual = with_residual
         self.conv1 = Dense(nin, nmed)
         self.bn1 = BatchNorm(nmed)
-        self.mp_conv = MPConv(nmed, nmed, nedge_types, aggregator=aggregator)
+        self.mp_conv = MPConv(nmed, nmed, nedge_types, extension=extension,
+                              aggregator=aggregator)
         self.conv2 = Dense(nmed, nout)
         self.bn2 = BatchNorm(nout)
 

@@ -6,9 +6,10 @@ Counterpart of ``fgnn_tpu/models/norm.py``, layout ``(B, N, C)``:
   of the flax kernel (in, out).
 * ``BatchNorm``: normalise each channel over every other axis; running
   stats with momentum 0.1, eps 1e-5, biased variance to normalise and
-  unbiased variance for the running average; statistics in f32 with the
-  two-pass variance (a one-pass variant failed golden parity in the JAX
-  package).  ``self.training`` selects batch or running statistics.
+  unbiased variance for the running average; statistics in f32 (f64 for
+  an f64 input, a reference run) with the two-pass variance (a one-pass
+  variant failed golden parity in the JAX package).  ``self.training``
+  selects batch or running statistics.
 * ``instance_norm``: per (b, c) over N, no affine, no running stats.
 
 Every module with parameters has ``init_(generator)``, which draws them
@@ -23,6 +24,11 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def _stats(x: torch.Tensor) -> torch.Tensor:
+    """x in the type its statistics are taken in: f32, or f64 for f64."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def uniform_(t: torch.Tensor, low: float, high: float,
@@ -66,7 +72,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             dims = tuple(range(x.ndim - 1))
-            xf = x.float()
+            xf = _stats(x)
             mean = xf.mean(dim=dims)
             var = (xf - mean).square().mean(dim=dims)
             n = x.numel() // x.shape[-1]
@@ -86,7 +92,7 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """torch.nn.InstanceNorm2d defaults on (B, N, C): per (b, c) over N.
 
     On a (B, 1, C) input the output is all zeros, as in the JAX package."""
-    xf = x.float()
+    xf = _stats(x)
     mean = xf.mean(dim=-2, keepdim=True)
     var = (xf - mean).square().mean(dim=-2, keepdim=True)
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)

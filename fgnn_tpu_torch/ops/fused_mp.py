@@ -2,7 +2,7 @@
 and backward.
 
 Counterpart of ``fgnn_tpu/ops/fused_mp.py``: two hand-written CUDA kernels
-replace the Pallas TPU kernels of its NO_EXTENSION mode,
+replace its Pallas TPU kernels, in both of their modes,
 
 * ``csrc/typed_mp_fwd.cu`` for ``_fwd_kernel``.  For h (B, N_src, T, C),
   a shared table nn_idx (Nd, K) and etype (B, Nd, K, T):
@@ -24,6 +24,13 @@ replace the Pallas TPU kernels of its NO_EXTENSION mode,
   so each element is one sum in a fixed order: no atomics, and two runs
   give the same bits.
 
+The DIFF/NEIGHBOR mode (``ext=True``) takes h (B, 2 N, T, C) with two rows
+per node, interleaved: the self row 2 n (x_n W_a) and the neighbour row
+2 n + 1 (x_n W_b, the sign folded in).  Edge (d, k) reads the sum of rows
+2 d and 2 nn_idx[d, k] + 1 wherever NO_EXTENSION reads row nn_idx[d, k];
+it needs Nd == N.  Its backward walks ``GatherTable.ext_ptr`` /
+``ext_edge``, the same transposed table over the 2 N rows.
+
 ``h = x @ W_tmajor`` stays a plain matmul outside, as does its gradient.
 Both kernels are bound by bytes, not operations; the sources' header notes
 have the details.
@@ -32,8 +39,9 @@ Beside each kernel, as every kernel of the port has them:
 
 * a plain PyTorch version (``typed_gather_mix_agg_plain``,
   ``typed_gather_mix_agg_bwd_plain``);
-* plain integer counters of kernel launches and plain calls (``COUNTS``
-  for the forward, ``BWD_COUNTS`` for the backward);
+* plain integer counters of kernel launches and plain calls, one dict per
+  kernel and mode (``COUNTS`` and ``BWD_COUNTS`` for NO_EXTENSION,
+  ``EXT_COUNTS`` and ``EXT_BWD_COUNTS`` for DIFF/NEIGHBOR);
 * a wrapper (``typed_gather_mix_agg``, ``typed_gather_mix_agg_bwd``).  A
   CPU tensor goes to the plain version, a CUDA tensor to the kernel, or
   the wrapper raises; nothing falls back.
@@ -59,6 +67,8 @@ MAX_T_BWD = 16  # the backward keeps T partial sums in registers
 
 COUNTS = {"kernel_launches": 0, "plain_calls": 0}
 BWD_COUNTS = {"kernel_launches": 0, "plain_calls": 0}
+EXT_COUNTS = {"kernel_launches": 0, "plain_calls": 0}
+EXT_BWD_COUNTS = {"kernel_launches": 0, "plain_calls": 0}
 
 KERNELS = ("typed_mp_fwd", "typed_mp_bwd")
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
@@ -68,11 +78,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    # h, nn_idx, etype, out, argmax; B N Nd K T C agg; gamma; vec4; stream
-    "typed_mp_fwd": [_PTR] * 5 + [_INT] * 7 + [ctypes.c_float, _INT, _PTR],
+    # h, nn_idx, etype, out, argmax; B N Nd K T C agg; gamma; vec4 ext;
+    # stream
+    "typed_mp_fwd": [_PTR] * 5 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 2
+    + [_PTR],
     # g, argmax, h, nn_idx, src_ptr, src_edge, etype, out, dh, d_etype;
-    # B N Nd K T C agg; gamma; vec4; stream
-    "typed_mp_bwd": [_PTR] * 10 + [_INT] * 7 + [ctypes.c_float, _INT, _PTR],
+    # B N Nd K T C agg; gamma; vec4 ext; stream
+    "typed_mp_bwd": [_PTR] * 10 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 2
+    + [_PTR],
 }
 _libs = {}
 
@@ -86,7 +99,7 @@ def library(name: str) -> str:
 
 
 def reset_counts() -> None:
-    for counts in (COUNTS, BWD_COUNTS):
+    for counts in (COUNTS, BWD_COUNTS, EXT_COUNTS, EXT_BWD_COUNTS):
         for k in counts:
             counts[k] = 0
 
@@ -144,7 +157,7 @@ def _launch(name: str, device, *args) -> None:
             *args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err} "
-                           f"(B, N, Nd, K, T, C = {args[-9:-3]})")
+                           f"(B, N, Nd, K, T, C = {args[-10:-4]})")
 
 
 def _ptr(t):
@@ -166,12 +179,21 @@ def _first_win_max(msgs: torch.Tensor):
     return acc, am
 
 
+def _gathered(h, idx, ext: bool):
+    """The rows each edge reads, (B, Nd, K, T, C): h[nn_idx], or for the
+    extensions self row 2 d plus neighbour row 2 nn_idx[d, k] + 1."""
+    if not ext:
+        return h[:, idx]
+    return h[:, 0::2, None] + h[:, 1::2][:, idx]
+
+
 def typed_gather_mix_agg_plain(h, nn_idx, etype, aggregator: str,
-                               gamma: float = 3.0, want_argmax: bool = False):
+                               gamma: float = 3.0, want_argmax: bool = False,
+                               ext: bool = False):
     """Plain PyTorch version of the forward kernel, on any device."""
     from .typed_mp import aggregate
 
-    hg = h[:, nn_idx.long()]                            # (B, Nd, K, T, C)
+    hg = _gathered(h, nn_idx.long(), ext)               # (B, Nd, K, T, C)
     msgs = (hg * etype[..., None]).sum(dim=3)           # (B, Nd, K, C)
     if aggregator == "max":
         out, am = _first_win_max(msgs)
@@ -179,9 +201,10 @@ def typed_gather_mix_agg_plain(h, nn_idx, etype, aggregator: str,
     return aggregate(msgs, aggregator, gamma)
 
 
-def _check_common(h, nn_idx, etype, aggregator: str):
+def _check_common(h, nn_idx, etype, aggregator: str, ext: bool = False):
     """Shapes (B, N, T, C), (Nd, K), (B, Nd, K, T); f32 h and etype, an
-    int32 table, 0 < K <= 255, one of the four aggregators."""
+    int32 table, 0 < K <= 255, one of the four aggregators; for the
+    extensions h has 2 Nd rows."""
     if aggregator not in AGGREGATORS:
         raise ValueError(f"unknown aggregator {aggregator!r}")
     if h.dim() != 4 or nn_idx.dim() != 2 or etype.dim() != 4:
@@ -201,6 +224,9 @@ def _check_common(h, nn_idx, etype, aggregator: str):
             or nn_idx.dtype != torch.int32:
         raise TypeError(f"expected f32 h and etype and an int32 table; got "
                         f"{h.dtype}, {etype.dtype}, {nn_idx.dtype}")
+    if ext and N != 2 * Nd:
+        raise ValueError(f"the DIFF/NEIGHBOR mode needs Nd == N_src and h "
+                         f"with 2 rows per node; got Nd={Nd} and {N} rows")
 
 
 def _check_placed(h, **tensors):
@@ -212,42 +238,47 @@ def _check_placed(h, **tensors):
             raise ValueError(f"{name} must be contiguous")
 
 
-def check_kernel_args(h, nn_idx, etype, aggregator: str, want_argmax: bool):
+def check_kernel_args(h, nn_idx, etype, aggregator: str, want_argmax: bool,
+                      ext: bool = False):
     """Raise unless the forward kernel takes these arguments: one CUDA
     device, f32 h (B, N, T, C) and etype (B, Nd, K, T), an int32 shared
     table (Nd, K) with 0 < K <= 255, all contiguous, one of the four
-    aggregators."""
-    _check_common(h, nn_idx, etype, aggregator)
+    aggregators; for the extensions (``ext``) h (B, 2 Nd, T, C)."""
+    _check_common(h, nn_idx, etype, aggregator, ext)
     if want_argmax and aggregator != "max":
         raise ValueError("the argmax exists for the max aggregator only")
     _check_placed(h, nn_idx=nn_idx, etype=etype)
 
 
 def typed_gather_mix_agg(h, nn_idx, etype, aggregator: str,
-                         gamma: float = 3.0, want_argmax: bool = False):
+                         gamma: float = 3.0, want_argmax: bool = False,
+                         ext: bool = False):
     """out (B, Nd, C) f32 [, argmax (B, Nd, C) uint8 for max].
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise.  ``nn_idx`` must hold valid rows of h: the kernel does not
+    raise.  ``nn_idx`` must hold valid nodes of h: the kernel does not
     check the indices (``ops.typed_mp.GatherTable`` checks them once, on
-    the host)."""
+    the host).  ``ext`` selects the DIFF/NEIGHBOR mode."""
+    counts = EXT_COUNTS if ext else COUNTS
     if h.device.type == "cpu":
-        COUNTS["plain_calls"] += 1
+        counts["plain_calls"] += 1
         return typed_gather_mix_agg_plain(h, nn_idx, etype, aggregator,
-                                          gamma, want_argmax)
+                                          gamma, want_argmax, ext)
     if h.device.type != "cuda":
         raise ValueError(f"no typed-mp forward for device {h.device}")
-    check_kernel_args(h, nn_idx, etype, aggregator, want_argmax)
-    B, N, T, C = h.shape
+    check_kernel_args(h, nn_idx, etype, aggregator, want_argmax, ext)
+    B, rows, T, C = h.shape
     Nd, K = nn_idx.shape
+    N = rows // 2 if ext else rows
     out = torch.empty((B, Nd, C), dtype=torch.float32, device=h.device)
     am = (torch.empty((B, Nd, C), dtype=torch.uint8, device=h.device)
           if want_argmax else None)
     vec4 = int(C % 4 == 0 and h.data_ptr() % 16 == 0)
     _launch("typed_mp_fwd", h.device, h.data_ptr(), nn_idx.data_ptr(),
             etype.data_ptr(), out.data_ptr(), _ptr(am),
-            B, N, Nd, K, T, C, AGGREGATORS[aggregator], float(gamma), vec4)
-    COUNTS["kernel_launches"] += 1
+            B, N, Nd, K, T, C, AGGREGATORS[aggregator], float(gamma), vec4,
+            int(ext))
+    counts["kernel_launches"] += 1
     return (out, am) if want_argmax else out
 
 
@@ -257,14 +288,14 @@ def typed_gather_mix_agg(h, nn_idx, etype, aggregator: str,
 
 def typed_gather_mix_agg_bwd_plain(g, h, nn_idx, etype, aggregator: str,
                                    gamma: float = 3.0, argmax=None,
-                                   out=None):
+                                   out=None, ext: bool = False):
     """Plain PyTorch version of the backward kernel, on any device:
     (dh (B, N, T, C), d_etype (B, Nd, K, T)) from the cotangent g
     (B, Nd, C).  Max needs the forward's argmax, softmax its out."""
     B, N, T, C = h.shape
     Nd, K = nn_idx.shape
     idx = nn_idx.long()
-    hg = h[:, idx]                                      # (B, Nd, K, T, C)
+    hg = _gathered(h, idx, ext)                         # (B, Nd, K, T, C)
     gk = g[:, :, None, :]                               # (B, Nd, 1, C)
     if aggregator == "max":
         ks = torch.arange(K, device=g.device).view(1, 1, K, 1)
@@ -280,21 +311,29 @@ def typed_gather_mix_agg_bwd_plain(g, h, nn_idx, etype, aggregator: str,
         raise ValueError(f"unknown aggregator {aggregator!r}")
     d_etype = torch.einsum("bdkc,bdktc->bdkt", dm, hg)
     per_edge = dm[:, :, :, None, :] * etype[..., None]  # (B, Nd, K, T, C)
-    dh = torch.zeros_like(h).index_add_(
+    if not ext:
+        dh = torch.zeros_like(h).index_add_(
+            1, idx.reshape(-1), per_edge.reshape(B, Nd * K, T, C))
+        return dh, d_etype
+    # self row 2 d: d's own K edges; neighbour row 2 j + 1: j's in-edges
+    dh_nbr = h.new_zeros(B, N // 2, T, C).index_add_(
         1, idx.reshape(-1), per_edge.reshape(B, Nd * K, T, C))
-    return dh, d_etype
+    dh = torch.stack([per_edge.sum(dim=2), dh_nbr], dim=2)
+    return dh.reshape(B, N, T, C), d_etype
 
 
 def check_bwd_args(g, h, nn_idx, src_ptr, src_edge, etype, aggregator: str,
-                   argmax=None, out=None):
+                   argmax=None, out=None, ext: bool = False):
     """Raise unless the backward kernel takes these arguments: the forward
     kernel's h, nn_idx and etype with T <= 16; f32 g (B, Nd, C); the
-    transposed table as int32 src_ptr (N + 1,) and src_edge (Nd * K,);
-    the uint8 argmax (B, Nd, C) for max and the f32 out (B, Nd, C) for
-    softmax; all on h's device and contiguous."""
-    _check_common(h, nn_idx, etype, aggregator)
+    transposed table over the N rows of h as int32 src_ptr (N + 1,) and
+    src_edge (Nd * K,), or (2 Nd * K,) for the extensions; the uint8
+    argmax (B, Nd, C) for max and the f32 out (B, Nd, C) for softmax; all
+    on h's device and contiguous."""
+    _check_common(h, nn_idx, etype, aggregator, ext)
     B, N, T, C = h.shape
     Nd, K = nn_idx.shape
+    n_edges = Nd * K * (2 if ext else 1)
     if T > MAX_T_BWD:
         raise ValueError(f"the backward kernel takes T <= {MAX_T_BWD}; "
                          f"got T={T}")
@@ -303,10 +342,10 @@ def check_bwd_args(g, h, nn_idx, src_ptr, src_edge, etype, aggregator: str,
         raise ValueError(f"g must be f32 {rows}; got {g.dtype} "
                          f"{tuple(g.shape)}")
     if tuple(src_ptr.shape) != (N + 1,) or tuple(src_edge.shape) != (
-            Nd * K,) or src_ptr.dtype != torch.int32 \
+            n_edges,) or src_ptr.dtype != torch.int32 \
             or src_edge.dtype != torch.int32:
         raise ValueError(f"the transposed table is int32 src_ptr "
-                         f"({N + 1},) and src_edge ({Nd * K},); got "
+                         f"({N + 1},) and src_edge ({n_edges},); got "
                          f"{src_ptr.dtype} {tuple(src_ptr.shape)}, "
                          f"{src_edge.dtype} {tuple(src_edge.shape)}")
     extra = {}
@@ -324,22 +363,26 @@ def check_bwd_args(g, h, nn_idx, src_ptr, src_edge, etype, aggregator: str,
 
 def typed_gather_mix_agg_bwd(g, h, nn_idx, src_ptr, src_edge, etype,
                              aggregator: str, gamma: float = 3.0,
-                             argmax=None, out=None):
+                             argmax=None, out=None, ext: bool = False):
     """(dh (B, N, T, C), d_etype (B, Nd, K, T)) f32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise.  ``src_ptr``/``src_edge`` must be the transposed table of
-    ``nn_idx`` (``GatherTable`` builds both once, on the host)."""
+    ``nn_idx`` over the rows of h (``GatherTable`` builds both forms once,
+    on the host: ``src_*``, and ``ext_*`` for the extensions)."""
+    counts = EXT_BWD_COUNTS if ext else BWD_COUNTS
     if h.device.type == "cpu":
-        BWD_COUNTS["plain_calls"] += 1
+        counts["plain_calls"] += 1
         return typed_gather_mix_agg_bwd_plain(g, h, nn_idx, etype,
-                                              aggregator, gamma, argmax, out)
+                                              aggregator, gamma, argmax, out,
+                                              ext)
     if h.device.type != "cuda":
         raise ValueError(f"no typed-mp backward for device {h.device}")
     check_bwd_args(g, h, nn_idx, src_ptr, src_edge, etype, aggregator,
-                   argmax, out)
-    B, N, T, C = h.shape
+                   argmax, out, ext)
+    B, rows, T, C = h.shape
     Nd, K = nn_idx.shape
+    N = rows // 2 if ext else rows
     if aggregator != "max":
         argmax = None
     if aggregator != "softmax":
@@ -354,8 +397,8 @@ def typed_gather_mix_agg_bwd(g, h, nn_idx, src_ptr, src_edge, etype,
             h.data_ptr(), nn_idx.data_ptr(), src_ptr.data_ptr(),
             src_edge.data_ptr(), etype.data_ptr(), _ptr(out), dh.data_ptr(),
             d_etype.data_ptr(), B, N, Nd, K, T, C, AGGREGATORS[aggregator],
-            float(gamma), vec4)
-    BWD_COUNTS["kernel_launches"] += 1
+            float(gamma), vec4, int(ext))
+    counts["kernel_launches"] += 1
     return dh, d_etype
 
 
@@ -369,17 +412,17 @@ class TypedGatherMixAgg(torch.autograd.Function):
     ``_fused``'s custom VJP).  ``for_grad`` says whether a gradient can be
     asked for: only then does the forward write the argmax (max) and keep
     its inputs; a decode under ``inference_mode`` runs as without
-    autograd."""
+    autograd.  ``ext`` selects the DIFF/NEIGHBOR mode of both kernels."""
 
     @staticmethod
     def forward(ctx, h, etype, nn_idx, src_ptr, src_edge, aggregator, gamma,
-                for_grad):
+                for_grad, ext):
         want_argmax = for_grad and aggregator == "max"
         res = typed_gather_mix_agg(h, nn_idx, etype, aggregator, gamma,
-                                   want_argmax)
+                                   want_argmax, ext=ext)
         out, am = res if want_argmax else (res, None)
         if for_grad:
-            ctx.aggregator, ctx.gamma = aggregator, gamma
+            ctx.aggregator, ctx.gamma, ctx.ext = aggregator, gamma, ext
             ctx.save_for_backward(h, etype, nn_idx, src_ptr, src_edge, am,
                                   out if aggregator == "softmax" else None)
         return out
@@ -389,14 +432,18 @@ class TypedGatherMixAgg(torch.autograd.Function):
         h, etype, nn_idx, src_ptr, src_edge, am, out = ctx.saved_tensors
         dh, d_etype = typed_gather_mix_agg_bwd(
             grad_out.contiguous(), h, nn_idx, src_ptr, src_edge, etype,
-            ctx.aggregator, ctx.gamma, argmax=am, out=out)
-        return dh, d_etype, None, None, None, None, None, None
+            ctx.aggregator, ctx.gamma, argmax=am, out=out, ext=ctx.ext)
+        return dh, d_etype, None, None, None, None, None, None, None
 
 
-def typed_mp_fwd(h, table, etype, aggregator: str, gamma: float = 3.0):
-    """The autograd entry over a ``GatherTable``: out (B, Nd, C)."""
+def typed_mp_fwd(h, table, etype, aggregator: str, gamma: float = 3.0,
+                 ext: bool = False):
+    """The autograd entry over a ``GatherTable``: out (B, Nd, C).  For the
+    extensions (``ext``) h holds 2 rows per node and the backward walks the
+    table's 2 N-row transposed form."""
     for_grad = torch.is_grad_enabled() and (h.requires_grad
                                             or etype.requires_grad)
-    return TypedGatherMixAgg.apply(h, etype, table.idx, table.src_ptr,
-                                   table.src_edge, aggregator, float(gamma),
-                                   for_grad)
+    ptr, edge = ((table.ext_ptr, table.ext_edge) if ext
+                 else (table.src_ptr, table.src_edge))
+    return TypedGatherMixAgg.apply(h, etype, table.idx, ptr, edge,
+                                   aggregator, float(gamma), for_grad, ext)

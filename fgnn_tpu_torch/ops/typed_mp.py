@@ -1,14 +1,19 @@
 """Typed-edge message passing: the core FGNN conv.
 
-Counterpart of ``fgnn_tpu/ops/typed_mp.py`` for this slice: the
-NO_EXTENSION conv over a shared 2-D table.  Per destination node i and
-neighbour slot k (source j = nn_idx[i, k]):
+Counterpart of ``fgnn_tpu/ops/typed_mp.py`` over a shared 2-D table.  Per
+destination node i and neighbour slot k (source j = nn_idx[i, k]):
 
-    m[i, k] = sum_t etype[i, k, t] * (W_t x[j])
+    NO_EXTENSION        m[i, k] = sum_t etype[i, k, t] * (W_t x[j])
+    ORIG_WITH_DIFF      m[i, k] = sum_t etype[i, k, t] * (W_t [x_i ; x_i - x_j])
+    ORIG_WITH_NEIGHBOR  m[i, k] = sum_t etype[i, k, t] * (W_t [x_i ; x_j])
 
 aggregated over k by max, (1/g) logsumexp(g .), mean or sum, then a bias.
 Padded slots (self loops) contribute real messages: nothing is masked, as
-in the JAX package.
+in the JAX package.  The extensions split their (2 C_in, nout T) filter
+bank W = [W_self ; W_nbr] as the JAX package does: [x_i ; x_i - x_j] W =
+x_i (W_self + W_nbr) - x_j W_nbr and [x_i ; x_j] W = x_i W_self + x_j W_nbr,
+so the matmuls run once per node and each edge adds two gathered rows; they
+index x by destination, so they need N_dst == N_src.
 
 ``filters`` keeps the JAX layout (C_in, C_out * T) with column c * T + t,
 so weights carry across unchanged.  A ``GatherTable`` is checked and
@@ -21,6 +26,10 @@ classified once, on the host:
 * ``gather``: everything else, which runs the typed-mp kernels
   (``ops/fused_mp.py``) on h = x @ W_tmajor: the forward, and under
   autograd the backward, which walks the table's transposed form.
+
+The shortcuts serve NO_EXTENSION only: an extension conv runs the kernels'
+DIFF/NEIGHBOR mode whatever the table's kind, as the JAX package never
+takes a shortcut for one.
 """
 
 from __future__ import annotations
@@ -33,10 +42,6 @@ import torch
 from torch import nn
 
 from . import fused_mp
-
-_NO_EXT = ("only NO_EXTENSION typed message passing is ported: the DIFF/"
-           "NEIGHBOR mode is ROADMAP.md, port queue item 4")
-
 
 class Extension(enum.Enum):
     """Edge-input construction variants (the JAX package's names)."""
@@ -70,7 +75,10 @@ class GatherTable(nn.Module):
     The transposed table, each source row's in-edges ``e = d * K + k``, is
     built here too, as CSR: the edges of source j are
     ``src_edge[src_ptr[j]:src_ptr[j + 1]]``, in ascending order, so the
-    backward sums them in a fixed order (``ops/fused_mp.py``)."""
+    backward sums them in a fixed order (``ops/fused_mp.py``).  Where
+    Nd == n_src, so is its form for the DIFF/NEIGHBOR mode, over 2 n_src
+    rows (``ext_ptr``, ``ext_edge``): row 2 d lists d's own K edges (the
+    self row they all read), row 2 j + 1 lists j's in-edges."""
 
     def __init__(self, idx, n_src: int):
         super().__init__()
@@ -101,6 +109,18 @@ class GatherTable(nn.Module):
         self.register_buffer("src_edge", torch.as_tensor(
             np.argsort(flat, kind="stable").astype(np.int32)),
             persistent=False)
+        ext_ptr = ext_edge = None
+        if self.nd == self.n_src:
+            edges = np.arange(flat.size)
+            rows = np.concatenate([2 * (edges // self.k), 2 * flat + 1])
+            order = np.argsort(rows, kind="stable")
+            ext_ptr = torch.as_tensor(np.concatenate(
+                [[0], np.cumsum(np.bincount(rows, minlength=2 * self.n_src))]
+            ).astype(np.int32))
+            ext_edge = torch.as_tensor(
+                np.concatenate([edges, edges])[order].astype(np.int32))
+        self.register_buffer("ext_ptr", ext_ptr, persistent=False)
+        self.register_buffer("ext_edge", ext_edge, persistent=False)
 
     def extra_repr(self) -> str:
         return f"({self.nd}, {self.k}) over {self.n_src}, {self.kind}"
@@ -122,11 +142,9 @@ def typed_mp_conv(x: torch.Tensor, table, etype: torch.Tensor,
 
     x: (B, N_src, C_in); table: a ``GatherTable`` (or a host array, checked
     on each call); etype: (B, N_dst, K, T); filters: (C_in, nout * T) with
-    column c * T + t; bias: (nout,), added after the aggregation.
-    Returns (B, N_dst, nout).
+    column c * T + t, or (2 C_in, nout * T) for the extensions; bias:
+    (nout,), added after the aggregation.  Returns (B, N_dst, nout).
     """
-    if extension != Extension.NO_EXTENSION:
-        raise NotImplementedError(_NO_EXT)
     if not isinstance(table, GatherTable):
         if isinstance(table, torch.Tensor):
             raise TypeError("pass a GatherTable (built once) or a host "
@@ -138,7 +156,10 @@ def typed_mp_conv(x: torch.Tensor, table, etype: torch.Tensor,
     B = x.shape[0]
     T = etype.shape[-1]
 
-    if table.kind == "gather":
+    if extension != Extension.NO_EXTENSION:
+        out = _extension_conv(x, table, etype, filters, nout, extension,
+                              aggregator, gamma)
+    elif table.kind == "gather":
         h = torch.matmul(x, tmajor_filters(filters, nout, T))
         h = h.reshape(B, table.n_src, T, nout)
         out = fused_mp.typed_mp_fwd(h, table, etype.contiguous(),
@@ -157,3 +178,32 @@ def typed_mp_conv(x: torch.Tensor, table, etype: torch.Tensor,
     if bias is not None:
         out = out + bias
     return out
+
+
+def _extension_conv(x, table: GatherTable, etype, filters, nout: int,
+                    extension: Extension, aggregator: str, gamma: float):
+    """The DIFF/NEIGHBOR conv through the kernels' extension mode: one
+    matmul gives each node its self row x W_a and its neighbour row
+    x W_b (the sign folded into W_b), interleaved as (B, 2 N, T, nout)."""
+    B, N, cin = x.shape
+    T = etype.shape[-1]
+    if table.nd != N:
+        raise ValueError(f"{extension.name} indexes x by destination and "
+                         f"needs N_dst == N_src; got a ({table.nd}, "
+                         f"{table.k}) table over {N} sources")
+    if tuple(filters.shape) != (2 * cin, nout * T):
+        raise ValueError(f"{extension.name} takes filters (2 C_in, nout T) "
+                         f"= {(2 * cin, nout * T)}; got "
+                         f"{tuple(filters.shape)}")
+    w_self, w_nbr = filters[:cin], filters[cin:]
+    if extension == Extension.ORIG_WITH_DIFF:
+        w_a, w_b = w_self + w_nbr, -w_nbr
+    elif extension == Extension.ORIG_WITH_NEIGHBOR:
+        w_a, w_b = w_self, w_nbr
+    else:
+        raise ValueError(f"unknown extension {extension}")
+    w = torch.cat([tmajor_filters(w_a, nout, T),
+                   tmajor_filters(w_b, nout, T)], dim=1)
+    h = torch.matmul(x, w).reshape(B, 2 * N, T, nout)
+    return fused_mp.typed_mp_fwd(h, table, etype.contiguous(), aggregator,
+                                 gamma, ext=True)

@@ -1,11 +1,15 @@
 """Shared training pieces (counterpart of ``fgnn_tpu/train/common.py``):
-the per-epoch LR schedule, the optimizer and the port's checkpoints.
+the per-epoch LR schedules, the optimizer, gradient clipping and the port's
+checkpoints.
 
 * Adam with the L2 weight decay folded into the gradient, as the reference
   (``torch.optim.Adam(weight_decay=...)``): the same update as the JAX
   package's ``optax.add_decayed_weights`` followed by ``adam`` (b1 0.9,
-  b2 0.999, eps 1e-8).
-* The LR is set once per epoch: ``base * Schedules.ldpc()(epoch)``.
+  b2 0.999, eps 1e-8).  The LDPC trainer decays by 1e-8, the synthetic
+  trainers not at all.
+* Clipping by global norm with optax's rule (``clip_grad_norm``).
+* The LR is set once per epoch: ``base * Schedules.ldpc()(epoch)`` or
+  ``base * Schedules.exp_decay(0.98)(epoch)``.
 * A checkpoint is a ``torch.save`` of {format_version, model, optimizer,
   epoch, gcnt} (state dicts), written atomically, resumed with
   ``load_checkpoint``.  JAX pickle checkpoints are not read (ROADMAP.md,
@@ -29,6 +33,11 @@ class Schedules:
     """Per-epoch LR multipliers (LambdaLR equivalents)."""
 
     @staticmethod
+    def exp_decay(gamma: float = 0.98, floor: float = 1e-6):
+        """gamma ** epoch, floor ``floor``."""
+        return lambda epoch: max(gamma ** epoch, floor)
+
+    @staticmethod
     def ldpc(start: int = 10):
         """Linear warm-up to 1 over ``start`` epochs (floor 1e-2), then
         0.99 per epoch (floor 1e-6)."""
@@ -41,6 +50,21 @@ class Schedules:
 
 def make_optimizer(params, base_lr: float, weight_decay: float = 1e-8):
     return torch.optim.Adam(params, lr=base_lr, weight_decay=weight_decay)
+
+
+def clip_grad_norm(params, max_norm: float) -> torch.Tensor:
+    """Scale the gradients of ``params`` in place by max_norm / norm when
+    their global L2 norm is ``max_norm`` or more, and return that norm.
+
+    optax's ``clip_by_global_norm`` rule, which divides by the norm itself
+    (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to it, and scales by a
+    coefficient clamped to 1).  Stays on the device: no host sync."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm),
+                        max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+    return norm
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:

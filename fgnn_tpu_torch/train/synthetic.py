@@ -1,0 +1,326 @@
+"""Synthetic chain-MRF MAP trainers (counterpart of
+``fgnn_tpu/train/synthetic.py``, its dense-table path).
+
+One engine, three workloads:
+  * fixed: ``SynFixedModel`` over the variable chain
+  * pw:    ``SynPwFactorModel``, learned pairwise factors
+  * hop:   ``SynHopFactorModel``, learned pairwise and budget factors
+
+The JAX trainer's recipe: Adam (no weight decay) at lr 3e-3 times 0.98 per
+epoch, gradients clipped to global norm 1.0 (optax's rule,
+``train.common.clip_grad_norm``), cross-entropy over 2 classes, batch 32;
+accuracy against the exact MAP labels, with the LP relaxation's accuracy
+as the baseline.  Samples are synthesised inline with their oracle labels
+(``data.rpgm``), in the JAX trainer's order for one seed: one batch drawn
+for the parameter init, the epochs' batches, then the eval batches from
+the same generator.  Besides the JAX trainer's scalars (``syn_train/loss``,
+``acc``, ``lp_acc`` every 10 steps, ``syn_test/acc``, ``lp_acc``) the run's
+``tf_logs/metrics.jsonl`` has ``syn_train/samples_per_s`` per epoch and
+``syn_test/samples_per_s``, host synthesis included.
+
+    python -m fgnn_tpu_torch.train.syn_hop_factor --work-dir runs
+    python -m fgnn_tpu_torch.train.syn_hop_factor --device cpu \\
+        --train-size 64 --test-size 32 --train-epoches 1
+
+Runs on ``cuda`` unless ``--device cpu`` is given.  ``--model-path`` names
+a trainer checkpoint (``latest.ckpt``, a ``torch.save``) to resume from
+when it exists.  The flags of the JAX trainer that the port does not carry
+yet raise (``UNPORTED``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import resolve_device
+from ..data import (
+    RandomPGM,
+    RandomPGMHop,
+    RandomPGMPw,
+    batches,
+    chain_knn_table,
+    global_factor_table,
+    high_factor_table,
+    pw_factor_table,
+)
+from ..models import (
+    SynFixedModel,
+    SynHopFactorModel,
+    SynPwFactorModel,
+    init_weights,
+)
+from ..ops.typed_mp import GatherTable
+from ..utils.logging import MetricsWriter, init_logger
+from .common import (
+    Schedules,
+    clip_grad_norm,
+    load_checkpoint,
+    make_optimizer,
+    save_checkpoint,
+    set_lr,
+)
+
+BASE_LR = 3e-3
+CLIP_NORM = 1.0
+LR_DECAY = 0.98
+
+# flag -> (its value when unused, the ROADMAP.md port-queue item it waits for)
+UNPORTED = {
+    "workers": (0, "item 8 (multiprocess synthesis)"),
+    "train_path": ("", "item 8 (pre-generated datasets)"),
+    "test_path": ("", "item 8 (pre-generated datasets)"),
+    "bf16": (False, "item 2 (bf16 compute policy)"),
+    "mesh": ("", "item 6 (parallel/)"),
+    "coo": (False, "item 5 (COO IR)"),
+    "mixed_lengths": ("", "item 5 (COO IR)"),
+    "length_dist": ("", "item 5 (COO IR)"),
+}
+
+log = logging.getLogger(__name__)
+
+
+def check_ported(args) -> None:
+    """Raise for any flag of the JAX trainer that the port does not carry
+    yet: none is silently ignored."""
+    for flag, (unused, item) in UNPORTED.items():
+        if getattr(args, flag, unused) != unused:
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported yet: ROADMAP.md, "
+                f"port queue {item}")
+
+
+def make_syn_dataset(workload: str, args):
+    """The per-workload sample generator (numpy, seeded)."""
+    L = args.chain_length
+    if workload == "fixed":
+        return RandomPGM(L, args.hop_cap, hop_order=args.hop_order,
+                         seed=args.seed)
+    if workload == "pw":
+        return RandomPGMPw(L, args.hop_cap, hop_order=args.hop_order,
+                           ret_efeature=False, seed=args.seed)
+    if workload == "hop":
+        return RandomPGMHop(L, hop_order=args.hop_order,
+                            ret_efeature_pw=False, seed=args.seed)
+    raise ValueError(f"unknown workload {workload!r}")
+
+
+class SynWorkload:
+    """Model, dataset and the static tables of one workload.
+
+    Each static table is a ``GatherTable`` built once, here; ``to(device)``
+    moves the tables and their edge features with the model.  ``static``
+    holds the model's table and edge-feature arguments; ``batch_keys``
+    maps the model's per-sample arguments to the batch's keys."""
+
+    def __init__(self, workload: str, args):
+        L = args.chain_length
+        dims = getattr(args, "dims", None)  # None: the reference widths
+        dim_kw = {"dims": tuple(dims)} if dims else {}
+        self.workload = workload
+        self.dataset = make_syn_dataset(workload, args)
+        if workload == "fixed":
+            self.model = SynFixedModel(variant=args.model_name)
+            nn_idx, ef = chain_knn_table(L, args.neighbour)
+            self.static = {"table": GatherTable(nn_idx, L),
+                           "efeature": torch.from_numpy(ef)}
+            self.batch_keys = {"node_feature": "node_feature"}
+            return
+        nn_pw, ef_pw = pw_factor_table(L)
+        if workload == "pw":
+            self.model = SynPwFactorModel(**dim_kw)
+            nn_high, ef_high, _ = global_factor_table(L, args.neighbour)
+            self.batch_keys = {"node_feature": "node_feature", "pws": "pws"}
+        elif workload == "hop":
+            self.model = SynHopFactorModel(hop_order=args.hop_order, **dim_kw)
+            nn_high, ef_high = high_factor_table(L, args.hop_order)
+            self.batch_keys = {"node_feature": "node_feature", "pws": "pws",
+                               "hops": "efeature_hop"}
+        else:
+            raise ValueError(f"unknown workload {workload!r}")
+        self.static = {
+            "table_pw": GatherTable(nn_pw, nn_pw.shape[0]),
+            "ef_pw": torch.from_numpy(ef_pw),
+            "table_high": GatherTable(nn_high, nn_high.shape[0]),
+            "ef_high": torch.from_numpy(ef_high)}
+
+    def to(self, device) -> "SynWorkload":
+        self.model = self.model.to(device)
+        self.static = {k: v.to(device) for k, v in self.static.items()}
+        return self
+
+    def stage(self, batch: dict, device) -> dict:
+        """The model's arguments and the labels of a numpy batch, on
+        ``device``."""
+        staged = {arg: torch.as_tensor(batch[key]).to(device)
+                  for arg, key in self.batch_keys.items()}
+        for key in ("label", "lp_label"):
+            staged[key] = torch.as_tensor(batch[key]).to(device)
+        return staged
+
+    def logits(self, staged: dict) -> torch.Tensor:
+        """(B, L, 2) logits of a staged batch."""
+        return self.model(**{a: staged[a] for a in self.batch_keys},
+                          **self.static)
+
+
+def train_step(wl: SynWorkload, optimizer: torch.optim.Optimizer,
+               batch: dict, device) -> dict:
+    """One clipped Adam step on one batch (numpy, or staged by
+    ``wl.stage``): the JAX ``make_train_step``.  Returns {loss, acc,
+    lp_acc} as device scalars and leaves the clipped gradients in the
+    parameters' ``.grad``."""
+    if not isinstance(batch["label"], torch.Tensor):
+        batch = wl.stage(batch, device)
+    model = wl.model.train()
+    logits = wl.logits(batch)
+    label = batch["label"].long()
+    loss = F.cross_entropy(logits.reshape(-1, 2), label.reshape(-1))
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    clip_grad_norm(model.parameters(), CLIP_NORM)
+    optimizer.step()
+    with torch.no_grad():
+        acc = (logits.argmax(dim=-1) == label).float().mean()
+        lp_acc = (batch["lp_label"].long() == label).float().mean()
+    return {"loss": loss.detach(), "acc": acc, "lp_acc": lp_acc}
+
+
+def eval_step(wl: SynWorkload, batch: dict, device) -> torch.Tensor:
+    """MAP predictions (B, L) of a numpy batch, on the running statistics
+    (the JAX ``make_eval_step``), left on ``device``."""
+    wl.model.eval()
+    with torch.inference_mode():
+        return wl.logits(wl.stage(batch, device)).argmax(dim=-1)
+
+
+def train_and_eval(workload: str, args, *, device=None):
+    """Train ``workload`` for ``args.train_epoches`` epochs of
+    ``train_size // batch_size`` steps (resuming from ``args.model_path``
+    when it exists), saving ``latest.ckpt`` after each epoch, then test on
+    ``max(test_size // batch_size, 1)`` fresh batches.  Returns (acc,
+    lp_acc) against the exact MAP labels."""
+    check_ported(args)
+    dev = resolve_device(device if device is not None
+                         else getattr(args, "device", None))
+    stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+    work = os.path.join(args.work_dir,
+                        f"syn_{workload}_{args.model_name}_at_{stamp}")
+    init_logger(os.path.join(work, "logs"), "train", print_log=True)
+    log.info("%s", args)
+
+    wl = SynWorkload(workload, args)
+    init_weights(wl.model, args.seed)
+    wl.to(dev)
+    # The JAX trainer draws one batch for its parameter init before it
+    # trains (fgnn_tpu/train/synthetic.py:300); drawing and dropping it
+    # gives both trainers the same batches for one seed.
+    next(batches(wl.dataset, args.batch_size, 1))
+    optimizer = make_optimizer(wl.model.parameters(), BASE_LR,
+                               weight_decay=0.0)
+    sched = Schedules.exp_decay(LR_DECAY)
+    steps_per_epoch = args.train_size // args.batch_size
+
+    start_epoch, gcnt = 0, 0
+    if args.model_path and os.path.exists(args.model_path):
+        start_epoch, gcnt = load_checkpoint(args.model_path, wl.model,
+                                            optimizer)
+    log.info("training %s: %d epochs x %d steps on %s", workload,
+             args.train_epoches, steps_per_epoch, dev)
+    with MetricsWriter(os.path.join(work, "tf_logs")) as writer:
+        for epoch in range(start_epoch, args.train_epoches):
+            set_lr(optimizer, BASE_LR * sched(epoch))
+            t0 = time.time()
+            # metrics stay on the device until the logging boundary
+            pending = []
+            for bcnt, batch in enumerate(batches(
+                    wl.dataset, args.batch_size, steps_per_epoch)):
+                pending.append(train_step(wl, optimizer, batch, dev))
+                gcnt += 1
+                if gcnt % 10 == 0:
+                    mm = {k: float(torch.stack([m[k] for m in pending])
+                                   .double().mean()) for k in pending[0]}
+                    pending = []
+                    for k, v in mm.items():
+                        writer.add_scalar(f"syn_train/{k}", v, gcnt)
+                    log.info("epoch=%d bcnt=%d %s", epoch, bcnt,
+                             {k: round(v, 4) for k, v in mm.items()})
+            save_checkpoint(os.path.join(work, "latest.ckpt"), wl.model,
+                            optimizer, epoch + 1, gcnt)
+            # the checkpoint copied the weights to the host: the device is
+            # done, so the epoch's wall time holds all of its work
+            seconds = time.time() - t0
+            writer.add_scalar("syn_train/samples_per_s",
+                              steps_per_epoch * args.batch_size / seconds,
+                              gcnt)
+            log.info("epoch %d done in %.1fs", epoch, seconds)
+
+        # ---- test: fresh oracle-labelled batches from the same generator
+        t0 = time.time()
+        eval_batches = max(args.test_size // args.batch_size, 1)
+        preds, hosts = [], []
+        for batch in batches(wl.dataset, args.batch_size, eval_batches):
+            preds.append(eval_step(wl, batch, dev))
+            hosts.append(batch)
+        accs, lp_accs = [], []
+        for pred, batch in zip(torch.stack(preds).cpu().numpy(), hosts):
+            accs.append((pred == batch["label"]).mean())
+            lp_accs.append((batch["lp_label"] == batch["label"]).mean())
+        acc, lp_acc = float(np.mean(accs)), float(np.mean(lp_accs))
+        log.info("testing result: acc = %.4f, acc_lp = %.4f", acc, lp_acc)
+        writer.add_scalar("syn_test/acc", acc, gcnt)
+        writer.add_scalar("syn_test/lp_acc", lp_acc, gcnt)
+        writer.add_scalar("syn_test/samples_per_s",
+                          eval_batches * args.batch_size
+                          / (time.time() - t0), gcnt)
+    return acc, lp_acc
+
+
+def parse_args(argv=None, workload: str = "fixed"):
+    """The JAX trainer's flags and defaults, plus ``--device``; the default
+    of ``--workers`` is 0 (inline synthesis, the only mode ported)."""
+    p = argparse.ArgumentParser(
+        description=f"fgnn_tpu_torch synthetic trainer ({workload})")
+    p.add_argument("--chain-length", "--chain_length", type=int, default=30)
+    p.add_argument("--hop-cap", "--hop_cap", type=int, default=5)
+    p.add_argument("--hop-order", "--hop_order", type=int, default=9)
+    p.add_argument("--train-epoches", "--train_epoches", type=int, default=10)
+    p.add_argument("--model-path", "--model_path", type=str, default="")
+    p.add_argument("--model-name", "--model_name", type=str,
+                   default="mp_nn" if workload == "fixed" else "mp_nn_factor")
+    p.add_argument("--neighbour", type=int, default=8)
+    p.add_argument("--train-size", "--train_size", type=int, default=90000)
+    p.add_argument("--test-size", "--test_size", type=int, default=10000)
+    p.add_argument("--batch-size", "--batch_size", type=int, default=32)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--work-dir", type=str, default="runs")
+    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--workers", type=int, default=0,
+                   help="multiprocess sample-synthesis workers: not ported "
+                        "yet, only 0 (inline) runs")
+    p.add_argument("--train-path", "--train_path", type=str, default="",
+                   help="pre-generated .npz dataset: not ported yet")
+    p.add_argument("--test-path", "--test_path", type=str, default="",
+                   help="pre-generated .npz eval dataset: not ported yet")
+    p.add_argument("--bf16", action="store_true", default=False,
+                   help="bfloat16 compute policy: not ported yet")
+    p.add_argument("--mesh", type=str, default="",
+                   help="DPxTP device mesh: not ported yet")
+    p.add_argument("--coo", action="store_true", default=False,
+                   help="(hop) COO disjoint-union batching: not ported yet")
+    p.add_argument("--mixed-lengths", "--mixed_lengths", type=str, default="",
+                   help="(hop --coo) chain lengths: not ported yet")
+    p.add_argument("--length-dist", "--length_dist", type=str, default="",
+                   help="(hop --coo) length distribution: not ported yet")
+    return p.parse_args(argv)
+
+
+def main(workload: str, argv=None):
+    return train_and_eval(workload, parse_args(argv, workload))

@@ -2,15 +2,20 @@
 
     python -m fgnn_tpu_torch.utils.profiling [--batch-size 256] [--steps 10]
     python -m fgnn_tpu_torch.utils.profiling --train [--batch-size 256]
+    python -m fgnn_tpu_torch.utils.profiling --syn hop [--batch-size 32]
 
 Runs the LDPC decoder forward (or, with ``--train``, one Adam train step of
-``train.ldpc.train_step``) at the reference width, seeded random weights,
-on one batch already on the card, and prints one JSON object:
+``train.ldpc.train_step``; with ``--syn``, one train step of a synthetic
+MAP workload, ``train.synthetic.train_step``) at the reference width,
+seeded random weights, on one batch already on the card, and prints one
+JSON object:
 
-* ``batch_build_ms``: host clock of ``batch_to_features`` for one batch,
-  the host work of ``Codes.batches`` in ``train.ldpc.evaluate``;
+* ``batch_build_ms``: host clock of building one batch: ``batch_to_features``
+  (the host work of ``Codes.batches`` in ``train.ldpc.evaluate``), or for
+  ``--syn`` the inline synthesis with oracle labels (``data.rpgm``);
 * ``inputs_ms``: host clock of ``train.ldpc.model_inputs`` (the table
-  check and the host-to-device copies), ending in a synchronize;
+  check and the host-to-device copies), ``stage_batch`` or
+  ``SynWorkload.stage``, ending in a synchronize;
 * ``wall_ms``: host clock per forward (or step), ending in a synchronize,
   without the profiler;
 * ``device_busy_ms``: the union of the kernels' device intervals per
@@ -18,8 +23,9 @@ on one batch already on the card, and prints one JSON object:
   ``--steps`` of them;
 * ``idle_share``: 1 - device_busy_ms / wall_ms;
 * ``kernels_per_forward`` (``kernels_per_step``), the typed-mp kernels'
-  launches per forward (step), the device time of each of the port's
-  ``__global__`` functions, and the kernels with the most device time.
+  launches per forward (step), in each mode, the device time of each of
+  the port's ``__global__`` functions, and the kernels with the most
+  device time.
 
 Needs a CUDA device; it does not run on the CPU.
 """
@@ -81,6 +87,8 @@ def _trace(fn, steps: int, wall_ms: float, per: str, top: int) -> dict:
         torch.cuda.synchronize()
     fwd = fused_mp.COUNTS["kernel_launches"]
     bwd = fused_mp.BWD_COUNTS["kernel_launches"]
+    ext = fused_mp.EXT_COUNTS["kernel_launches"]
+    ext_bwd = fused_mp.EXT_BWD_COUNTS["kernel_launches"]
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -104,10 +112,11 @@ def _trace(fn, steps: int, wall_ms: float, per: str, top: int) -> dict:
     out = {
         "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
         f"kernels_per_{per}": len(kernels) / steps,
-        f"typed_mp_fwd_launches_per_{per}": fwd / steps,
     }
-    if bwd:
-        out[f"typed_mp_bwd_launches_per_{per}"] = bwd / steps
+    for name, n in (("typed_mp_fwd", fwd), ("typed_mp_bwd", bwd),
+                    ("typed_mp_fwd_ext", ext), ("typed_mp_bwd_ext", ext_bwd)):
+        if n or name == "typed_mp_fwd":
+            out[f"{name}_launches_per_{per}"] = n / steps
     out["port_kernels"] = {
         kernel: {f"per_{per}": n / steps, f"ms_per_{per}": us / steps / 1e3}
         for kernel, (n, us) in port.items()}
@@ -117,15 +126,19 @@ def _trace(fn, steps: int, wall_ms: float, per: str, top: int) -> dict:
     return out
 
 
+def _device() -> torch.device:
+    if not torch.cuda.is_available():
+        raise RuntimeError("profiling needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
 def _setup(batch_size: int, seed: int, train: bool):
     from ..data import ContinuousCodesSP
     from ..models import LDPCModel, init_weights
 
-    if not torch.cuda.is_available():
-        raise RuntimeError("profiling the decoder needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
+    dev = _device()
     model = init_weights(LDPCModel(), seed).to(dev).train(train)
     batch = next(ContinuousCodesSP(length=batch_size, seed=seed)
                  .batches(batch_size))
@@ -182,16 +195,60 @@ def profile_train(batch_size: int = 256, steps: int = 10, seed: int = 0,
     }
 
 
+def profile_syn(workload: str = "hop", batch_size: int = 32,
+                steps: int = 10, seed: int = 0, top: int = 12) -> dict:
+    """One train step of ``train.synthetic.train_step`` (the JAX trainer's
+    defaults: chain 30, hop order 9, the reference dims) on a batch staged
+    on the card, f32, TF32 off."""
+    from ..data import batches
+    from ..models import init_weights
+    from ..train.common import make_optimizer
+    from ..train.synthetic import BASE_LR, SynWorkload, parse_args, \
+        train_step
+
+    dev = _device()
+    wl = SynWorkload(workload, parse_args(["--seed", str(seed)], workload))
+    init_weights(wl.model, seed)
+    wl.to(dev)
+    opt = make_optimizer(wl.model.parameters(), BASE_LR, weight_decay=0.0)
+    next(batches(wl.dataset, batch_size, 1))  # first use: imports, caches
+    t0 = time.perf_counter()
+    host = [next(batches(wl.dataset, batch_size, 1)) for _ in range(3)]
+    batch_build_ms = (time.perf_counter() - t0) / 3 * 1e3
+    staged = wl.stage(host[0], dev)
+    inputs_ms = _host_ms(lambda: wl.stage(host[0], dev), steps)
+
+    def step():
+        train_step(wl, opt, staged, dev)
+
+    wall_ms = _host_ms(step, steps)
+    return {
+        "device": torch.cuda.get_device_name(0), "workload": workload,
+        "batch_size": batch_size, "steps": steps,
+        "batch_build_ms": batch_build_ms, "inputs_ms": inputs_ms,
+        "wall_ms": wall_ms,
+        **_trace(step, steps, wall_ms, "step", top),
+    }
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--train", action="store_true",
                    help="profile one train step instead of a forward")
-    p.add_argument("--batch-size", type=int, default=256)
+    p.add_argument("--syn", choices=("fixed", "pw", "hop"), default=None,
+                   help="profile one train step of this synthetic workload")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="default 256 (LDPC) or 32 (--syn)")
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
-    fn = profile_train if args.train else profile_decode
-    print(json.dumps(fn(args.batch_size, args.steps, args.seed)))
+    if args.syn:
+        out = profile_syn(args.syn, args.batch_size or 32, args.steps,
+                          args.seed)
+    else:
+        fn = profile_train if args.train else profile_decode
+        out = fn(args.batch_size or 256, args.steps, args.seed)
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

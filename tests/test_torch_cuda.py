@@ -163,3 +163,124 @@ def test_conv_backward_on_cuda_launches_the_kernel(cuda, agg):
         grads.append([t.grad.cpu() for t in ts])
     for got, ref in zip(grads[1], grads[0]):
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# the DIFF/NEIGHBOR mode: h (B, 2 N, T, C), Nd == N
+
+
+# (B, N, K, T, C): the hop model's pw and hop tables at C=64 and C=2, the
+# fixed model's chain table, a ragged shape on the scalar path
+EXT_SHAPES = [(8, 60, 2, 16, 64), (8, 60, 9, 16, 64), (8, 60, 9, 16, 2),
+              (8, 30, 8, 16, 64), (3, 13, 3, 5, 6)]
+
+
+def _ext_inputs(shape, dev, agg, seed=0):
+    """The extension backward's inputs: h with 2 rows per node, a table
+    over the N nodes, the forward's saved tensors and a cotangent."""
+    B, N, K, T, C = shape
+    g = torch.Generator().manual_seed(seed)
+    h = torch.randn(B, 2 * N, T, C, generator=g).to(dev)
+    idx = torch.randint(0, N, (N, K), generator=g, dtype=torch.int32)
+    et = torch.randn(B, N, K, T, generator=g).to(dev)
+    table = GatherTable(idx.numpy(), N).to(dev)
+    res = fused_mp.typed_gather_mix_agg(h, table.idx, et, agg, 3.0,
+                                        agg == "max", ext=True)
+    out, am = res if agg == "max" else (res, None)
+    gout = torch.randn(out.shape, generator=g).to(dev)
+    return gout, h, table, et, am, out
+
+
+@pytest.mark.parametrize("shape", EXT_SHAPES)
+@pytest.mark.parametrize("agg", ["max", "sum", "mean", "softmax"])
+def test_ext_kernel_matches_plain(cuda, shape, agg):
+    _, h, table, et, _, _ = _ext_inputs(shape, cuda, "sum")
+    want = agg == "max"
+    before = dict(fused_mp.EXT_COUNTS), dict(fused_mp.COUNTS)
+    got = fused_mp.typed_gather_mix_agg(h, table.idx, et, agg, 3.0, want,
+                                        ext=True)
+    assert fused_mp.EXT_COUNTS["kernel_launches"] == \
+        before[0]["kernel_launches"] + 1
+    assert fused_mp.COUNTS == before[1]
+    ref = fused_mp.typed_gather_mix_agg_plain(h, table.idx, et, agg, 3.0,
+                                              want, ext=True)
+    torch.cuda.synchronize()
+    out, ref_out = (got[0], ref[0]) if want else (got, ref)
+    scale = ref_out.abs().max().item()
+    assert (out - ref_out).abs().max().item() <= 1e-5 * scale
+    if want:
+        hg = h[:, 0::2, None] + h[:, 1::2][:, table.idx.long()]
+        msgs = (hg * et[..., None]).sum(dim=3)
+        top2 = msgs.topk(2, dim=2).values
+        clear = (top2[:, :, 0] - top2[:, :, 1]) > 1e-5 * top2[:, :, 0].abs()
+        assert (got[1] == ref[1])[clear].all()
+
+
+@pytest.mark.parametrize("shape", EXT_SHAPES)
+@pytest.mark.parametrize("agg", ["max", "sum", "mean", "softmax"])
+def test_ext_bwd_kernel_matches_plain(cuda, shape, agg):
+    g, h, table, et, am, out = _ext_inputs(shape, cuda, agg)
+    runs = []
+    for _ in range(2):
+        before = fused_mp.EXT_BWD_COUNTS["kernel_launches"]
+        runs.append(fused_mp.typed_gather_mix_agg_bwd(
+            g, h, table.idx, table.ext_ptr, table.ext_edge, et, agg, 3.0,
+            argmax=am, out=out, ext=True))
+        assert fused_mp.EXT_BWD_COUNTS["kernel_launches"] == before + 1
+    ref = fused_mp.typed_gather_mix_agg_bwd_plain(
+        g, h, table.idx, et, agg, 3.0, argmax=am, out=out, ext=True)
+    torch.cuda.synchronize()
+    for got, again, want in zip(runs[0], runs[1], ref):
+        assert torch.equal(got, again)  # no atomics: the same bits
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= \
+            1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("case", ["nd_ne_n", "rows", "edge_len"])
+def test_ext_kernels_refuse_what_they_do_not_take(cuda, case):
+    g, h, table, et, am, out = _ext_inputs(EXT_SHAPES[0], cuda, "max")
+    idx, ptr, edge = table.idx, table.ext_ptr, table.ext_edge
+    if case == "nd_ne_n":  # Nd != N_src
+        idx, et = idx[:-1].contiguous(), et[:, :-1].contiguous()
+        g, am = g[:, :-1].contiguous(), am[:, :-1].contiguous()
+    elif case == "rows":  # h without its second row per node
+        h = h[:, :h.shape[1] // 2].contiguous()
+    elif case == "edge_len":  # the NO_EXTENSION table
+        ptr, edge = table.src_ptr, table.src_edge
+    with pytest.raises(ValueError):
+        if case != "edge_len":
+            fused_mp.typed_gather_mix_agg(h, idx, et, "max", ext=True)
+        fused_mp.typed_gather_mix_agg_bwd(g, h, idx, ptr, edge, et, "max",
+                                          argmax=am, ext=True)
+
+
+@pytest.mark.parametrize("ext", ["ORIG_WITH_DIFF", "ORIG_WITH_NEIGHBOR"])
+@pytest.mark.parametrize("agg", ["max", "softmax"])
+def test_ext_conv_backward_on_cuda_launches_the_kernels(cuda, ext, agg):
+    from fgnn_tpu_torch.ops.typed_mp import Extension
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 30, 16, generator=gen)
+    idx = torch.randint(0, 30, (30, 8), generator=gen)
+    et = torch.randn(4, 30, 8, 16, generator=gen)
+    w = torch.randn(32, 8 * 16, generator=gen) * 0.1
+    grads = []
+    for dev in ("cpu", cuda):
+        ts = [t.detach().to(dev).requires_grad_() for t in (x, et, w)]
+        table = GatherTable(idx.numpy(), 30).to(dev)
+        fused_mp.reset_counts()
+        out = typed_mp_conv(ts[0], table, ts[1], ts[2], 8,
+                            extension=Extension[ext], aggregator=agg)
+        out.sin().sum().backward()
+        kind = "plain_calls" if dev == "cpu" else "kernel_launches"
+        assert fused_mp.EXT_COUNTS[kind] == 1
+        assert fused_mp.EXT_BWD_COUNTS[kind] == 1
+        assert fused_mp.COUNTS["kernel_launches"] == 0
+        grads.append([t.grad.cpu() for t in ts])
+    # d_filters = x^T dh sums B * N rows of dh, each a sum over K * T
+    # terms: cuBLAS and the CPU add them in other orders, so each gradient
+    # is held to 1e-4 of its largest element (rtol 1e-4 besides)
+    for got, ref in zip(grads[1], grads[0]):
+        torch.testing.assert_close(got, ref, rtol=1e-4,
+                                   atol=1e-4 * ref.abs().max().item())

@@ -4,7 +4,8 @@ On the CPU the wrappers run the kernels' plain PyTorch versions; they are
 held against ``fgnn_tpu.ops.typed_mp.typed_mp_conv`` (the XLA path) and
 against the Pallas kernels in interpret mode: the forward
 ``_fused_fwd_impl`` (out and the first-win argmax), the backward
-``_fused_bwd_impl``, and ``jax.grad`` through ``fused_typed_mp``.  The
+``_fused_bwd_impl``, and ``jax.grad`` through ``fused_typed_mp``, in the
+NO_EXTENSION mode and in the DIFF/NEIGHBOR mode (the stacked operand).  The
 kernels themselves are checked on the card by tests/test_torch_cuda.py and
 chip_smoke.py.
 """
@@ -407,13 +408,282 @@ def test_argmax_only_when_a_gradient_can_be_asked_for(rng):
 
 
 def test_extensions_and_bad_tables_raise(rng):
-    x, nn, et, w, b = _mk(rng, 2, 8, 4, 8, 2, 1, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # an extension indexes x by destination: Nd != N_src raises, as do
+    # filters without the 2 C_in rows
+    x, nn, et, w, b = _mk(rng, 2, 8, 4, 6, 2, 1, 4)
+    with pytest.raises(ValueError, match="N_dst == N_src"):
         typed_mp_conv(torch.from_numpy(x), nn, torch.from_numpy(et),
                       torch.from_numpy(np.concatenate([w, w])), 4,
                       extension=Extension.ORIG_WITH_DIFF)
+    x, nn, et, w, b = _mk(rng, 2, 8, 4, 8, 2, 1, 4)
+    with pytest.raises(ValueError, match="2 C_in"):
+        typed_mp_conv(torch.from_numpy(x), nn, torch.from_numpy(et),
+                      torch.from_numpy(w), 4,
+                      extension=Extension.ORIG_WITH_NEIGHBOR)
     with pytest.raises(ValueError, match=r"\[0, 8\)"):
         GatherTable(np.full((8, 2), 8), 8)
     with pytest.raises(TypeError):
         typed_mp_conv(torch.from_numpy(x), torch.from_numpy(nn),
                       torch.from_numpy(et), torch.from_numpy(w), 4)
+
+
+# --------------------------------------------------------------------------
+# the DIFF/NEIGHBOR mode (joint graphs: Nd == N_src)
+
+EXTS = {"diff": (Extension.ORIG_WITH_DIFF, JExtension.ORIG_WITH_DIFF),
+        "neighbor": (Extension.ORIG_WITH_NEIGHBOR,
+                     JExtension.ORIG_WITH_NEIGHBOR)}
+# (B, N = Nd, Cin, K, T, C): the pw table's K=2, the hop table's K=9 at
+# T=16, and the last layer's C=2
+EXT_SHAPES = [(3, 12, 6, 2, 4, 8), (2, 10, 4, 9, 16, 8), (3, 12, 6, 3, 5, 2)]
+
+
+def _mk_ext(rng, B, N, Cin, K, T, C):
+    x, nn, et, w, b = _mk(rng, B, N, Cin, N, K, T, C)
+    w2 = (rng.randn(2 * Cin, C * T) * 0.1).astype(np.float32)
+    return x, nn, et, w2, b
+
+
+# every aggregator at the hop-like shape; the synthetic models'
+# aggregators (max, softmax) at the other two
+EXT_CASES = ([(EXT_SHAPES[1], agg) for agg in AGGS]
+             + [(shape, agg) for shape in (EXT_SHAPES[0], EXT_SHAPES[2])
+                for agg in ("max", "softmax")])
+
+
+@pytest.mark.parametrize("shape,agg", EXT_CASES)
+@pytest.mark.parametrize("ext", sorted(EXTS))
+def test_ext_conv_and_grads_match_xla_and_pallas(rng, shape, ext, agg):
+    """Forward to 2e-5 and dx, d_etype, d_filters, d_bias to 5e-5 against
+    the XLA extension conv and ``fused_typed_mp(extension=...)`` (Pallas in
+    interpret mode, f32), as tests/test_fused_mp.py holds those two to each
+    other."""
+    x, nn, et, w, b = _mk_ext(rng, *shape)
+    C = shape[-1]
+    t_ext, j_ext = EXTS[ext]
+    xla = np.asarray(j_conv(*map(jnp.asarray, (x, nn, et, w)), C,
+                            extension=j_ext, aggregator=agg,
+                            bias=jnp.asarray(b)))
+    fused_mp.reset_counts()
+    ts = [torch.from_numpy(a).requires_grad_() for a in (x, et, w, b)]
+    out = typed_mp_conv(ts[0], nn, ts[1], ts[2], C, extension=t_ext,
+                        aggregator=agg, bias=ts[3])
+    out.sin().sum().backward()
+    assert fused_mp.EXT_COUNTS == {"kernel_launches": 0, "plain_calls": 1}
+    assert fused_mp.EXT_BWD_COUNTS == {"kernel_launches": 0,
+                                       "plain_calls": 1}
+    assert fused_mp.COUNTS == {"kernel_launches": 0, "plain_calls": 0}
+    np.testing.assert_allclose(out.detach().numpy(), xla, rtol=2e-5,
+                               atol=2e-5)
+    got = [t.grad.numpy() for t in ts]
+    pallas = _jax_grads(lambda x, nn, et, w, b: j_fused.fused_typed_mp(
+        x, nn, et, w, C, extension=ext, aggregator=agg, bias=b,
+        precision="float32"), x, nn, et, w, b)
+    ref = _jax_grads(lambda x, nn, et, w, b: j_conv(
+        x, nn, et, w, C, extension=j_ext, aggregator=agg, bias=b),
+        x, nn, et, w, b)
+    for name, g, p, q in zip(["dx", "d_etype", "d_filters", "d_bias"], got,
+                             pallas, ref):
+        np.testing.assert_allclose(g, p, rtol=5e-5, atol=5e-5,
+                                   err_msg=f"{name} vs Pallas")
+        np.testing.assert_allclose(g, q, rtol=5e-5, atol=5e-5,
+                                   err_msg=f"{name} vs XLA")
+
+
+def _stacked(h):
+    """The port's interleaved (B, 2N, T, C) rows as the Pallas kernel's
+    stacked [self rows ; neighbour rows]."""
+    return np.concatenate([h[:, 0::2], h[:, 1::2]], axis=1)
+
+
+def _interleaved(h):
+    B, N2, T, C = h.shape
+    return np.stack([h[:, :N2 // 2], h[:, N2 // 2:]], axis=2).reshape(
+        B, N2, T, C)
+
+
+def _ext_onehot(nn):
+    """[onehot(dst) | onehot(src)] over k-major edge rows (fused_mp.py)."""
+    Nd, K = nn.shape
+    oh = np.zeros((K * Nd, 2 * Nd), np.float32)
+    oh[np.arange(K * Nd), np.tile(np.arange(Nd), K)] = 1.0
+    oh[np.arange(K * Nd), Nd + nn.T.reshape(-1)] += 1.0
+    return oh
+
+
+def _ext_plain_inputs(rng, B, N, K, T, C):
+    h = rng.randn(B, 2 * N, T, C).astype(np.float32)
+    nn = rng.randint(0, N, (N, K)).astype(np.int32)
+    et = rng.randn(B, N, K, T).astype(np.float32)
+    return h, nn, et
+
+
+def _pallas_ext_fwd(h, nn, et, agg):
+    B, N2, T, C = h.shape
+    Nd, K = nn.shape
+    h5 = jnp.asarray(np.transpose(_stacked(h), (2, 1, 0, 3)).reshape(
+        T, N2, B * C))
+    et3 = jnp.asarray(np.transpose(et, (3, 0, 2, 1)).reshape(T, B, K * Nd))
+    oh = _ext_onehot(nn)
+    out, amax = j_fused._fused_fwd_impl(
+        h5, et3, jnp.asarray(oh), jnp.asarray(oh.T.copy()), C, agg, 3.0,
+        "float32", Nd, K, B, B, "float32")
+
+    def back(a):
+        return np.transpose(np.asarray(a, np.float32).reshape(Nd, B, C),
+                            (1, 0, 2))
+
+    return back(out), back(amax)
+
+
+@pytest.mark.parametrize("agg", AGGS)
+def test_ext_plain_forward_matches_pallas(rng, agg):
+    B, N, K, T, C = 3, 10, 9, 16, 8
+    h, nn, et = _ext_plain_inputs(rng, B, N, K, T, C)
+    res = fused_mp.typed_gather_mix_agg(
+        torch.from_numpy(h), torch.from_numpy(nn), torch.from_numpy(et), agg,
+        3.0, want_argmax=agg == "max", ext=True)
+    out, am = res if agg == "max" else (res, None)
+    ref_out, ref_am = _pallas_ext_fwd(h, nn, et, agg)
+    np.testing.assert_allclose(out.numpy(), ref_out, rtol=2e-5, atol=2e-5)
+    if agg == "max":
+        hg = h[:, 0::2, None] + h[:, 1::2][:, nn]
+        msgs = np.einsum("bdktc,bdkt->bdkc", hg, et)
+        top2 = np.sort(msgs, axis=2)[:, :, -2:]
+        clear = (top2[:, :, 1] - top2[:, :, 0]) > 1e-5 * np.abs(top2[:, :, 1])
+        assert clear.mean() > 0.99
+        np.testing.assert_array_equal(am.numpy()[clear], ref_am[clear])
+
+
+@pytest.mark.parametrize("agg", AGGS)
+def test_ext_plain_backward_matches_pallas_bwd(rng, agg):
+    """The plain backward against ``_fused_bwd_impl`` in extension mode
+    (the stacked 2N rows, interpret mode, f32), fed the same argmax and
+    cotangent."""
+    B, N, K, T, C = 3, 10, 9, 16, 8
+    h, nn, et = _ext_plain_inputs(rng, B, N, K, T, C)
+    g = rng.randn(B, N, C).astype(np.float32)
+    res = fused_mp.typed_gather_mix_agg(
+        torch.from_numpy(h), torch.from_numpy(nn), torch.from_numpy(et), agg,
+        3.0, want_argmax=agg == "max", ext=True)
+    out, am = res if agg == "max" else (res, None)
+    table = GatherTable(nn, N)
+    dh, det = fused_mp.typed_gather_mix_agg_bwd(
+        torch.from_numpy(g), torch.from_numpy(h), torch.from_numpy(nn),
+        table.ext_ptr, table.ext_edge, torch.from_numpy(et), agg, 3.0,
+        argmax=am, out=out, ext=True)
+
+    def rows(a, dtype=jnp.float32):  # (B, Nd, C) -> (Nd, B * C)
+        return jnp.asarray(np.transpose(a, (1, 0, 2)).reshape(N, B * C),
+                           dtype)
+
+    h5 = jnp.asarray(np.transpose(_stacked(h), (2, 1, 0, 3)).reshape(
+        T, 2 * N, B * C))
+    et3 = jnp.asarray(np.transpose(et, (3, 0, 2, 1)).reshape(T, B, K * N))
+    oh = _ext_onehot(nn)
+    amax = rows(am.numpy() if am is not None else np.zeros_like(g),
+                jnp.bfloat16)
+    dh5, det3 = j_fused._fused_bwd_impl(
+        h5, et3, jnp.asarray(oh), jnp.asarray(oh.T.copy()), amax, C, agg,
+        3.0, "float32", N, K, B, B, rows(g))
+    ref_dh = _interleaved(np.transpose(
+        np.asarray(dh5).reshape(T, 2 * N, B, C), (2, 1, 0, 3)))
+    ref_det = np.transpose(np.asarray(det3).reshape(T, B, K, N),
+                           (1, 3, 2, 0))
+    np.testing.assert_allclose(dh.numpy(), ref_dh, rtol=5e-5, atol=5e-5)
+    np.testing.assert_allclose(det.numpy(), ref_det, rtol=5e-5, atol=5e-5)
+
+
+@pytest.mark.parametrize("ext", sorted(EXTS))
+def test_ext_max_ties_send_the_cotangent_to_the_first_slot(rng, ext):
+    """Every k slot ties exactly: the whole cotangent goes to k=0, as the
+    Pallas backward sends it."""
+    B, N, Cin, K, T, C = 4, 8, 4, 3, 2, 8
+    x = np.ones((B, N, Cin), np.float32)
+    nn = np.zeros((N, K), np.int32)
+    et = np.ones((B, N, K, T), np.float32)
+    w = (rng.randn(2 * Cin, C * T) * 0.1).astype(np.float32)
+    b = np.zeros(C, np.float32)
+    ts = [torch.from_numpy(a).requires_grad_() for a in (x, et, w)]
+    typed_mp_conv(ts[0], nn, ts[1], ts[2], C, extension=EXTS[ext][0],
+                  aggregator="max").sin().sum().backward()
+    pallas = _jax_grads(lambda x, nn, et, w, b: j_fused.fused_typed_mp(
+        x, nn, et, w, C, extension=ext, aggregator="max",
+        precision="float32"), x, nn, et, w, b)
+    got = ts[1].grad.numpy()
+    assert not got[:, :, 1:].any() and got[:, :, 0].any()
+    np.testing.assert_allclose(got, pallas[1], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["broadcast", "identity"])
+def test_ext_conv_never_takes_a_table_shortcut(rng, kind):
+    """A table that NO_EXTENSION would take a shortcut for (one source
+    row; nn_idx.ravel() == arange(N)) still runs the extension mode, self
+    term included, and matches the XLA extension conv."""
+    N, K = (1, 2) if kind == "broadcast" else (4, 1)
+    x, _, et, w, b = _mk_ext(rng, 3, N, 5, K, 3, 6)
+    nn = (np.zeros((N, K), np.int32) if kind == "broadcast"
+          else np.arange(N, dtype=np.int32).reshape(N, K))
+    assert GatherTable(nn, N).kind == kind
+    fused_mp.reset_counts()
+    got = typed_mp_conv(torch.from_numpy(x), nn, torch.from_numpy(et),
+                        torch.from_numpy(w), 6,
+                        extension=Extension.ORIG_WITH_DIFF,
+                        aggregator="max", bias=torch.from_numpy(b))
+    assert fused_mp.EXT_COUNTS["plain_calls"] == 1
+    ref = j_conv(*map(jnp.asarray, (x, nn, et, w)), 6,
+                 extension=JExtension.ORIG_WITH_DIFF, aggregator="max",
+                 bias=jnp.asarray(b))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_ext_transposed_table_lists_the_rows_edges(rng):
+    nn = rng.randint(0, 7, (7, 3))
+    table = GatherTable(nn, 7)
+    ptr, edge = table.ext_ptr.numpy(), table.ext_edge.numpy()
+    assert ptr[0] == 0 and ptr[-1] == 2 * nn.size
+    for d in range(7):  # self row 2 d: d's own edges
+        np.testing.assert_array_equal(edge[ptr[2 * d]:ptr[2 * d + 1]],
+                                      np.arange(3 * d, 3 * d + 3))
+    for j in range(7):  # neighbour row 2 j + 1: j's in-edges, in order
+        np.testing.assert_array_equal(
+            edge[ptr[2 * j + 1]:ptr[2 * j + 2]],
+            np.flatnonzero(nn.ravel() == j))
+    assert "ext_ptr" not in table.state_dict()
+    assert GatherTable(rng.randint(0, 7, (5, 3)), 7).ext_ptr is None
+
+
+@pytest.mark.parametrize("agg", AGGS)
+def test_ext_kernel_predicates_take_what_the_kernels_take(agg):
+    """The extension mode's argument checks accept what the kernels take
+    (h with 2 rows per node, the 2N-row table)."""
+    B, N, K, T, C = 2, 5, 3, 4, 8
+    nn = torch.zeros(N, K, dtype=torch.int32)
+    table = GatherTable(nn.numpy(), N)
+    h = torch.zeros(B, 2 * N, T, C)
+    et = torch.zeros(B, N, K, T)
+    fused_mp.check_kernel_args(h, nn, et, agg, agg == "max", ext=True)
+    fused_mp.check_bwd_args(
+        torch.zeros(B, N, C), h, nn, table.ext_ptr, table.ext_edge, et, agg,
+        argmax=torch.zeros(B, N, C, dtype=torch.uint8) if agg == "max"
+        else None, out=torch.zeros(B, N, C) if agg == "softmax" else None,
+        ext=True)
+
+
+@pytest.mark.parametrize("case", ["nd_ne_n", "rows", "table"])
+def test_ext_kernel_predicates_raise(case):
+    B, N, K, T, C = 2, 5, 3, 4, 8
+    nn = torch.zeros(N, K, dtype=torch.int32)
+    table = GatherTable(nn.numpy(), N)
+    h, et, g = torch.zeros(B, 2 * N, T, C), torch.zeros(B, N, K, T), \
+        torch.zeros(B, N, C)
+    ptr, edge = table.ext_ptr, table.ext_edge
+    if case == "nd_ne_n":
+        nn, et, g = nn[:-1], et[:, :-1], g[:, :-1]
+    elif case == "rows":
+        h = torch.zeros(B, N, T, C)
+    else:
+        ptr, edge = table.src_ptr, table.src_edge
+    with pytest.raises(ValueError):
+        fused_mp.check_bwd_args(g, h, nn, ptr, edge, et, "sum", ext=True)
