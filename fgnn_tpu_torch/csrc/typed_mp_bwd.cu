@@ -332,6 +332,11 @@ int dispatch(int aggregator, cudaStream_t s, const float* g,
   }
 }
 
+template <int VEC, typename... Args>
+int by_ext(int ext, Args... args) {
+  return ext ? dispatch<VEC, true>(args...) : dispatch<VEC, false>(args...);
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  Launches both kernels on
@@ -355,19 +360,10 @@ extern "C" int typed_mp_bwd(const float* g, const uint8_t* argmax,
       (aggregator == AGG_SOFTMAX && out == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (vec4 && ext)
-    return dispatch<4, true>(aggregator, s, g, argmax, h, nn_idx, src_ptr,
-                             src_edge, etype, out, dh, d_etype, B, N, Nd, K,
-                             T, C, gamma);
-  if (vec4)
-    return dispatch<4, false>(aggregator, s, g, argmax, h, nn_idx, src_ptr,
-                              src_edge, etype, out, dh, d_etype, B, N, Nd, K,
-                              T, C, gamma);
-  if (ext)
-    return dispatch<1, true>(aggregator, s, g, argmax, h, nn_idx, src_ptr,
-                             src_edge, etype, out, dh, d_etype, B, N, Nd, K,
-                             T, C, gamma);
-  return dispatch<1, false>(aggregator, s, g, argmax, h, nn_idx, src_ptr,
-                            src_edge, etype, out, dh, d_etype, B, N, Nd, K, T,
-                            C, gamma);
+  return vec4 ? by_ext<4>(ext, aggregator, s, g, argmax, h, nn_idx, src_ptr,
+                          src_edge, etype, out, dh, d_etype, B, N, Nd, K, T, C,
+                          gamma)
+              : by_ext<1>(ext, aggregator, s, g, argmax, h, nn_idx, src_ptr,
+                          src_edge, etype, out, dh, d_etype, B, N, Nd, K, T, C,
+                          gamma);
 }

@@ -189,6 +189,11 @@ int dispatch(int aggregator, unsigned blocks, int threads_x, int rows,
   return (int)cudaGetLastError();
 }
 
+template <int VEC, typename... Args>
+int by_ext(int ext, Args... args) {
+  return ext ? dispatch<VEC, true>(args...) : dispatch<VEC, false>(args...);
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  Launches on `stream` and
@@ -212,15 +217,8 @@ extern "C" int typed_mp_fwd(const float* h, const int32_t* nn_idx,
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned nb = (unsigned)blocks;
-  if (vec4 && ext)
-    return dispatch<4, true>(aggregator, nb, threads_x, rows, s, h, nn_idx,
-                             etype, out, argmax, N, Nd, K, T, C, gamma);
-  if (vec4)
-    return dispatch<4, false>(aggregator, nb, threads_x, rows, s, h, nn_idx,
-                              etype, out, argmax, N, Nd, K, T, C, gamma);
-  if (ext)
-    return dispatch<1, true>(aggregator, nb, threads_x, rows, s, h, nn_idx,
-                             etype, out, argmax, N, Nd, K, T, C, gamma);
-  return dispatch<1, false>(aggregator, nb, threads_x, rows, s, h, nn_idx,
-                            etype, out, argmax, N, Nd, K, T, C, gamma);
+  return vec4 ? by_ext<4>(ext, aggregator, nb, threads_x, rows, s, h, nn_idx,
+                          etype, out, argmax, N, Nd, K, T, C, gamma)
+              : by_ext<1>(ext, aggregator, nb, threads_x, rows, s, h, nn_idx,
+                          etype, out, argmax, N, Nd, K, T, C, gamma);
 }

@@ -5,18 +5,20 @@ Per layer and per factor type, the node features and that type's factor
 features are concatenated along the node axis into one joint [variables ;
 factors] graph, one shared message-passing conv runs over it, the result is
 split back, and the per-type node features are merged with a per-node
-merge map.  Factor features are carried forward per type; skip links add
-earlier layers.
+merge map.  Factor features are carried forward per type.  The JAX
+module's ``skip_link`` option is set by no synthetic model and is not
+ported; nor are its ``gnn_immediate_dim``/``max_mpnn_dim`` options, whose
+defaults are the constants below.
 
-Layer choice (as the JAX package, note ``max_mpnn_dim`` 64):
+Layer choice (as the JAX package):
   nin == nout                -> MPConvResidual (max, ORIG_WITH_DIFF)
-  nin, nout <= max_mpnn_dim  -> MPConv (softmax, ORIG_WITH_DIFF)
+  nin, nout <= MAX_MPNN_DIM  -> MPConv (softmax, ORIG_WITH_DIFF)
   otherwise                  -> pointwise Dense + InstanceNorm + ReLU
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Sequence
 
 import torch
 from torch import nn
@@ -25,6 +27,9 @@ from ..ops.typed_mp import Extension
 from .base import IIDMap, IIDMapBN
 from .mp_conv import MPConv, MPConvResidual
 from .norm import BatchNorm, Dense, instance_norm, leaky_relu
+
+GNN_IMMEDIATE_DIM = 64
+MAX_MPNN_DIM = 64
 
 
 class _PointwiseFallback(nn.Module):
@@ -68,14 +73,11 @@ class FactorMPNN(nn.Module):
     def __init__(self, node_feature_dim: int,
                  factor_feature_dims: Sequence[int],
                  dim_mapping_list: Sequence[int],
-                 netype_list: Sequence[int], *,
-                 gnn_immediate_dim: int = 64, max_mpnn_dim: int = 64,
-                 skip_link: Optional[Dict[int, int]] = None):
+                 netype_list: Sequence[int]):
         super().__init__()
         dims = list(dim_mapping_list)
         self.ntypes = len(factor_feature_dims)
         self.n_layers = len(dims) - 1
-        self.skip = dict(skip_link or {})
         self.mapping_0 = IIDMap(node_feature_dim, dims[0])
         for j, fd in enumerate(factor_feature_dims):
             self.add_module(f"mapping_{j + 1}", IIDMap(fd, dims[0]))
@@ -84,9 +86,9 @@ class FactorMPNN(nn.Module):
             nin, nout = dims[midx], dims[midx + 1]
             for j in range(self.ntypes):
                 if nin == nout:
-                    mod = MPConvResidual(nin, gnn_immediate_dim,
+                    mod = MPConvResidual(nin, GNN_IMMEDIATE_DIM,
                                          netype_list[j], extension=diff)
-                elif nin <= max_mpnn_dim and nout <= max_mpnn_dim:
+                elif nin <= MAX_MPNN_DIM and nout <= MAX_MPNN_DIM:
                     mod = MPConv(nin, nout, netype_list[j], extension=diff)
                 else:
                     mod = _PointwiseFallback(nin, nout)
@@ -100,7 +102,6 @@ class FactorMPNN(nn.Module):
         x = self.mapping_0(node_features)
         fs = [getattr(self, f"mapping_{j + 1}")(factor_features[j])
               for j in range(self.ntypes)]
-        inter = []
         for midx in range(self.n_layers):
             cn, cf = [], []
             for j in range(self.ntypes):
@@ -114,9 +115,4 @@ class FactorMPNN(nn.Module):
                 cf.append(joint[..., nnode:, :])
             x = getattr(self, f"merge_{midx}")(torch.cat(cn, dim=-1))
             fs = cf
-            if midx in self.skip:
-                ox, ofs = inter[self.skip[midx]]
-                x = x + ox
-                fs = [a + b for a, b in zip(fs, ofs)]
-            inter.append((x, fs))
         return x, fs

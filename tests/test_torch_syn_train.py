@@ -1,7 +1,8 @@
 """The port's synthetic MAP trainer against the JAX trainer, on the CPU.
 
-Weights come from the JAX trainer's ``create_state`` and are carried across
-with ``load_flax_variables``; both trainers see the same numpy batches.
+Weights are the flax init's tree filled with seeded values (as in
+tests/test_torch_syn_models.py) and are carried across with
+``load_flax_variables``; both trainers see the same numpy batches.
 Every step starts both from the same weights and running statistics (the
 JAX trainer's), then compares the step's metrics, its clipped gradients,
 the parameters after the Adam step and the running statistics it leaves.
@@ -38,6 +39,7 @@ from fgnn_tpu_torch import models as tm
 from fgnn_tpu_torch.ops import fused_mp
 from fgnn_tpu_torch.train import common as t_common
 from fgnn_tpu_torch.train import synthetic as t_syn
+from test_torch_syn_models import _seeded_variables
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B = 8
@@ -66,7 +68,10 @@ def jax_setup():
     args = _args()
     jwl = j_syn.SynWorkload("hop", args)
     batches = list(j_batches(jwl.dataset, B, 4))
-    state, _ = j_syn.create_state(jwl, batches[0], seed=0)
+    variables = _seeded_variables(jwl, jwl.model_inputs(batches[0]), 0)
+    state = j_syn.TrainState(params=variables["params"],
+                             batch_stats=variables["batch_stats"],
+                             opt_state=None, gcnt=jnp.asarray(0, jnp.int32))
     return args, jwl, batches, state
 
 
