@@ -12,10 +12,14 @@ Phases, one JSON line each:
                    the card, at the LDPC shapes and two ragged ones, all
                    four aggregators; kernel (with and without the argmax),
                    plain and bound times at each LDPC shape
-  kernel_check_bwd the backward kernel against its plain version, fed the
-                   same cotangent and argmax, at the same shapes and
-                   aggregators; two launches must give the same bits;
-                   kernel, plain and bound times at each LDPC shape
+  kernel_check_bwd both routes of the backward (the staged kernel with its
+                   planned slab, and the kept kernels) against the plain
+                   version, fed the same cotangent and argmax, at the same
+                   shapes and aggregators, and the kept route at a graph too
+                   wide to stage; two launches must give the same bits; at
+                   each LDPC shape the two routes timed in turns (kept,
+                   staged, staged, kept), the plain and bound times, and
+                   every slab the staged kernel takes there (each checked)
   decode           the LDPC decoder at the reference width (seeded random
                    weights) decodes a 3840-word eval grid in 15 batches of
                    256 through ``train.ldpc.evaluate``; every kernel of the
@@ -23,7 +27,8 @@ Phases, one JSON line each:
   decode_vs_cpu    one batch through the same weights on the port's CPU path
   train            ``train.ldpc.train`` at the reference width: one epoch of
                    TRAIN_STEPS steps at B=256, seeded random init; every
-                   step launches both kernels and no plain version; finite
+                   step launches the forward and the staged backward, and
+                   neither the kept backward nor a plain version; finite
                    logged losses and a checkpoint; the step time on one
                    staged batch
   train_vs_cpu     one train step from the same weights and batch on the
@@ -32,12 +37,13 @@ Phases, one JSON line each:
                    plain version at the synthetic models' shapes (B=32) and
                    a ragged one, all four aggregators; kernel, plain and
                    bound times at each path shape
-  kernel_check_ext_bwd  the same for the backward kernel's DIFF/NEIGHBOR
-                   mode; two launches must give the same bits
+  kernel_check_ext_bwd  the same for the backward's DIFF/NEIGHBOR mode,
+                   timed at each path shape
   syn_train        ``train.synthetic.train_and_eval("hop", ...)`` at the
                    reference width: one epoch of 20 steps at B=32 and an
                    eval of 4 batches, seeded random init; every step
-                   launches both extension kernels 12 times and no plain
+                   launches the extension forward and staged backward 12
+                   times, and neither the kept backward nor a plain
                    version; finite losses, a checkpoint, accuracies in
                    [0, 1]; the step time on one staged batch
   syn_train_vs_cpu one hop train step from the same weights (after
@@ -125,6 +131,12 @@ EXT_SHAPES = [
     ("ragged_c6", 3, 13, 3, 5, 6, None, 0, 0),
 ]
 HOP_PER_STEP = sum(s[7] for s in EXT_SHAPES)     # 12
+# the backward's two routes: the staged kernel with the slab that
+# fused_mp.bwd_slab plans, and the kept kernels of the first port (slab 0);
+# and a graph too wide for any slab of h in shared memory, which the plan
+# sends to the kept kernels (name, B, N_src, Nd, K, T, C)
+ROUTES = (("staged", None), ("kept", 0))
+KEPT_SHAPE = ("wide_n", 2, 4096, 64, 3, 4, 64)
 FIXED_PER_STEP = sum(s[8] for s in EXT_SHAPES)   # 6
 SYN_STEPS = 20
 SYN_EVAL_BATCHES = 4
@@ -313,53 +325,103 @@ def phase_kernel_check(torch, fused_mp):
     return worst, shapes
 
 
+def _route_counts(fused_mp, route, ext):
+    if route == "kept":
+        return (fused_mp.KEPT_EXT_BWD_COUNTS if ext
+                else fused_mp.KEPT_BWD_COUNTS)
+    return fused_mp.EXT_BWD_COUNTS if ext else fused_mp.BWD_COUNTS
+
+
+def _check_bwd_routes(torch, fused_mp, what, bwd, ref, ext, routes):
+    """``bwd(slab)`` on each (route, slab) of ``routes`` against ``ref``,
+    the plain version's (dh, d_etype): each call launches that route once,
+    two launches give the same bits, and each output lies within
+    KERNEL_TOL of the plain version's.  Returns the worst error."""
+    worst = 0.0
+    for route, slab in routes:
+        counts = _route_counts(fused_mp, route, ext)
+        before = counts["kernel_launches"]
+        first, second = bwd(slab), bwd(slab)
+        torch.cuda.synchronize()
+        require(counts["kernel_launches"] == before + 2,
+                f"{what}: two launches of the {route} route")
+        require(all(torch.equal(a, b) for a, b in zip(first, second)),
+                f"{what} {route}: two launches give the same bits")
+        for name, got, want in zip(("dh", "d_etype"), first, ref):
+            worst = max(worst, _check_close(torch, got, want,
+                                            f"{what} {route} {name}"))
+    return worst
+
+
+def _time_bwd_routes(torch, fused_mp, what, bwd, plain, ref, B, rows, Nd, K,
+                     T, C, agg):
+    """Both routes of the backward timed in turns (kept, staged, staged,
+    kept), the plain version, and every slab the staged kernel takes at
+    this shape, each checked against ``ref`` first.  Returns (timings,
+    worst error of the slabs)."""
+    runs = [device_ms(lambda s=slab: bwd(s), 200, torch)
+            for slab in (0, None, None, 0)]
+    plain_ms, _ = device_ms(plain, 20, torch)
+    worst, slab_ms = 0.0, {}
+    for cs in fused_mp.staged_slabs(rows, Nd, K, T, C, agg):
+        got = bwd(cs)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dh", "d_etype"), got, ref):
+            worst = max(worst, _check_close(torch, a, b,
+                                            f"{what} slab {cs} {name}"))
+        slab_ms[cs] = device_ms(lambda s=cs: bwd(s), 200, torch)[0]
+    slab = fused_mp.bwd_slab(B, rows, Nd, K, T, C, agg)
+    ms = (runs[1][0] + runs[2][0]) / 2
+    previous_ms = (runs[0][0] + runs[3][0]) / 2
+    return dict(ms=ms, previous_ms=previous_ms,
+                ms_in_turns=[r[0] for r in runs], wrapper_host_ms=runs[1][1],
+                plain_ms=plain_ms, speedup=previous_ms / ms, slab=slab,
+                slabs_per_sample=C // slab,
+                slab_bytes=fused_mp.staged_bytes(rows, Nd, K, T, slab, agg),
+                slab_ms=slab_ms), worst
+
+
 def phase_kernel_check_bwd(torch, fused_mp):
     from fgnn_tpu_torch.ops.typed_mp import GatherTable
 
     worst = 0.0
     shapes = []
-    for si, (name, B, N, Nd, K, T, C, _, per_step) in enumerate(SHAPES):
+    for si, (name, B, N, Nd, K, T, C, _, per_step) in enumerate(
+            SHAPES + [KEPT_SHAPE + (0, 0)]):
         h, idx, et = _inputs(torch, B, N, Nd, K, T, C, 100 + si)
         table = GatherTable(idx.cpu().numpy(), N).to("cuda")
         gen = torch.Generator(device="cuda").manual_seed(200 + si)
         g = torch.randn(B, Nd, C, device="cuda", generator=gen)
+        kernels = {}
         for agg in AGGS:
+            plan = fused_mp.bwd_slab(B, N, Nd, K, T, C, agg)
+            require((plan == 0) == (name == KEPT_SHAPE[0]),
+                    f"{name} {agg}: the planned slab is {plan}")
+            routes = ROUTES if plan else (("kept", None),)
             res = fused_mp.typed_gather_mix_agg(h, idx, et, agg, 3.0,
                                                 agg == "max")
             out, am = res if agg == "max" else (res, None)
 
-            def kernel(agg=agg, am=am, out=out):
+            def bwd(slab, agg=agg, am=am, out=out):
                 return fused_mp.typed_gather_mix_agg_bwd(
                     g, h, idx, table.src_ptr, table.src_edge, et, agg, 3.0,
-                    argmax=am, out=out)
+                    argmax=am, out=out, slab=slab)
 
-            dh, det = kernel()
-            dh2, det2 = kernel()
-            ref_dh, ref_det = fused_mp.typed_gather_mix_agg_bwd_plain(
-                g, h, idx, et, agg, 3.0, argmax=am, out=out)
-            torch.cuda.synchronize()
-            require(torch.equal(dh, dh2) and torch.equal(det, det2),
-                    f"{name} {agg}: two launches give the same bits")
-            for what, got, ref in (("dh", dh, ref_dh),
-                                   ("d_etype", det, ref_det)):
-                require(torch.isfinite(got).all().item(),
-                        f"{name} {agg} {what} finite")
-                err = (got - ref).abs().max().item()
-                scale = ref.abs().max().item()
-                require(err <= KERNEL_TOL * scale,
-                        f"{name} {agg} {what}: max_abs_err {err} > "
-                        f"{KERNEL_TOL} * {scale}")
-                worst = max(worst, err)
-            if agg == "max":
-                timed = kernel
+            def plain(agg=agg, am=am, out=out):
+                return fused_mp.typed_gather_mix_agg_bwd_plain(
+                    g, h, idx, et, agg, 3.0, argmax=am, out=out)
+
+            ref = plain()
+            worst = max(worst, _check_bwd_routes(
+                torch, fused_mp, f"{name} {agg}", bwd, ref, False, routes))
+            kernels[agg] = (bwd, plain, ref)
         if per_step == 0:
             continue
         # the train path's call: max, with the forward's argmax
-        t_kernel, host_kernel = device_ms(timed, 200, torch)
-        _, am = fused_mp.typed_gather_mix_agg(h, idx, et, "max", 3.0, True)
-        t_plain, _ = device_ms(
-            lambda: fused_mp.typed_gather_mix_agg_bwd_plain(
-                g, h, idx, et, "max", 3.0, argmax=am), 20, torch)
+        timing, err = _time_bwd_routes(torch, fused_mp, name,
+                                       *kernels["max"], B, N, Nd, K, T, C,
+                                       "max")
+        worst = max(worst, err)
         # read g, argmax, h, etype and both tables once; write dh, d_etype
         nbytes = (4 * B * Nd * C + B * Nd * C + 2 * 4 * h.numel()
                   + 2 * 4 * et.numel() + 4 * (2 * idx.numel() + N + 1))
@@ -368,10 +430,10 @@ def phase_kernel_check_bwd(torch, fused_mp):
         ops = B * Nd * K * C * (4 * T + 1)
         shapes.append(dict(
             name=name, B=B, N_src=N, Nd=Nd, K=K, T=T, C=C,
-            launches_per_step=per_step, ms=t_kernel, plain_ms=t_plain,
-            wrapper_host_ms=host_kernel, bound_ms=bound_ms(nbytes, ops),
-            bytes=nbytes, ops=ops, bound_by=bound_by(nbytes, ops),
-            gbytes_per_s=nbytes / t_kernel / 1e6))
+            launches_per_step=per_step, **timing,
+            bound_ms=bound_ms(nbytes, ops), bytes=nbytes, ops=ops,
+            bound_by=bound_by(nbytes, ops),
+            gbytes_per_s=nbytes / timing["ms"] / 1e6))
         emit("kernel_check_bwd", **shapes[-1], max_abs_err=worst)
 
     # all ties: every k slot equal; the whole cotangent goes to k = 0
@@ -382,8 +444,11 @@ def phase_kernel_check_bwd(torch, fused_mp):
     et = torch.ones(B, Nd, K, T, device="cuda")
     _, am = fused_mp.typed_gather_mix_agg(h, idx, et, "max", want_argmax=True)
     g = torch.randn(B, Nd, C, device="cuda")
+    before = fused_mp.BWD_COUNTS["kernel_launches"]
     _, det = fused_mp.typed_gather_mix_agg_bwd(
         g, h, idx, table.src_ptr, table.src_edge, et, "max", argmax=am)
+    require(fused_mp.BWD_COUNTS["kernel_launches"] == before + 1,
+            "all ties: the staged route")
     require(not det[:, :, 1:].any().item() and det[:, :, 0].any().item(),
             "all ties: d_etype only at k = 0")
     emit("kernel_check_bwd", name="all_ties", max_abs_err=worst)
@@ -495,6 +560,8 @@ def phase_train(torch, fused_mp, dev, tmp):
             f"{BWD_PER_STEP} x {TRAIN_STEPS}")
     require(fwd["plain_calls"] == 0 and bwd["plain_calls"] == 0,
             "no plain calls on the card")
+    require(fused_mp.KEPT_BWD_COUNTS["kernel_launches"] == 0,
+            "every backward took the staged route")
     with open(os.path.join(run_dir, "tf_logs", "metrics.jsonl")) as f:
         logged = [json.loads(line) for line in f]
     losses = [r["value"] for r in logged if r["tag"] == "syn_train/loss"]
@@ -668,32 +735,31 @@ def phase_kernel_check_ext_bwd(torch, fused_mp):
         g = torch.randn(B, N, C, device="cuda", generator=gen)
         kernels = {}
         for agg in AGGS:
+            require(fused_mp.bwd_slab(B, 2 * N, N, K, T, C, agg) > 0,
+                    f"{name} {agg}: a slab is planned")
             res = fused_mp.typed_gather_mix_agg(h, idx, et, agg, 3.0,
                                                 agg == "max", ext=True)
             out, am = res if agg == "max" else (res, None)
 
-            def kernel(agg=agg, am=am, out=out):
+            def bwd(slab, agg=agg, am=am, out=out):
                 return fused_mp.typed_gather_mix_agg_bwd(
                     g, h, idx, table.ext_ptr, table.ext_edge, et, agg, 3.0,
-                    argmax=am, out=out, ext=True)
+                    argmax=am, out=out, ext=True, slab=slab)
 
             def plain(agg=agg, am=am, out=out):
                 return fused_mp.typed_gather_mix_agg_bwd_plain(
                     g, h, idx, et, agg, 3.0, argmax=am, out=out, ext=True)
 
-            first, second, ref = kernel(), kernel(), plain()
-            torch.cuda.synchronize()
-            require(all(torch.equal(a, b) for a, b in zip(first, second)),
-                    f"{name} {agg}: two launches give the same bits")
-            for what, got, want in zip(("dh", "d_etype"), first, ref):
-                worst = max(worst, _check_close(torch, got, want,
-                                                f"{name} {agg} {what}"))
-            kernels[agg] = (kernel, plain)
+            ref = plain()
+            worst = max(worst, _check_bwd_routes(
+                torch, fused_mp, f"{name} {agg}", bwd, ref, True, ROUTES))
+            kernels[agg] = (bwd, plain, ref)
         if path_agg is None:
             continue
-        kernel, plain = kernels[path_agg]
-        t_kernel, host_kernel = device_ms(kernel, 200, torch)
-        t_plain, _ = device_ms(plain, 20, torch)
+        timing, err = _time_bwd_routes(torch, fused_mp, name,
+                                       *kernels[path_agg], B, 2 * N, N, K, T,
+                                       C, path_agg)
+        worst = max(worst, err)
         # read g, the argmax (max) or out (softmax), h, etype and the
         # tables once; write dh and d_etype
         saved = B * N * C * (1 if path_agg == "max" else 4)
@@ -708,11 +774,10 @@ def phase_kernel_check_ext_bwd(torch, fused_mp):
                                             else 0))
         rows.append(dict(
             name=name, B=B, N=N, Nd=N, K=K, T=T, C=C, aggregator=path_agg,
-            per_hop_step=per_hop, per_fixed_step=per_fixed, ms=t_kernel,
-            plain_ms=t_plain, wrapper_host_ms=host_kernel, bytes=nbytes,
-            ops=ops, bound_ms=bound_ms(nbytes, ops),
+            per_hop_step=per_hop, per_fixed_step=per_fixed, **timing,
+            bytes=nbytes, ops=ops, bound_ms=bound_ms(nbytes, ops),
             bound_by=bound_by(nbytes, ops),
-            gbytes_per_s=nbytes / t_kernel / 1e6))
+            gbytes_per_s=nbytes / timing["ms"] / 1e6))
         emit("kernel_check_ext_bwd", **rows[-1], max_abs_err=worst)
     return worst, rows
 
@@ -751,6 +816,9 @@ def _run_syn(torch, fused_mp, dev, workload, args, steps, eval_batches,
             and fused_mp.COUNTS["kernel_launches"] == 0
             and fused_mp.BWD_COUNTS["kernel_launches"] == 0,
             f"{workload}: no plain calls and no NO_EXTENSION kernel")
+    require(fused_mp.KEPT_EXT_BWD_COUNTS["kernel_launches"] == 0
+            and fused_mp.KEPT_BWD_COUNTS["kernel_launches"] == 0,
+            f"{workload}: every backward took the staged route")
     require(0.0 <= acc <= 1.0 and 0.0 <= lp_acc <= 1.0,
             f"{workload}: acc and lp_acc in [0, 1]")
     (run,) = os.listdir(args.work_dir)
@@ -913,10 +981,13 @@ def main():
     def entry(rows, per, suffix=""):
         nbytes = per_call(rows, "bytes" + suffix, per)
         ops = per_call(rows, "ops", per)
-        return {"ms": per_call(rows, "ms" + suffix, per),
-                "plain_ms": per_call(rows, "plain_ms" + suffix, per),
-                "bound_ms": bound_ms(nbytes, ops),
-                "bound_by": bound_by(nbytes, ops)}
+        res = {"ms": per_call(rows, "ms" + suffix, per),
+               "plain_ms": per_call(rows, "plain_ms" + suffix, per),
+               "bound_ms": bound_ms(nbytes, ops),
+               "bound_by": bound_by(nbytes, ops)}
+        if "previous_ms" in rows[0]:  # the backward's kept route
+            res["previous_ms"] = per_call(rows, "previous_ms", per)
+        return res
 
     print(json.dumps({"kernels": [{
         "name": "typed_mp_fwd", "route": "cuda",

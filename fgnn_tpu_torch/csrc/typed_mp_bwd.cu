@@ -1,17 +1,19 @@
 // Typed-edge gather + edge-type mix + K-aggregation, backward (Hopper, sm_90a).
 //
 // Replaces the Pallas TPU kernel fgnn_tpu/ops/fused_mp.py:_bwd_kernel in
-// both of its modes, the backward of typed_mp_fwd.cu.  From the cotangent
-// g (B, Nd, C) of out, the per-edge cotangent
+// both of its modes, NO_EXTENSION and DIFF/NEIGHBOR (`ext`), the backward
+// of typed_mp_fwd.cu.  From the cotangent g (B, Nd, C) of out, the per-edge
+// cotangent
 //
 //   dm[b, d, k, c] = g[b, d, c] * [argmax[b, d, c] == k]      max (first win)
 //                    g[b, d, c]                              sum
 //                    g[b, d, c] / K                          mean
 //                    g[b, d, c] * exp(g (m_k - out[b, d, c])) softmax
 //
-// (softmax recomputes m_k in the forward's order and takes the saved out as
-// the log-sum-exp), then, with hg[b, d, k] the row sum the edge (d, k) read
-// in the forward (h[b, nn_idx[d, k]] for NO_EXTENSION, h[b, 2 d] +
+// (softmax recomputes m_k in the forward's order, the row sum first and
+// then the type mix in ascending t with fmaf, and takes the saved out as the
+// log-sum-exp), then, with hg[b, d, k] the row sum the edge (d, k) read in
+// the forward (h[b, nn_idx[d, k]] for NO_EXTENSION, h[b, 2 d] +
 // h[b, 2 nn_idx[d, k] + 1] for DIFF/NEIGHBOR, typed_mp_fwd.cu),
 //
 //   d_etype[b, d, k, t] = sum_c dm[b, d, k, c] * hg[b, d, k, t, c]
@@ -24,35 +26,67 @@
 // (R N_src + 1) and src_edge (R Nd K) int32, the edges that read row r in
 // ascending order.  For the extensions that is d's own K edges for the self
 // row 2 d and j's in-edges for the neighbour row 2 j + 1
-// (ops/typed_mp.py:GatherTable builds both forms), so dh needs no code of
-// its own for them.
+// (ops/typed_mp.py:GatherTable builds both forms).
 //
-// What bounds it on the H100: bytes, not operations.  At the LDPC f2v shape
-// (B=256, N_src=48, Nd=96, K=3, T=4, C=64) it must read g 6.3 MB, argmax
-// 1.6 MB, h 12.6 MB and etype 1.2 MB and write dh 12.6 MB and d_etype
-// 1.2 MB: about 35 MB, or 11 us at 3.35 TB/s, against 75 MFLOP (about 1 us
-// of f32 FMA).  At the synthetic hop conv (B=32, N=Nd=60, K=9, T=16, C=64,
-// an extension) it moves h and dh 15.7 MB each and etype and d_etype 1.1 MB
-// each: 34 MB, or 10 us, against 0.1 GFLOP (under 2 us).  The design streams
-// those bytes and nothing else:
-//   * no one-hot gather or scatter matmuls and none of the TPU kernel's
-//     k-major (T, N, B*C) layouts: h rows are indexed by nn_idx, and dh
-//     walks the transposed table, built once on the host;
-//   * dm is rebuilt in registers from g and the argmax wherever it is
-//     needed and never reaches memory;
-//   * d_etype: the lanes of one row (b, d) run along c in 16-byte vectors
-//     (C % 4 == 0), keep T partial sums in registers and reduce them with
-//     warp shuffles, so each K*T output is written once;
-//   * dh: one thread per (b, row, 4 channels) walks the row's edges in the
-//     table's order; for each it reads g, the argmax and the T etype values
-//     once and accumulates T outputs in registers, then writes each dh
-//     vector once: no atomics, so two runs give the same bits.  A g row is
-//     read once by each of its K edges' sources (3x for f2v, 6x for v2f);
-//     at these sizes g fits the 50 MB L2.
-// The two __global__ functions run one after the other on one stream,
-// behind one C entry point.  The kernel allocates nothing and never
+// What bounds it on the H100: bytes.  At the LDPC f2v shape (B=256,
+// N_src=48, Nd=96, K=3, T=4, C=64) it must read g 6.3 MB, argmax 1.6 MB,
+// h 12.6 MB and etype 1.2 MB and write dh 12.6 MB and d_etype 1.2 MB: about
+// 35 MB, or 11 us at 3.35 TB/s, against 75 MFLOP.  At the synthetic hop
+// conv (B=32, N=Nd=60, K=9, T=16, C=64, an extension) it moves h and dh
+// 15.7 MB each and etype and d_etype 1.1 MB each: 34 MB, or 10 us, against
+// 0.1 GFLOP.  That is 2 to 4 FLOP per byte, far below the 20 FLOP per byte
+// where f32 arithmetic would bound it, so the tensor cores would buy
+// nothing; TF32 would also break the 1e-5 agreement with the plain version.
+//
+// Two routes, each behind its own C entry point; ops/fused_mp.py:bwd_slab
+// picks one from the shapes alone, before the launch:
+//
+// * typed_mp_bwd_staged: staged_bwd_kernel, the main route.  One block of
+//   512 threads per (sample b, slab of Cs channels) holds what the sample
+//   needs for its slab in shared memory: the graph table is shared across
+//   the batch and dh is independent across channels.  The first kernels of
+//   the port (below) lost their time in four ways, and the staging answers
+//   each:
+//   1. d_etype_kernel ran a row's K edges one after another, each waiting on
+//      nn_idx, re-read the gathered h row from L2 once per type and made T
+//      warp reductions: at LDPC f2v 75 MB of L2 reads against 12.6 MB of h.
+//      Here the block copies its slab of h (R N_src, T, Cs), the sample's
+//      etype and both tables into shared memory once, with cp.async, so h
+//      crosses device memory once; then G lanes (1, 2, 4 or 8, as many as
+//      the block has threads for) per (edge, run of 4 types) sum over the
+//      slab's channels, each lane starting at a staggered channel so that
+//      the lanes of a wavefront hit distinct banks, and add their sums in a
+//      fixed butterfly.
+//   2. dh_kernel re-walked each row's in-edges T / 4 times.  Here one thread
+//      per (row, run of 4 types, 4 channels) walks them once, reading the
+//      edge ids from shared memory.
+//   3. Softmax recomputed m_k wherever dm was needed, up to 9 times per edge.
+//      Here softmax builds dm once per (edge, channel) into shared memory
+//      from the staged rows.  Max, sum and mean stage g and the argmax (5
+//      bytes a channel, against 4 K for dm) and build dm where they read it,
+//      so that two LDPC blocks fit on an SM.
+//   4. At C = 2 the first kernels ran a tenth of the card, one thread per
+//      two-lane row recomputing messages.  Here the whole sample sits in
+//      shared memory, h and etype rows padded so that rows start on
+//      different banks, and the block makes a few passes over it.
+//   The phases were bound by instruction issue, not by memory (per-block
+//   timestamps on the H100, PERF.md): every index is split with one
+//   multiply (FastDiv), and each thread keeps 4 types x 4 channels of sums,
+//   so that a load of dm or of a row of h feeds 16 FMAs.  With Cs < C the
+//   S = C / Cs blocks of a sample write partial sums of d_etype to scratch
+//   that the wrapper allocates, and sum_slabs adds them in slab order.  No
+//   atomics anywhere: two launches give the same bits.  Shared memory per
+//   block: at most 227 KB (staged_bytes, ops/fused_mp.py:staged_bytes).
+// * typed_mp_bwd: d_etype_kernel and dh_kernel, the first kernels of the
+//   port, kept for shapes whose narrowest slab does not fit in shared
+//   memory (N_src in the thousands; no model of the repository), and as the
+//   baseline the staged kernel is timed against (chip_smoke.py).  They read
+//   h rows from L2 by nn_idx, rebuild dm in registers wherever it is
+//   needed, and walk the transposed table in T_CHUNK passes.
+//
+// Each route launches on the caller's stream, allocates nothing and never
 // synchronises; the wrapper (fgnn_tpu_torch/ops/fused_mp.py) checks the
-// arguments and allocates the outputs.
+// arguments, picks the route and allocates the outputs.
 
 #include <climits>
 #include <cstdint>
@@ -62,9 +96,11 @@ namespace {
 
 enum Agg { AGG_MAX = 0, AGG_SUM = 1, AGG_MEAN = 2, AGG_SOFTMAX = 3 };
 
-constexpr int MAX_T = 16;   // partial sums kept in registers by d_etype
-constexpr int T_CHUNK = 4;  // types per pass of dh over a source's in-edges
+constexpr int MAX_T = 16;   // partial sums kept in registers
+constexpr int T_CHUNK = 4;  // types per pass of dh_kernel over the in-edges
 constexpr int THREADS = 256;
+constexpr int MAX_SLABS = 8;            // slabs a sample, partial sums added
+constexpr int SMEM_PER_BLOCK = 232448;  // shared memory an H100 block may use
 
 template <int VEC>
 struct Vec;
@@ -73,6 +109,8 @@ struct Vec<1> {
   __device__ static void load(const float* p, float* v) { v[0] = __ldg(p); }
   __device__ static void load_u8(const uint8_t* p, int* v) { v[0] = __ldg(p); }
   __device__ static void store(float* p, const float* v) { p[0] = v[0]; }
+  // shared memory
+  __device__ static void lds(const float* p, float* v) { v[0] = p[0]; }
 };
 template <>
 struct Vec<4> {
@@ -87,7 +125,380 @@ struct Vec<4> {
   __device__ static void store(float* p, const float* v) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   }
+  __device__ static void lds(const float* p, float* v) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  }
 };
+
+// --------------------------------------------------------------------------
+// the staged route
+
+constexpr int STAGED_THREADS = 512;
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// q / d in one multiply, exact for q * d < 2^32 (every index here: shared
+// memory bounds them to 2^16).
+struct FastDiv {
+  int d;
+  unsigned m;
+  __device__ explicit FastDiv(int d_)
+      : d(d_), m(d_ > 1 ? 0xffffffffu / (unsigned)d_ + 1 : 0) {}
+  __device__ int operator()(int q) const {
+    return d > 1 ? (int)__umulhi((unsigned)q, m) : q;
+  }
+};
+
+__host__ __device__ inline size_t pad4(size_t n) { return (n + 3) / 4 * 4; }
+
+// Row stride of the staged slab of h, in words: below 32 channels the
+// rows are padded by 16 bytes, so that rows start on different banks (from
+// 32 on, staggered starts spread the lanes instead).
+__host__ __device__ inline int row_stride(int T, int cs) {
+  return T * cs + (cs < 32 ? 4 : 0);
+}
+
+// Row stride of the staged etype, in words: a multiple of 4, so that a
+// run of 4 types loads as one vector; softmax reads one type of many edges
+// at once, and 4 more words spread those over the banks.
+__host__ __device__ inline int et_stride(int T, bool softmax) {
+  return (int)pad4(T) + (softmax ? 4 : 0);
+}
+
+// Shared memory of one block, in 4-byte words, each region 16-byte
+// aligned: hs, the slab of h, rows of row_stride words; the cotangent:
+// softmax keeps dm (E, Cs), the others g (Nd, Cs) and, as bytes, the
+// argmax (Nd, Cs), and build dm where they read it; et, the sample's
+// etype, rows of et_stride words; nn (E), the gather table; sp (rows + 1)
+// and se (at most 2 E), the transposed table.
+inline size_t staged_bytes(int rows, int Nd, int K, int T, int cs,
+                           bool softmax) {
+  const size_t E = (size_t)Nd * K;
+  const size_t cot =
+      softmax ? pad4(E * cs)
+              : pad4((size_t)Nd * cs) + pad4(((size_t)Nd * cs + 3) / 4);
+  return 4 * (pad4((size_t)rows * row_stride(T, cs)) + cot +
+              pad4(E * et_stride(T, softmax)) + pad4(E) +
+              pad4((size_t)rows + 1) + pad4(2 * E));
+}
+
+// dm[e, c..c+VEC-1] for max, sum and mean, from the staged g and argmax of
+// e's destination d (e = d K + k).
+template <int AGG, int VEC>
+__device__ __forceinline__ void staged_dm(const float* gs, const uint8_t* as,
+                                          int d, int k, int Cs, int c,
+                                          float inv_k, float* v) {
+  Vec<VEC>::lds(gs + (size_t)d * Cs + c, v);
+  if (AGG == AGG_MAX) {
+    uint8_t a[VEC];
+    if (VEC == 4) {
+      *reinterpret_cast<uchar4*>(a) =
+          *reinterpret_cast<const uchar4*>(as + (size_t)d * Cs + c);
+    } else {
+      a[0] = as[(size_t)d * Cs + c];
+    }
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) v[i] = a[i] == k ? v[i] : 0.f;
+  } else if (AGG == AGG_MEAN) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) v[i] *= inv_k;
+  }
+}
+
+// Block blockIdx.x = b * S + s takes sample b's channels [s Cs, (s+1) Cs).
+// The types are handled in runs of 4: a thread of dh or d_etype keeps 4
+// types x VEC channels of sums in registers, so each load of dm or of a
+// row of h feeds 4 VEC FMAs.
+template <int AGG, int VEC, bool EXT>
+__global__ void __launch_bounds__(STAGED_THREADS)
+staged_bwd_kernel(const float* __restrict__ g,
+                  const uint8_t* __restrict__ argmax,
+                  const float* __restrict__ h,
+                  const int32_t* __restrict__ nn_idx,
+                  const int32_t* __restrict__ src_ptr,
+                  const int32_t* __restrict__ src_edge,
+                  const float* __restrict__ etype,
+                  const float* __restrict__ out, float* __restrict__ dh,
+                  float* __restrict__ d_etype, float* __restrict__ part,
+                  int N, int Nd, int K, int T, int C, int Cs, float gamma) {
+  constexpr int R = EXT ? 2 : 1;
+  constexpr bool SOFTMAX = AGG == AGG_SOFTMAX;
+  extern __shared__ __align__(16) float smem[];
+  const int S = C / Cs;
+  const int b = blockIdx.x / S;
+  const int s = blockIdx.x - b * S;
+  const int c0 = s * Cs;
+  const int rows = R * N;
+  const int E = Nd * K;
+  const int cv = Cs / VEC;               // vectors per slab row
+  const int RS = row_stride(T, Cs);
+  const int ET = et_stride(T, SOFTMAX);
+  const int runs = (T + 3) / 4;          // runs of 4 types
+  const int tid = threadIdx.x;
+  const int nt = STAGED_THREADS;
+  const FastDiv by_cv(cv), by_t(T), by_k(K), by_runs(runs), by_e(E);
+  const float inv_k = 1.f / (float)K;
+  float* hs = smem;
+  float* dm = hs + pad4((size_t)rows * RS);  // softmax: dm; else g
+  uint8_t* as = reinterpret_cast<uint8_t*>(dm + pad4((size_t)Nd * Cs));
+  float* et = dm + (SOFTMAX ? pad4((size_t)E * Cs)
+                            : pad4((size_t)Nd * Cs) +
+                                  pad4(((size_t)Nd * Cs + 3) / 4));
+  int* nn = reinterpret_cast<int*>(et + pad4((size_t)E * ET));
+  int* sp = nn + pad4(E);
+  int* se = sp + pad4((size_t)rows + 1);
+
+  // 1. stage the slab of h, the sample's etype and the table, and for max,
+  // sum and mean the slab of g and of the argmax
+  const float* hb = h + (size_t)b * rows * T * C + c0;
+  for (int q = tid; q < rows * T * cv; q += nt) {
+    const int o = by_cv(q);  // o = r T + t
+    const int c = (q - o * cv) * VEC;
+    const int r = by_t(o);
+    cp_async(hs + (size_t)r * RS + (o - r * T) * Cs + c,
+             hb + (size_t)o * C + c, 4 * VEC);
+  }
+  const float* eb = etype + (size_t)b * E * T;
+  if (T % 4 == 0 && (reinterpret_cast<uintptr_t>(eb) & 15) == 0) {
+    for (int q = tid; q < E * T / 4; q += nt) {
+      const int e = by_runs(q);  // T / 4 == runs
+      cp_async(et + (size_t)e * ET + 4 * (q - e * runs), eb + 4 * (size_t)q,
+               16);
+    }
+  } else {
+    for (int q = tid; q < E * T; q += nt) {
+      const int e = by_t(q);
+      cp_async(et + (size_t)e * ET + (q - e * T), eb + q, 4);
+    }
+  }
+  for (int q = tid; q < E; q += nt) cp_async(nn + q, nn_idx + q, 4);
+  for (int q = tid; q <= rows; q += nt) cp_async(sp + q, src_ptr + q, 4);
+  for (int q = tid; q < R * E; q += nt) cp_async(se + q, src_edge + q, 4);
+  if (!SOFTMAX) {
+    const size_t g0 = (size_t)b * Nd * C + c0;
+    for (int q = tid; q < Nd * cv; q += nt) {
+      const int d = by_cv(q);
+      const int c = (q - d * cv) * VEC;
+      cp_async(dm + (size_t)d * Cs + c, g + g0 + (size_t)d * C + c, 4 * VEC);
+      if (AGG == AGG_MAX) {
+        uint8_t* a = as + (size_t)d * Cs + c;
+        if (VEC == 4)
+          cp_async(a, argmax + g0 + (size_t)d * C + c, 4);
+        else
+          *a = argmax[g0 + (size_t)d * C + c];
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // 2. softmax: dm once per (edge, vector), with m_k recomputed from the
+  // staged rows in typed_mp_fwd.cu's order
+  if (SOFTMAX) {
+    for (int q = tid; q < E * cv; q += nt) {
+      const int e = by_cv(q);
+      const int c = (q - e * cv) * VEC;
+      const int d = by_k(e);
+      const size_t off = ((size_t)b * Nd + d) * C + c0 + c;
+      const float* hn = hs + (size_t)(nn[e] * R + R - 1) * RS + c;
+      const float* hf = hs + (size_t)(2 * d) * RS + c;  // EXT only
+      const float* w = et + (size_t)e * ET;
+      float gv[VEC], o[VEC], m[VEC];
+      Vec<VEC>::load(g + off, gv);
+      Vec<VEC>::load(out + off, o);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) m[i] = 0.f;
+#pragma unroll 4
+      for (int t = 0; t < T; ++t) {
+        float hv[VEC];
+        Vec<VEC>::lds(hn + (size_t)t * Cs, hv);
+        if (EXT) {
+          float sv[VEC];
+          Vec<VEC>::lds(hf + (size_t)t * Cs, sv);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) hv[i] = sv[i] + hv[i];
+        }
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) m[i] = fmaf(w[t], hv[i], m[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        gv[i] = gv[i] * expf(gamma * (m[i] - o[i]));
+      Vec<VEC>::store(dm + (size_t)e * Cs + c, gv);
+    }
+    __syncthreads();
+  }
+
+  // 3. dh: one thread per (row, run of 4 types, vector of channels) walks
+  // the row's in-edges once, in the table's order.  The et rows are padded
+  // to a multiple of 4 words, so each edge's run loads as one vector (sums
+  // past T are never stored).
+  float* dhb = dh + (size_t)b * rows * T * C + c0;
+  for (int q = tid; q < rows * runs * cv; q += nt) {
+    const int o = by_cv(q);  // o = r runs + run
+    const int c = (q - o * cv) * VEC;
+    const int r = by_runs(o);
+    const int t0 = (o - r * runs) * 4;
+    float acc[4][VEC];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) acc[i][j] = 0.f;
+    const int p1 = sp[r + 1];
+    for (int p = sp[r]; p < p1; p += 4) {
+      int ev[4];  // four edge ids in flight at once
+#pragma unroll
+      for (int u = 0; u < 4; ++u) ev[u] = p + u < p1 ? se[p + u] : -1;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (ev[u] < 0) break;
+        float v[VEC], w[4];
+        if (SOFTMAX) {
+          Vec<VEC>::lds(dm + (size_t)ev[u] * Cs + c, v);
+        } else {
+          const int d = by_k(ev[u]);
+          staged_dm<AGG, VEC>(dm, as, d, ev[u] - d * K, Cs, c, inv_k, v);
+        }
+        Vec<4>::lds(et + (size_t)ev[u] * ET + t0, w);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < VEC; ++j)
+            acc[i][j] = fmaf(v[j], w[i], acc[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (t0 + i < T)
+        Vec<VEC>::store(dhb + ((size_t)r * T + t0 + i) * C + c, acc[i]);
+  }
+
+  // 4. d_etype: G lanes per (run of 4 types, edge), edges fastest, where
+  // there are too few of those to fill the block.  Each lane sums over its
+  // share of the slab's vectors in VEC independent partial sums, starting
+  // at staggered vectors so that the lanes of a wavefront hit distinct
+  // banks; the G lanes then add their sums in a fixed butterfly.  With
+  // S > 1 they are the slab's partial sums, which sum_slabs adds.
+  float* dst = S > 1 ? part + (size_t)blockIdx.x * E * T
+                     : d_etype + (size_t)b * E * T;
+  const int items = runs * E;
+  int lg = 0;  // G = 1 << lg lanes per item, a power of two <= 8
+  while (lg < 3 && cv % (2 << lg) == 0 && items * (2 << lg) <= nt) ++lg;
+  const int G = 1 << lg;
+  const int per_lane = cv >> lg;  // vectors per lane
+  const int steps = (items * G + nt - 1) / nt;  // the same in every warp
+  for (int it = 0; it < steps; ++it) {
+    const int qq = it * nt + tid;
+    const bool live = qq < items * G;
+    const int q = live ? qq >> lg : 0;
+    const int gl = qq & (G - 1);
+    const int run = by_e(q);
+    const int e = q - run * E;
+    const int d = by_k(e);
+    const int t0 = run * 4;
+    const float* hn = hs + (size_t)(nn[e] * R + R - 1) * RS + t0 * Cs;
+    const float* hf = hs + (size_t)(2 * d) * RS + t0 * Cs;  // EXT only
+    float acc[4][VEC];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) acc[i][j] = 0.f;
+    int m = (q & (VEC == 4 ? 7 : 31)) % per_lane;
+    for (int n = 0; n < per_lane; ++n) {
+      const int u = (gl + G * m) * VEC;
+      float x[VEC];
+      if (SOFTMAX)
+        Vec<VEC>::lds(dm + (size_t)e * Cs + u, x);
+      else
+        staged_dm<AGG, VEC>(dm, as, d, e - d * K, Cs, u, inv_k, x);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (t0 + i < T) {
+          float y[VEC];
+          Vec<VEC>::lds(hn + i * Cs + u, y);
+          if (EXT) {
+            float z[VEC];
+            Vec<VEC>::lds(hf + i * Cs + u, z);
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) y[j] = z[j] + y[j];
+          }
+#pragma unroll
+          for (int j = 0; j < VEC; ++j)
+            acc[i][j] = fmaf(x[j], y[j], acc[i][j]);
+        }
+      }
+      if (++m == per_lane) m = 0;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float v = VEC == 4 ? (acc[i][0] + acc[i][1]) + (acc[i][2] + acc[i][3])
+                         : acc[i][0];
+      for (int off = G / 2; off > 0; off /= 2)
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (live && gl == 0 && t0 + i < T) dst[(size_t)e * T + t0 + i] = v;
+    }
+  }
+}
+
+// d_etype[b] = sum over the S slabs of part[b, s], in slab order: one
+// thread per output.
+__global__ void sum_slabs(const float* __restrict__ part,
+                          float* __restrict__ d_etype, long long n, int S,
+                          int ET) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const long long b = i / ET;
+  const float* p = part + b * S * ET + (i - b * ET);
+  float v = p[0];
+  for (int s = 1; s < S; ++s) v += p[(size_t)s * ET];
+  d_etype[i] = v;
+}
+
+template <int AGG, int VEC, bool EXT>
+int launch_staged(cudaStream_t st, const float* g, const uint8_t* argmax,
+                  const float* h, const int32_t* nn_idx,
+                  const int32_t* src_ptr, const int32_t* src_edge,
+                  const float* etype, const float* out, float* dh,
+                  float* d_etype, int B, int N, int Nd, int K, int T, int C,
+                  float gamma, float* part, int cs) {
+  const int S = C / cs;
+  const size_t smem = staged_bytes((EXT ? 2 : 1) * N, Nd, K, T, cs,
+                                   AGG == AGG_SOFTMAX);
+  auto kernel = staged_bwd_kernel<AGG, VEC, EXT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)((long long)B * S), STAGED_THREADS, smem, st>>>(
+      g, argmax, h, nn_idx, src_ptr, src_edge, etype, out, dh, d_etype, part,
+      N, Nd, K, T, C, cs, gamma);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || S == 1) return (int)err;
+  const long long n = (long long)B * Nd * K * T;
+  sum_slabs<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0, st>>>(
+      part, d_etype, n, S, Nd * K * T);
+  return (int)cudaGetLastError();
+}
+
+// --------------------------------------------------------------------------
+// the kept route: the first kernels of the port
 
 // The source row that edge (d, k) reads in sample block h_b: row
 // j = nn_idx[d, k], or the neighbour row 2 j + 1 for the extensions.
@@ -288,11 +699,11 @@ __global__ void dh_kernel(const float* __restrict__ g,
 }
 
 template <int AGG, int VEC, bool EXT>
-int launch(cudaStream_t s, const float* g, const uint8_t* argmax,
-           const float* h, const int32_t* nn_idx, const int32_t* src_ptr,
-           const int32_t* src_edge, const float* etype, const float* out,
-           float* dh, float* d_etype, int B, int N, int Nd, int K, int T,
-           int C, float gamma) {
+int launch_kept(cudaStream_t s, const float* g, const uint8_t* argmax,
+                const float* h, const int32_t* nn_idx, const int32_t* src_ptr,
+                const int32_t* src_edge, const float* etype, const float* out,
+                float* dh, float* d_etype, int B, int N, int Nd, int K, int T,
+                int C, float gamma) {
   const int cv = C / VEC;
   int lanes = 1;  // lanes per row: the power of two >= min(cv, 32)
   while (lanes < cv && lanes < 32) lanes *= 2;
@@ -312,41 +723,86 @@ int launch(cudaStream_t s, const float* g, const uint8_t* argmax,
   return (int)cudaGetLastError();
 }
 
-template <int VEC, bool EXT>
-int dispatch(int aggregator, cudaStream_t s, const float* g,
-             const uint8_t* argmax, const float* h, const int32_t* nn_idx,
-             const int32_t* src_ptr, const int32_t* src_edge,
-             const float* etype, const float* out, float* dh, float* d_etype,
-             int B, int N, int Nd, int K, int T, int C, float gamma) {
+// --------------------------------------------------------------------------
+// dispatch: the aggregator, the vector width and the mode are template
+// arguments of each route's launcher
+
+struct Staged {
+  template <int AGG, int VEC, bool EXT, typename... A>
+  static int run(A... a) { return launch_staged<AGG, VEC, EXT>(a...); }
+};
+struct Kept {
+  template <int AGG, int VEC, bool EXT, typename... A>
+  static int run(A... a) { return launch_kept<AGG, VEC, EXT>(a...); }
+};
+
+template <class Route, int VEC, bool EXT, typename... A>
+int dispatch(int aggregator, A... a) {
   switch (aggregator) {
-    case AGG_MAX:
-      return launch<AGG_MAX, VEC, EXT>(s, g, argmax, h, nn_idx, src_ptr, src_edge, etype, out, dh, d_etype, B, N, Nd, K, T, C, gamma);
-    case AGG_SUM:
-      return launch<AGG_SUM, VEC, EXT>(s, g, argmax, h, nn_idx, src_ptr, src_edge, etype, out, dh, d_etype, B, N, Nd, K, T, C, gamma);
-    case AGG_MEAN:
-      return launch<AGG_MEAN, VEC, EXT>(s, g, argmax, h, nn_idx, src_ptr, src_edge, etype, out, dh, d_etype, B, N, Nd, K, T, C, gamma);
-    case AGG_SOFTMAX:
-      return launch<AGG_SOFTMAX, VEC, EXT>(s, g, argmax, h, nn_idx, src_ptr, src_edge, etype, out, dh, d_etype, B, N, Nd, K, T, C, gamma);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case AGG_MAX: return Route::template run<AGG_MAX, VEC, EXT>(a...);
+    case AGG_SUM: return Route::template run<AGG_SUM, VEC, EXT>(a...);
+    case AGG_MEAN: return Route::template run<AGG_MEAN, VEC, EXT>(a...);
+    case AGG_SOFTMAX: return Route::template run<AGG_SOFTMAX, VEC, EXT>(a...);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <int VEC, typename... Args>
-int by_ext(int ext, Args... args) {
-  return ext ? dispatch<VEC, true>(args...) : dispatch<VEC, false>(args...);
+template <class Route, typename... A>
+int by_mode(int vec4, int ext, int aggregator, A... a) {
+  if (vec4)
+    return ext ? dispatch<Route, 4, true>(aggregator, a...)
+               : dispatch<Route, 4, false>(aggregator, a...);
+  return ext ? dispatch<Route, 1, true>(aggregator, a...)
+             : dispatch<Route, 1, false>(aggregator, a...);
+}
+
+// The arguments both routes refuse.
+bool refused(const uint8_t* argmax, const float* out, int B, int N, int Nd,
+             int K, int T, int C, int aggregator, int vec4, int ext) {
+  return B <= 0 || N <= 0 || Nd <= 0 || K <= 0 || K > 255 || T <= 0 ||
+         T > MAX_T || C <= 0 || (vec4 && C % 4 != 0) || (ext && Nd != N) ||
+         (aggregator == AGG_MAX && argmax == nullptr) ||
+         (aggregator == AGG_SOFTMAX && out == nullptr);
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes).  Launches both kernels on
-// `stream` and returns cudaGetLastError() after them, or
+// Plain C entry points (loaded with ctypes), one per route.  Each launches
+// on `stream` and returns the CUDA error of its launches, or
 // cudaErrorInvalidValue for arguments it does not take.  `argmax` is
 // needed for max and `out` for softmax; either may be null otherwise.
-// `vec4` asks for the 16-byte path, which needs C % 4 == 0, 16-byte aligned
-// g, h, out and dh and a 4-byte aligned argmax.  `ext` selects the
-// DIFF/NEIGHBOR mode: h and dh have 2 N rows, Nd == N, and src_ptr/src_edge
-// are the 2 N-row table.
+// `vec4` asks for the 16-byte path, which needs C % 4 == 0 (and, staged,
+// cs % 4 == 0), 16-byte aligned g, h, out and dh and a 4-byte aligned
+// argmax.  `ext` selects the DIFF/NEIGHBOR mode: h and dh have 2 N rows,
+// Nd == N, and src_ptr/src_edge are the 2 N-row table.
+
+// The staged route: `cs` channels per block, a divisor of C with
+// C / cs <= 8 whose shared memory fits in a block.  With S = C / cs > 1,
+// `part` is scratch for the S partial sums of d_etype, (B, S, Nd, K, T)
+// f32.
+extern "C" int typed_mp_bwd_staged(const float* g, const uint8_t* argmax,
+                                   const float* h, const int32_t* nn_idx,
+                                   const int32_t* src_ptr,
+                                   const int32_t* src_edge,
+                                   const float* etype, const float* out,
+                                   float* dh, float* d_etype, int B, int N,
+                                   int Nd, int K, int T, int C,
+                                   int aggregator, float gamma, int vec4,
+                                   int ext, float* part, int cs,
+                                   void* stream) {
+  if (refused(argmax, out, B, N, Nd, K, T, C, aggregator, vec4, ext) ||
+      cs <= 0 || C % cs != 0 || C / cs > MAX_SLABS || (vec4 && cs % 4 != 0) ||
+      (C / cs > 1 && part == nullptr) || (long long)B * (C / cs) > INT_MAX ||
+      (long long)B * Nd * K * T / THREADS >= INT_MAX ||
+      staged_bytes((ext ? 2 : 1) * N, Nd, K, T, cs,
+                   aggregator == AGG_SOFTMAX) > SMEM_PER_BLOCK)
+    return (int)cudaErrorInvalidValue;
+  return by_mode<Staged>(vec4, ext, aggregator, (cudaStream_t)stream, g,
+                         argmax, h, nn_idx, src_ptr, src_edge, etype, out, dh,
+                         d_etype, B, N, Nd, K, T, C, gamma, part, cs);
+}
+
+// The kept route: the first kernels of the port, for any size.
 extern "C" int typed_mp_bwd(const float* g, const uint8_t* argmax,
                             const float* h, const int32_t* nn_idx,
                             const int32_t* src_ptr, const int32_t* src_edge,
@@ -354,16 +810,9 @@ extern "C" int typed_mp_bwd(const float* g, const uint8_t* argmax,
                             float* d_etype, int B, int N, int Nd, int K, int T,
                             int C, int aggregator, float gamma, int vec4,
                             int ext, void* stream) {
-  if (B <= 0 || N <= 0 || Nd <= 0 || K <= 0 || K > 255 || T <= 0 ||
-      T > MAX_T || C <= 0 || (vec4 && C % 4 != 0) || (ext && Nd != N) ||
-      (aggregator == AGG_MAX && argmax == nullptr) ||
-      (aggregator == AGG_SOFTMAX && out == nullptr))
+  if (refused(argmax, out, B, N, Nd, K, T, C, aggregator, vec4, ext))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  return vec4 ? by_ext<4>(ext, aggregator, s, g, argmax, h, nn_idx, src_ptr,
-                          src_edge, etype, out, dh, d_etype, B, N, Nd, K, T, C,
-                          gamma)
-              : by_ext<1>(ext, aggregator, s, g, argmax, h, nn_idx, src_ptr,
-                          src_edge, etype, out, dh, d_etype, B, N, Nd, K, T, C,
-                          gamma);
+  return by_mode<Kept>(vec4, ext, aggregator, (cudaStream_t)stream, g, argmax,
+                       h, nn_idx, src_ptr, src_edge, etype, out, dh, d_etype,
+                       B, N, Nd, K, T, C, gamma);
 }

@@ -22,7 +22,11 @@ replace its Pallas TPU kernels, in both of their modes,
 
   dh walks the transposed table (``GatherTable.src_ptr`` / ``src_edge``),
   so each element is one sum in a fixed order: no atomics, and two runs
-  give the same bits.
+  give the same bits.  It has two routes.  The staged kernel
+  (``typed_mp_bwd_staged``) runs one block per (sample, slab of channels)
+  out of shared memory; ``bwd_slab`` picks the slab from the shapes alone.
+  Where no slab fits (N_src in the thousands), the first kernels of the
+  port (``typed_mp_bwd``) run instead.
 
 The DIFF/NEIGHBOR mode (``ext=True``) takes h (B, 2 N, T, C) with two rows
 per node, interleaved: the self row 2 n (x_n W_a) and the neighbour row
@@ -41,7 +45,9 @@ Beside each kernel, as every kernel of the port has them:
   ``typed_gather_mix_agg_bwd_plain``);
 * plain integer counters of kernel launches and plain calls, one dict per
   kernel and mode (``COUNTS`` and ``BWD_COUNTS`` for NO_EXTENSION,
-  ``EXT_COUNTS`` and ``EXT_BWD_COUNTS`` for DIFF/NEIGHBOR);
+  ``EXT_COUNTS`` and ``EXT_BWD_COUNTS`` for DIFF/NEIGHBOR; the backward's
+  counts the staged route, ``KEPT_BWD_COUNTS`` and ``KEPT_EXT_BWD_COUNTS``
+  the kept one);
 * a wrapper (``typed_gather_mix_agg``, ``typed_gather_mix_agg_bwd``).  A
   CPU tensor goes to the plain version, a CUDA tensor to the kernel, or
   the wrapper raises; nothing falls back.
@@ -64,11 +70,19 @@ import torch
 AGGREGATORS = {"max": 0, "sum": 1, "mean": 2, "softmax": 3}
 MAX_K = 255     # the argmax is stored as uint8
 MAX_T_BWD = 16  # the backward keeps T partial sums in registers
+# the staged backward on the H100: the shared memory a block may use, the
+# slabs of a sample (their partial sums of d_etype are added in one pass),
+# and the SMs
+SMEM_PER_BLOCK = 232448
+MAX_SLABS = 8
+SMS = 132
 
 COUNTS = {"kernel_launches": 0, "plain_calls": 0}
 BWD_COUNTS = {"kernel_launches": 0, "plain_calls": 0}
 EXT_COUNTS = {"kernel_launches": 0, "plain_calls": 0}
 EXT_BWD_COUNTS = {"kernel_launches": 0, "plain_calls": 0}
+KEPT_BWD_COUNTS = {"kernel_launches": 0}
+KEPT_EXT_BWD_COUNTS = {"kernel_launches": 0}
 
 KERNELS = ("typed_mp_fwd", "typed_mp_bwd")
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
@@ -86,6 +100,10 @@ _ARGTYPES = {
     # B N Nd K T C agg; gamma; vec4 ext; stream
     "typed_mp_bwd": [_PTR] * 10 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 2
     + [_PTR],
+    # the same, scratch for the slabs' partial sums of d_etype and the
+    # channels per block before the stream
+    "typed_mp_bwd_staged": [_PTR] * 10 + [_INT] * 7 + [ctypes.c_float]
+    + [_INT] * 2 + [_PTR, _INT, _PTR],
 }
 _libs = {}
 
@@ -99,7 +117,8 @@ def library(name: str) -> str:
 
 
 def reset_counts() -> None:
-    for counts in (COUNTS, BWD_COUNTS, EXT_COUNTS, EXT_BWD_COUNTS):
+    for counts in (COUNTS, BWD_COUNTS, EXT_COUNTS, EXT_BWD_COUNTS,
+                   KEPT_BWD_COUNTS, KEPT_EXT_BWD_COUNTS):
         for k in counts:
             counts[k] = 0
 
@@ -141,23 +160,24 @@ def build(names=KERNELS, force: bool = False) -> dict:
     return built
 
 
-def _function(name: str):
+def _function(lib: str, name: str):
+    """The C entry point ``name`` of ``lib<lib>.so``, built at first use."""
     if name not in _libs:
-        build((name,))
-        fn = getattr(ctypes.CDLL(library(name)), name)
+        build((lib,))
+        fn = getattr(ctypes.CDLL(library(lib)), name)
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         _libs[name] = fn
     return _libs[name]
 
 
-def _launch(name: str, device, *args) -> None:
+def _launch(lib: str, name: str, device, shape, *args) -> None:
     with torch.cuda.device(device):
-        err = _function(name)(
+        err = _function(lib, name)(
             *args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err} "
-                           f"(B, N, Nd, K, T, C = {args[-10:-4]})")
+                           f"(B, N, Nd, K, T, C = {shape})")
 
 
 def _ptr(t):
@@ -274,7 +294,8 @@ def typed_gather_mix_agg(h, nn_idx, etype, aggregator: str,
     am = (torch.empty((B, Nd, C), dtype=torch.uint8, device=h.device)
           if want_argmax else None)
     vec4 = int(C % 4 == 0 and h.data_ptr() % 16 == 0)
-    _launch("typed_mp_fwd", h.device, h.data_ptr(), nn_idx.data_ptr(),
+    _launch("typed_mp_fwd", "typed_mp_fwd", h.device,
+            (B, N, Nd, K, T, C), h.data_ptr(), nn_idx.data_ptr(),
             etype.data_ptr(), out.data_ptr(), _ptr(am),
             B, N, Nd, K, T, C, AGGREGATORS[aggregator], float(gamma), vec4,
             int(ext))
@@ -322,6 +343,70 @@ def typed_gather_mix_agg_bwd_plain(g, h, nn_idx, etype, aggregator: str,
     return dh.reshape(B, N, T, C), d_etype
 
 
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def staged_bytes(rows: int, Nd: int, K: int, T: int, cs: int,
+                 aggregator: str) -> int:
+    """Shared memory of one block of the staged backward kernel
+    (``csrc/typed_mp_bwd.cu``), each region 16-byte aligned: its slab of h
+    (rows, T, cs), rows 4 words longer below 32 channels; the cotangent,
+    dm (Nd K, cs) for softmax, else g (Nd, cs) f32 and the argmax (Nd, cs)
+    uint8; the sample's etype (Nd K, T), rows padded to a multiple of 4
+    words (4 more for softmax); the table (Nd K) and its transposed form
+    (rows + 1, at most 2 Nd K), int32."""
+    E = Nd * K
+    softmax = aggregator == "softmax"
+    row = T * cs + (4 if cs < 32 else 0)
+    cot = (_pad4(E * cs) if softmax
+           else _pad4(Nd * cs) + _pad4(-(-Nd * cs // 4)))
+    et = _pad4(T) + (4 if softmax else 0)
+    return 4 * (_pad4(rows * row) + cot + _pad4(E * et) + _pad4(E)
+                + _pad4(rows + 1) + _pad4(2 * E))
+
+
+def staged_slabs(rows: int, Nd: int, K: int, T: int, C: int,
+                 aggregator: str) -> list:
+    """The slabs the staged backward kernel takes, widest first: divisors
+    of C into at most MAX_SLABS parts, multiples of 4 channels where
+    C % 4 == 0 (the 16-byte path), that fit in a block's shared memory."""
+    step = 4 if C % 4 == 0 else 1
+    return [cs for cs in range(C, 0, -1)
+            if C % cs == 0 and cs % step == 0 and C // cs <= MAX_SLABS
+            and staged_bytes(rows, Nd, K, T, cs, aggregator)
+            <= SMEM_PER_BLOCK]
+
+
+def bwd_slab(B: int, rows: int, Nd: int, K: int, T: int, C: int,
+             aggregator: str) -> int:
+    """Channels per block of the staged backward kernel for h (B, rows, T,
+    C), rows = N_src or 2 N_src for the extensions, or 0 where no slab fits
+    and the kept kernels run: the widest of ``staged_slabs`` whose grid
+    gives at least every second SM a block, else the widest.  It reads the
+    shapes alone, so the bits of a result depend on the shapes alone."""
+    fits = staged_slabs(rows, Nd, K, T, C, aggregator)
+    busy = [cs for cs in fits if 2 * B * (C // cs) >= SMS]
+    return (busy or fits or [0])[0]
+
+
+def checked_slab(slab, B: int, rows: int, Nd: int, K: int, T: int, C: int,
+                 aggregator: str) -> int:
+    """``slab`` if the staged kernel takes it (0, the kept kernels, always),
+    ``bwd_slab`` of the shapes for None; raises otherwise."""
+    if slab is None:
+        return bwd_slab(B, rows, Nd, K, T, C, aggregator)
+    nbytes = staged_bytes(rows, Nd, K, T, slab, aggregator) if slab else 0
+    if slab and not (0 < slab <= C and C % slab == 0
+                     and C // slab <= MAX_SLABS
+                     and nbytes <= SMEM_PER_BLOCK):
+        raise ValueError(
+            f"no staged slab of {slab} channels for C={C}: it must divide C "
+            f"into at most {MAX_SLABS} parts and fit {SMEM_PER_BLOCK} bytes "
+            f"(it needs {nbytes})")
+    return slab
+
+
 def check_bwd_args(g, h, nn_idx, src_ptr, src_edge, etype, aggregator: str,
                    argmax=None, out=None, ext: bool = False):
     """Raise unless the backward kernel takes these arguments: the forward
@@ -363,13 +448,17 @@ def check_bwd_args(g, h, nn_idx, src_ptr, src_edge, etype, aggregator: str,
 
 def typed_gather_mix_agg_bwd(g, h, nn_idx, src_ptr, src_edge, etype,
                              aggregator: str, gamma: float = 3.0,
-                             argmax=None, out=None, ext: bool = False):
+                             argmax=None, out=None, ext: bool = False,
+                             slab=None):
     """(dh (B, N, T, C), d_etype (B, Nd, K, T)) f32.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    CPU tensors take the plain version; CUDA tensors launch a kernel or
     raise.  ``src_ptr``/``src_edge`` must be the transposed table of
     ``nn_idx`` over the rows of h (``GatherTable`` builds both forms once,
-    on the host: ``src_*``, and ``ext_*`` for the extensions)."""
+    on the host: ``src_*``, and ``ext_*`` for the extensions).  ``slab``
+    is the staged kernel's channels per block, ``bwd_slab`` of the shapes
+    by default; 0 takes the kept kernels (the checks on the card pass it
+    to hold and time both routes)."""
     counts = EXT_BWD_COUNTS if ext else BWD_COUNTS
     if h.device.type == "cpu":
         counts["plain_calls"] += 1
@@ -387,17 +476,26 @@ def typed_gather_mix_agg_bwd(g, h, nn_idx, src_ptr, src_edge, etype,
         argmax = None
     if aggregator != "softmax":
         out = None
+    slab = checked_slab(slab, B, rows, Nd, K, T, C, aggregator)
     dh = torch.empty_like(h)
     d_etype = torch.empty_like(etype)
-    vec4 = int(C % 4 == 0
+    vec4 = int(C % 4 == 0 and slab % 4 == 0
                and all(t.data_ptr() % 16 == 0 for t in (g, h, dh))
                and (out is None or out.data_ptr() % 16 == 0)
                and (argmax is None or argmax.data_ptr() % 4 == 0))
-    _launch("typed_mp_bwd", h.device, g.data_ptr(), _ptr(argmax),
-            h.data_ptr(), nn_idx.data_ptr(), src_ptr.data_ptr(),
-            src_edge.data_ptr(), etype.data_ptr(), _ptr(out), dh.data_ptr(),
-            d_etype.data_ptr(), B, N, Nd, K, T, C, AGGREGATORS[aggregator],
-            float(gamma), vec4, int(ext))
+    args = (g.data_ptr(), _ptr(argmax), h.data_ptr(), nn_idx.data_ptr(),
+            src_ptr.data_ptr(), src_edge.data_ptr(), etype.data_ptr(),
+            _ptr(out), dh.data_ptr(), d_etype.data_ptr(), B, N, Nd, K, T, C,
+            AGGREGATORS[aggregator], float(gamma), vec4, int(ext))
+    if slab:
+        part = (etype.new_empty((B, C // slab) + etype.shape[1:])
+                if slab < C else None)
+        _launch("typed_mp_bwd", "typed_mp_bwd_staged", h.device,
+                (B, N, Nd, K, T, C), *args, _ptr(part), slab)
+    else:
+        _launch("typed_mp_bwd", "typed_mp_bwd", h.device,
+                (B, N, Nd, K, T, C), *args)
+        counts = KEPT_EXT_BWD_COUNTS if ext else KEPT_BWD_COUNTS
     counts["kernel_launches"] += 1
     return dh, d_etype
 

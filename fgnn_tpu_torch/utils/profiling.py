@@ -23,9 +23,9 @@ JSON object:
   ``--steps`` of them;
 * ``idle_share``: 1 - device_busy_ms / wall_ms;
 * ``kernels_per_forward`` (``kernels_per_step``), the typed-mp kernels'
-  launches per forward (step), in each mode, the device time of each of
-  the port's ``__global__`` functions, and the kernels with the most
-  device time.
+  launches per forward (step), in each mode and, for the backward, on each
+  route (staged, kept), the device time of each of the port's
+  ``__global__`` functions, and the kernels with the most device time.
 
 Needs a CUDA device; it does not run on the CPU.
 """
@@ -42,8 +42,10 @@ from collections import defaultdict
 import torch
 
 
-# the port's __global__ functions (csrc/*.cu), by name
-PORT_KERNELS = ("typed_mp_fwd_kernel", "d_etype_kernel", "dh_kernel")
+# the port's __global__ functions (csrc/*.cu), by name: the forward, the
+# staged backward and its sum over slabs, and the two of the kept backward
+PORT_KERNELS = ("typed_mp_fwd_kernel", "staged_bwd_kernel", "sum_slabs",
+                "d_etype_kernel", "dh_kernel")
 
 
 def _kernel_events(trace_path: str):
@@ -89,6 +91,8 @@ def _trace(fn, steps: int, wall_ms: float, per: str, top: int) -> dict:
     bwd = fused_mp.BWD_COUNTS["kernel_launches"]
     ext = fused_mp.EXT_COUNTS["kernel_launches"]
     ext_bwd = fused_mp.EXT_BWD_COUNTS["kernel_launches"]
+    kept = fused_mp.KEPT_BWD_COUNTS["kernel_launches"]
+    kept_ext = fused_mp.KEPT_EXT_BWD_COUNTS["kernel_launches"]
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -106,7 +110,7 @@ def _trace(fn, steps: int, wall_ms: float, per: str, top: int) -> dict:
     port = defaultdict(lambda: [0, 0.0])
     for name, (n, us) in by_name.items():
         for kernel in PORT_KERNELS:
-            if f"::{kernel}<" in name:
+            if f"::{kernel}<" in name or f"::{kernel}(" in name:
                 port[kernel][0] += n
                 port[kernel][1] += us
     out = {
@@ -114,7 +118,9 @@ def _trace(fn, steps: int, wall_ms: float, per: str, top: int) -> dict:
         f"kernels_per_{per}": len(kernels) / steps,
     }
     for name, n in (("typed_mp_fwd", fwd), ("typed_mp_bwd", bwd),
-                    ("typed_mp_fwd_ext", ext), ("typed_mp_bwd_ext", ext_bwd)):
+                    ("typed_mp_fwd_ext", ext), ("typed_mp_bwd_ext", ext_bwd),
+                    ("typed_mp_bwd_kept", kept),
+                    ("typed_mp_bwd_ext_kept", kept_ext)):
         if n or name == "typed_mp_fwd":
             out[f"{name}_launches_per_{per}"] = n / steps
     out["port_kernels"] = {

@@ -1,0 +1,156 @@
+"""The slab planner of the typed-mp backward (``fused_mp.bwd_slab``).
+
+The staged CUDA kernel runs one block per (sample, slab of channels) out of
+shared memory; the planner picks the slab from the shapes alone, or the
+kept kernels where no slab fits.  The kernels run only on the card
+(tests/test_torch_cuda.py, chip_smoke.py); these tests hold the plan to
+what the kernel takes, at every shape that chip_smoke.py drives.
+"""
+
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from fgnn_tpu_torch.ops import fused_mp
+from fgnn_tpu_torch.ops.typed_mp import GatherTable
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+
+AGGS = ["max", "sum", "mean", "softmax"]
+# (name, B, rows of h per sample, Nd, K, T, C, the main path's aggregator
+# or None)
+SMOKE = ([(n, B, N, Nd, K, T, C, "max" if per_step else None)
+          for n, B, N, Nd, K, T, C, _, per_step in chip_smoke.SHAPES]
+         + [(n, B, 2 * N, N, K, T, C, agg)
+            for n, B, N, K, T, C, agg, _, _ in chip_smoke.EXT_SHAPES])
+
+
+def _valid(cs, rows, Nd, K, T, C, agg):
+    return (C % cs == 0 and C // cs <= fused_mp.MAX_SLABS
+            and (C % 4 or cs % 4 == 0)
+            and fused_mp.staged_bytes(rows, Nd, K, T, cs, agg)
+            <= fused_mp.SMEM_PER_BLOCK)
+
+
+@pytest.mark.parametrize("agg", AGGS)
+@pytest.mark.parametrize("shape", SMOKE, ids=[s[0] for s in SMOKE])
+def test_smoke_shapes_take_the_staged_route(shape, agg):
+    _, B, rows, Nd, K, T, C, _ = shape
+    cs = fused_mp.bwd_slab(B, rows, Nd, K, T, C, agg)
+    assert cs > 0 and _valid(cs, rows, Nd, K, T, C, agg)
+    assert fused_mp.staged_bytes(rows, Nd, K, T, cs, agg) <= 227 * 1024
+
+
+@pytest.mark.parametrize("name,cs,nbytes", [
+    # LDPC f2v/v2f (max): one slab a sample, two at v2f C=128
+    ("f2v_c64", 64, 88144), ("f2v_c128", 128, 168016),
+    ("v2f_c64", 64, 122128), ("v2f_c128", 64, 122128),
+    # hop pw and hop tables (four slabs), C=2 (one), the fixed chain (four)
+    ("hop_pw_c64", 16, 139216), ("hop_high_c64", 16, 171136),
+    ("hop_pw_c2", 2, 29776), ("hop_high_c2", 2, 71776),
+    ("fixed_nbr_c64", 16, 100096), ("fixed_diff_c64", 16, 83296)])
+def test_path_shapes_plan(name, cs, nbytes):
+    (shape,) = [s for s in SMOKE if s[0] == name]
+    _, B, rows, Nd, K, T, C, agg = shape
+    assert agg is not None  # on a main path
+    assert fused_mp.bwd_slab(B, rows, Nd, K, T, C, agg) == cs
+    assert fused_mp.staged_bytes(rows, Nd, K, T, cs, agg) == nbytes
+
+
+def test_a_grid_that_leaves_most_sms_idle_takes_narrower_slabs():
+    # the fixed chain at C=64: 32 channels fit, but 32 samples x 2 slabs
+    # would leave half the SMs idle
+    assert fused_mp.staged_bytes(60, 30, 8, 16, 32, "max") \
+        <= fused_mp.SMEM_PER_BLOCK
+    assert fused_mp.bwd_slab(32, 60, 30, 8, 16, 64, "max") == 16
+    assert fused_mp.bwd_slab(128, 60, 30, 8, 16, 64, "max") == 32
+
+
+@pytest.mark.parametrize("rows,Nd", [(4096, 64), (8192, 4096), (9000, 3)])
+@pytest.mark.parametrize("agg", ["max", "softmax"])
+def test_wide_graphs_take_the_kept_route(rows, Nd, agg):
+    assert fused_mp.bwd_slab(2, rows, Nd, 3, 4, 64, agg) == 0
+    assert fused_mp.checked_slab(None, 2, rows, Nd, 3, 4, 64, agg) == 0
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 6, 8, 24, 30, 64, 96, 128, 256])
+@pytest.mark.parametrize("rows,Nd,K,T", [(48, 96, 3, 4), (120, 60, 9, 16),
+                                         (1500, 750, 4, 16)])
+@pytest.mark.parametrize("agg", ["max", "softmax"])
+def test_slab_is_the_widest_valid_divisor(C, rows, Nd, K, T, agg):
+    valid = [c for c in range(1, C + 1)
+             if _valid(c, rows, Nd, K, T, C, agg)]
+    assert fused_mp.staged_slabs(rows, Nd, K, T, C, agg) == valid[::-1]
+    for B in (1, 32, 256):
+        cs = fused_mp.bwd_slab(B, rows, Nd, K, T, C, agg)
+        if not valid:
+            assert cs == 0
+            continue
+        busy = [c for c in valid if 2 * B * (C // c) >= fused_mp.SMS]
+        assert cs == max(busy or valid)
+        assert C % cs == 0
+
+
+def test_softmax_stages_dm_the_others_g_and_the_argmax():
+    # dm is (Nd K, cs) f32 and softmax pads the etype rows by 4 words; g
+    # and the argmax (Nd, cs) take 5 bytes a channel
+    rows, Nd, K, T, cs = 48, 96, 3, 4, 64
+    diff = (fused_mp.staged_bytes(rows, Nd, K, T, cs, "softmax")
+            - fused_mp.staged_bytes(rows, Nd, K, T, cs, "max"))
+    assert diff == 4 * Nd * K * cs - 5 * Nd * cs + 4 * Nd * K * 4
+    assert all(fused_mp.staged_bytes(rows, Nd, K, T, cs, a) == 88144
+               for a in ("max", "sum", "mean"))
+
+
+def test_plan_reads_the_shapes_only():
+    plans = {fused_mp.bwd_slab(b, r, n, k, t, c, a)
+             for b, r, n, k, t, c, a in [(32, 120, 60, 9, 16, 64, "max")] * 3}
+    assert plans == {16}
+    assert fused_mp.checked_slab(None, 32, 120, 60, 9, 16, 64, "max") == 16
+
+
+@pytest.mark.parametrize("slab", [3, 5, 128, -4])
+def test_checked_slab_refuses_what_the_kernel_does_not_take(slab):
+    # 3 and 5 do not divide 64, 128 is wider than C, -4 is no width
+    with pytest.raises(ValueError, match="no staged slab"):
+        fused_mp.checked_slab(slab, 16, 48, 96, 3, 4, 64, "max")
+
+
+def test_checked_slab_refuses_too_many_slabs_and_bytes():
+    with pytest.raises(ValueError, match="slab of 4 channels"):
+        fused_mp.checked_slab(4, 16, 48, 96, 3, 4, 64, "max")  # 16 slabs
+    # the hop table at 32 channels: 240 KB of h alone
+    with pytest.raises(ValueError, match=r"needs 296896\)"):
+        fused_mp.checked_slab(32, 32, 120, 60, 9, 16, 64, "max")
+
+
+@pytest.mark.parametrize("slab", [0, 8, 16, 32, 64])
+def test_checked_slab_takes_the_kept_route_and_every_fitting_slab(slab):
+    assert fused_mp.checked_slab(slab, 16, 48, 96, 3, 4, 64, "max") == slab
+
+
+@pytest.mark.parametrize("slab", [None, 0, 8])
+def test_cpu_backward_is_the_plain_version_on_either_route(slab):
+    rng = np.random.default_rng(0)
+    B, N, Nd, K, T, C = 2, 6, 5, 3, 2, 8
+    h = torch.from_numpy(rng.standard_normal((B, N, T, C), np.float32))
+    idx = rng.integers(0, N, (Nd, K)).astype(np.int32)
+    table = GatherTable(idx, N)
+    et = torch.from_numpy(rng.standard_normal((B, Nd, K, T), np.float32))
+    g = torch.from_numpy(rng.standard_normal((B, Nd, C), np.float32))
+    fused_mp.reset_counts()
+    got = fused_mp.typed_gather_mix_agg_bwd(
+        g, h, table.idx, table.src_ptr, table.src_edge, et, "sum",
+        slab=slab)
+    ref = fused_mp.typed_gather_mix_agg_bwd_plain(g, h, table.idx, et, "sum")
+    assert fused_mp.BWD_COUNTS == {"kernel_launches": 0, "plain_calls": 1}
+    assert fused_mp.KEPT_BWD_COUNTS == {"kernel_launches": 0}
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)

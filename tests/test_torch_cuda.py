@@ -18,6 +18,16 @@ pytestmark = pytest.mark.cuda
 # (B, N_src, Nd, K, T, C): LDPC f2v / v2f, ragged, scalar path (C % 4 != 0)
 SHAPES = [(16, 48, 96, 3, 4, 64), (16, 96, 48, 6, 4, 128),
           (5, 136, 8, 5, 3, 24), (3, 17, 11, 2, 1, 30)]
+# the backward's routes: the staged kernel with the planned slab (two slabs
+# a sample at the v2f C=128 shape), and the kept kernels
+ROUTES = {"staged": None, "kept": 0}
+
+
+def _bwd_counts(route, ext=False):
+    if route == "kept":
+        return fused_mp.KEPT_EXT_BWD_COUNTS if ext else \
+            fused_mp.KEPT_BWD_COUNTS
+    return fused_mp.EXT_BWD_COUNTS if ext else fused_mp.BWD_COUNTS
 
 
 @pytest.fixture
@@ -92,15 +102,17 @@ def _bwd_inputs(shape, dev, agg, seed=0):
     return g, h, table, et, am, out
 
 
+@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("agg", ["max", "sum", "mean", "softmax"])
-def test_bwd_kernel_matches_plain(cuda, shape, agg):
+def test_bwd_kernel_matches_plain(cuda, shape, agg, route):
     g, h, table, et, am, out = _bwd_inputs(shape, cuda, agg)
-    before = fused_mp.BWD_COUNTS["kernel_launches"]
+    counts = _bwd_counts(route)
+    before = counts["kernel_launches"]
     dh, det = fused_mp.typed_gather_mix_agg_bwd(
         g, h, table.idx, table.src_ptr, table.src_edge, et, agg, 3.0,
-        argmax=am, out=out)
-    assert fused_mp.BWD_COUNTS["kernel_launches"] == before + 1
+        argmax=am, out=out, slab=ROUTES[route])
+    assert counts["kernel_launches"] == before + 1
     ref_dh, ref_det = fused_mp.typed_gather_mix_agg_bwd_plain(
         g, h, table.idx, et, agg, 3.0, argmax=am, out=out)
     torch.cuda.synchronize()
@@ -109,14 +121,56 @@ def test_bwd_kernel_matches_plain(cuda, shape, agg):
         assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
+@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("agg", ["max", "softmax"])
-def test_bwd_kernel_is_deterministic(cuda, agg):
+def test_bwd_kernel_is_deterministic(cuda, agg, route):
     g, h, table, et, am, out = _bwd_inputs(SHAPES[1], cuda, agg)
     runs = [fused_mp.typed_gather_mix_agg_bwd(
         g, h, table.idx, table.src_ptr, table.src_edge, et, agg, 3.0,
-        argmax=am, out=out) for _ in range(2)]
+        argmax=am, out=out, slab=ROUTES[route]) for _ in range(2)]
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.parametrize("slab", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("agg", ["max", "softmax"])
+def test_bwd_kernel_every_slab_matches_plain(cuda, agg, slab):
+    """One to eight slabs a sample (their partial sums of d_etype added by
+    a second pass) against the plain version; sixteen are refused."""
+    g, h, table, et, am, out = _bwd_inputs(SHAPES[0], cuda, agg)
+    before = fused_mp.BWD_COUNTS["kernel_launches"]
+    if 64 // slab > fused_mp.MAX_SLABS:
+        with pytest.raises(ValueError):
+            fused_mp.typed_gather_mix_agg_bwd(
+                g, h, table.idx, table.src_ptr, table.src_edge, et, agg,
+                3.0, argmax=am, out=out, slab=slab)
+        return
+    got = fused_mp.typed_gather_mix_agg_bwd(
+        g, h, table.idx, table.src_ptr, table.src_edge, et, agg, 3.0,
+        argmax=am, out=out, slab=slab)
+    assert fused_mp.BWD_COUNTS["kernel_launches"] == before + 1
+    ref = fused_mp.typed_gather_mix_agg_bwd_plain(
+        g, h, table.idx, et, agg, 3.0, argmax=am, out=out)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+def test_bwd_wide_graph_takes_the_kept_kernels(cuda):
+    shape = (2, 4096, 64, 3, 4, 64)  # no slab of h fits a block
+    assert fused_mp.bwd_slab(2, 4096, 64, 3, 4, 64, "max") == 0
+    g, h, table, et, am, out = _bwd_inputs(shape, cuda, "max")
+    fused_mp.reset_counts()
+    got = fused_mp.typed_gather_mix_agg_bwd(
+        g, h, table.idx, table.src_ptr, table.src_edge, et, "max", 3.0,
+        argmax=am)
+    assert fused_mp.KEPT_BWD_COUNTS["kernel_launches"] == 1
+    assert fused_mp.BWD_COUNTS["kernel_launches"] == 0
+    ref = fused_mp.typed_gather_mix_agg_bwd_plain(
+        g, h, table.idx, et, "max", 3.0, argmax=am)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
 
 
 @pytest.mark.parametrize("case", ["no_argmax", "no_out", "g_shape",
@@ -216,17 +270,19 @@ def test_ext_kernel_matches_plain(cuda, shape, agg):
         assert (got[1] == ref[1])[clear].all()
 
 
+@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("shape", EXT_SHAPES)
 @pytest.mark.parametrize("agg", ["max", "sum", "mean", "softmax"])
-def test_ext_bwd_kernel_matches_plain(cuda, shape, agg):
+def test_ext_bwd_kernel_matches_plain(cuda, shape, agg, route):
     g, h, table, et, am, out = _ext_inputs(shape, cuda, agg)
+    counts = _bwd_counts(route, ext=True)
     runs = []
     for _ in range(2):
-        before = fused_mp.EXT_BWD_COUNTS["kernel_launches"]
+        before = counts["kernel_launches"]
         runs.append(fused_mp.typed_gather_mix_agg_bwd(
             g, h, table.idx, table.ext_ptr, table.ext_edge, et, agg, 3.0,
-            argmax=am, out=out, ext=True))
-        assert fused_mp.EXT_BWD_COUNTS["kernel_launches"] == before + 1
+            argmax=am, out=out, ext=True, slab=ROUTES[route]))
+        assert counts["kernel_launches"] == before + 1
     ref = fused_mp.typed_gather_mix_agg_bwd_plain(
         g, h, table.idx, et, agg, 3.0, argmax=am, out=out, ext=True)
     torch.cuda.synchronize()
@@ -235,6 +291,20 @@ def test_ext_bwd_kernel_matches_plain(cuda, shape, agg):
         assert torch.isfinite(got).all()
         assert (got - want).abs().max().item() <= \
             1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("slab", [8, 16])
+@pytest.mark.parametrize("agg", ["max", "softmax"])
+def test_ext_bwd_kernel_every_slab_matches_plain(cuda, agg, slab):
+    g, h, table, et, am, out = _ext_inputs(EXT_SHAPES[1], cuda, agg)
+    got = fused_mp.typed_gather_mix_agg_bwd(
+        g, h, table.idx, table.ext_ptr, table.ext_edge, et, agg, 3.0,
+        argmax=am, out=out, ext=True, slab=slab)
+    ref = fused_mp.typed_gather_mix_agg_bwd_plain(
+        g, h, table.idx, et, agg, 3.0, argmax=am, out=out, ext=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
 
 
 @pytest.mark.parametrize("case", ["nd_ne_n", "rows", "edge_len"])
