@@ -33,18 +33,23 @@ Phases, one JSON line each:
                    staged batch
   train_vs_cpu     one train step from the same weights and batch on the
                    card and on the port's CPU path: losses and gradients
-  kernel_check_ext the DIFF/NEIGHBOR mode of the forward kernel against its
-                   plain version at the synthetic models' shapes (B=32) and
-                   a ragged one, all four aggregators; kernel, plain and
-                   bound times at each path shape
+  kernel_check_ext both routes of the DIFF/NEIGHBOR forward (the staged
+                   kernel with its planned slab, and the kept kernel)
+                   against the plain version at the synthetic models'
+                   shapes (B=32) and a ragged one, all four aggregators,
+                   max with and without the argmax; max's out and argmax
+                   bit-equal between the routes, two launches bit-equal,
+                   and an all-ties case; at each path shape the two routes
+                   timed in turns (kept, staged, staged, kept), the plain
+                   and bound times, and every slab the staged kernel takes
+                   there (each checked)
   kernel_check_ext_bwd  the same for the backward's DIFF/NEIGHBOR mode,
                    timed at each path shape
   syn_train        ``train.synthetic.train_and_eval("hop", ...)`` at the
                    reference width: one epoch of 20 steps at B=32 and an
                    eval of 4 batches, seeded random init; every step
-                   launches the extension forward and staged backward 12
-                   times, and neither the kept backward nor a plain
-                   version; finite losses, a checkpoint, accuracies in
+                   launches the staged extension forward and backward 12
+                   times, and neither kept route nor a plain version; finite losses, a checkpoint, accuracies in
                    [0, 1]; the step time on one staged batch
   syn_train_vs_cpu one hop train step from the same weights (after
                    SYN_WARM_STEPS steps on the card) and batch on the card,
@@ -61,6 +66,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -131,8 +137,9 @@ EXT_SHAPES = [
     ("ragged_c6", 3, 13, 3, 5, 6, None, 0, 0),
 ]
 HOP_PER_STEP = sum(s[7] for s in EXT_SHAPES)     # 12
-# the backward's two routes: the staged kernel with the slab that
-# fused_mp.bwd_slab plans, and the kept kernels of the first port (slab 0);
+# the two routes of the backward and of the extension forward: the staged
+# kernel with the slab that fused_mp.bwd_slab (fwd_slab) plans, and the
+# kept kernels of the first port (slab 0);
 # and a graph too wide for any slab of h in shared memory, which the plan
 # sends to the kept kernels (name, B, N_src, Nd, K, T, C)
 ROUTES = (("staged", None), ("kept", 0))
@@ -229,10 +236,18 @@ def phase_build(fused_mp):
     require(sorted(built) == sorted(fused_mp.KERNELS), "every kernel built")
     libs = {}
     for name, (secs, log) in built.items():
+        lines = [ln.strip() for ln in log.splitlines()]
+        # the entry functions that spill, each with its ptxas lines
+        spilling, kernel = {}, None
+        for ln in lines:
+            if "Compiling entry function" in ln:
+                kernel = ln.split("'")[1]
+            elif re.search(r"\b[1-9]\d* bytes spill stores", ln):
+                spilling[kernel] = ln
         libs[name] = dict(
             seconds=secs, library=os.path.relpath(fused_mp.library(name)),
-            ptxas=[ln.strip() for ln in log.splitlines()
-                   if "registers" in ln or "spill" in ln])
+            ptxas=[ln for ln in lines if "registers" in ln or "spill" in ln],
+            spilling=spilling)
     emit("build", seconds=seconds, libraries=libs)
 
 
@@ -353,32 +368,44 @@ def _check_bwd_routes(torch, fused_mp, what, bwd, ref, ext, routes):
     return worst
 
 
-def _time_bwd_routes(torch, fused_mp, what, bwd, plain, ref, B, rows, Nd, K,
-                     T, C, agg):
-    """Both routes of the backward timed in turns (kept, staged, staged,
-    kept), the plain version, and every slab the staged kernel takes at
-    this shape, each checked against ``ref`` first.  Returns (timings,
-    worst error of the slabs)."""
-    runs = [device_ms(lambda s=slab: bwd(s), 200, torch)
+def _time_routes(torch, call, plain, slabs, check):
+    """``call(slab)`` on both routes timed in turns (kept, staged, staged,
+    kept), the plain version, and every slab of ``slabs``, each checked by
+    ``check(result, slab)`` (which returns its error) first.  Returns
+    (timings, worst error of the slabs)."""
+    runs = [device_ms(lambda s=slab: call(s), 200, torch)
             for slab in (0, None, None, 0)]
     plain_ms, _ = device_ms(plain, 20, torch)
     worst, slab_ms = 0.0, {}
-    for cs in fused_mp.staged_slabs(rows, Nd, K, T, C, agg):
-        got = bwd(cs)
+    for cs in slabs:
+        got = call(cs)
         torch.cuda.synchronize()
-        for name, a, b in zip(("dh", "d_etype"), got, ref):
-            worst = max(worst, _check_close(torch, a, b,
-                                            f"{what} slab {cs} {name}"))
-        slab_ms[cs] = device_ms(lambda s=cs: bwd(s), 200, torch)[0]
-    slab = fused_mp.bwd_slab(B, rows, Nd, K, T, C, agg)
+        worst = max(worst, check(got, cs))
+        slab_ms[cs] = device_ms(lambda s=cs: call(s), 200, torch)[0]
     ms = (runs[1][0] + runs[2][0]) / 2
     previous_ms = (runs[0][0] + runs[3][0]) / 2
     return dict(ms=ms, previous_ms=previous_ms,
                 ms_in_turns=[r[0] for r in runs], wrapper_host_ms=runs[1][1],
-                plain_ms=plain_ms, speedup=previous_ms / ms, slab=slab,
-                slabs_per_sample=C // slab,
-                slab_bytes=fused_mp.staged_bytes(rows, Nd, K, T, slab, agg),
+                plain_ms=plain_ms, speedup=previous_ms / ms,
                 slab_ms=slab_ms), worst
+
+
+def _time_bwd_routes(torch, fused_mp, what, bwd, plain, ref, B, rows, Nd, K,
+                     T, C, agg):
+    """Both routes of the backward timed in turns, the plain version, and
+    every slab the staged kernel takes at this shape, each checked against
+    ``ref`` first (``_time_routes``)."""
+    def check(got, cs):
+        return max(_check_close(torch, a, b, f"{what} slab {cs} {name}")
+                   for name, a, b in zip(("dh", "d_etype"), got, ref))
+
+    timing, worst = _time_routes(
+        torch, bwd, plain, fused_mp.staged_slabs(rows, Nd, K, T, C, agg),
+        check)
+    slab = fused_mp.bwd_slab(B, rows, Nd, K, T, C, agg)
+    return dict(**timing, slab=slab, slabs_per_sample=C // slab,
+                slab_bytes=fused_mp.staged_bytes(rows, Nd, K, T, slab,
+                                                 agg)), worst
 
 
 def phase_kernel_check_bwd(torch, fused_mp):
@@ -674,6 +701,41 @@ def _check_close(torch, got, ref, what):
     return err
 
 
+def _check_ext_fwd(torch, fused_mp, what, h, idx, et, agg, want, slab,
+                   ref, kept):
+    """The extension forward on route ``slab`` (None: the planned staged
+    slab) against the plain version's ``ref``: one launch of that route
+    each call, two launches give the same bits, out within KERNEL_TOL;
+    max's out (and argmax) bit-equal to the kept route's ``kept``, and the
+    argmax equal to the plain one's where the top two messages stand
+    clear.  Returns the error."""
+    counts = (fused_mp.KEPT_EXT_COUNTS if slab == 0
+              else fused_mp.EXT_COUNTS)
+    before = counts["kernel_launches"]
+    runs = [fused_mp.typed_gather_mix_agg(h, idx, et, agg, 3.0, want,
+                                          ext=True, slab=slab)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    require(counts["kernel_launches"] == before + 2,
+            f"{what}: two launches of route {slab}")
+    first, second = ((r if want else (r,)) for r in runs)
+    require(all(torch.equal(a, b) for a, b in zip(first, second)),
+            f"{what}: two launches give the same bits")
+    err = _check_close(torch, first[0], ref[0], what)
+    if agg == "max":
+        require(all(torch.equal(a, b) for a, b in zip(first, kept)),
+                f"{what}: max bit-equal to the kept route")
+    if want:
+        hg = h[:, 0::2, None] + h[:, 1::2][:, idx.long()]
+        msgs = (hg * et[..., None]).sum(dim=3)
+        top2 = msgs.topk(2, dim=2).values
+        clear = ((top2[:, :, 0] - top2[:, :, 1])
+                 > 1e-5 * top2[:, :, 0].abs())
+        require((first[1] == ref[1])[clear].all().item(),
+                f"{what}: argmax differs where the gap is clear")
+    return err
+
+
 def phase_kernel_check_ext(torch, fused_mp):
     worst, rows = 0.0, []
     for si, (name, B, N, K, T, C, path_agg, per_hop, per_fixed) in \
@@ -681,33 +743,47 @@ def phase_kernel_check_ext(torch, fused_mp):
         h, table, et = _ext_inputs(torch, B, N, K, T, C, 300 + si)
         idx = table.idx
         for agg in AGGS:
-            want = agg == "max"
-            got = fused_mp.typed_gather_mix_agg(h, idx, et, agg, 3.0, want,
-                                                ext=True)
-            ref = fused_mp.typed_gather_mix_agg_plain(h, idx, et, agg, 3.0,
-                                                      want, ext=True)
-            torch.cuda.synchronize()
-            out, ref_out = (got[0], ref[0]) if want else (got, ref)
-            worst = max(worst, _check_close(torch, out, ref_out,
-                                            f"{name} {agg}"))
-            if want:
-                hg = h[:, 0::2, None] + h[:, 1::2][:, idx.long()]
-                msgs = (hg * et[..., None]).sum(dim=3)
-                top2 = msgs.topk(2, dim=2).values
-                clear = ((top2[:, :, 0] - top2[:, :, 1])
-                         > 1e-5 * top2[:, :, 0].abs())
-                require((got[1] == ref[1])[clear].all().item(),
-                        f"{name}: argmax differs where the gap is clear")
+            require(fused_mp.fwd_slab(B, 2 * N, N, K, T, C, agg) > 0,
+                    f"{name} {agg}: a forward slab is planned")
+            for want in ((True, False) if agg == "max" else (False,)):
+                ref = fused_mp.typed_gather_mix_agg_plain(
+                    h, idx, et, agg, 3.0, want, ext=True)
+                ref = ref if want else (ref,)
+                kept = fused_mp.typed_gather_mix_agg(
+                    h, idx, et, agg, 3.0, want, ext=True, slab=0)
+                kept = kept if want else (kept,)
+                for route, slab in ROUTES:
+                    worst = max(worst, _check_ext_fwd(
+                        torch, fused_mp, f"{name} {agg} argmax={want} "
+                        f"{route}", h, idx, et, agg, want, slab, ref, kept))
         if path_agg is None:
             continue
         # the train path's call: the path's aggregator, the argmax for max
         want = path_agg == "max"
-        t_kernel, host_kernel = device_ms(
-            lambda: fused_mp.typed_gather_mix_agg(h, idx, et, path_agg, 3.0,
-                                                  want, ext=True), 200, torch)
-        t_plain, _ = device_ms(
-            lambda: fused_mp.typed_gather_mix_agg_plain(
-                h, idx, et, path_agg, 3.0, want, ext=True), 20, torch)
+        ref = fused_mp.typed_gather_mix_agg_plain(h, idx, et, path_agg, 3.0,
+                                                  want, ext=True)
+        ref = ref if want else (ref,)
+        kept = fused_mp.typed_gather_mix_agg(h, idx, et, path_agg, 3.0,
+                                             want, ext=True, slab=0)
+        kept = kept if want else (kept,)
+
+        def call(slab, agg=path_agg, want=want):
+            return fused_mp.typed_gather_mix_agg(h, idx, et, agg, 3.0, want,
+                                                 ext=True, slab=slab)
+
+        def check(got, cs, want=want, ref=ref, kept=kept):
+            got = got if want else (got,)
+            if path_agg == "max":
+                require(all(torch.equal(a, b) for a, b in zip(got, kept)),
+                        f"{name} slab {cs}: max bit-equal to the kept route")
+            return _check_close(torch, got[0], ref[0], f"{name} slab {cs}")
+
+        timing, err = _time_routes(
+            torch, call, lambda: fused_mp.typed_gather_mix_agg_plain(
+                h, idx, et, path_agg, 3.0, want, ext=True),
+            fused_mp.fwd_slabs(2 * N, N, K, T, C), check)
+        worst = max(worst, err)
+        slab = fused_mp.fwd_slab(B, 2 * N, N, K, T, C, path_agg)
         # read h (both rows), the table and etype once; write out (+argmax)
         nbytes = (4 * (h.numel() + idx.numel() + et.numel() + B * N * C)
                   + (B * N * C if want else 0))
@@ -717,11 +793,28 @@ def phase_kernel_check_ext(torch, fused_mp):
         rows.append(dict(
             name=name, B=B, N=N, Nd=N, K=K, T=T, C=C, aggregator=path_agg,
             argmax=want, per_hop_step=per_hop, per_fixed_step=per_fixed,
-            ms=t_kernel, plain_ms=t_plain, wrapper_host_ms=host_kernel,
+            **timing, slab=slab, slabs_per_sample=C // slab,
+            slab_bytes=fused_mp.fwd_bytes(2 * N, N, K, T, slab),
             bytes=nbytes, ops=ops, bound_ms=bound_ms(nbytes, ops),
             bound_by=bound_by(nbytes, ops),
-            gbytes_per_s=nbytes / t_kernel / 1e6))
+            gbytes_per_s=nbytes / timing["ms"] / 1e6))
         emit("kernel_check_ext", **rows[-1], max_abs_err=worst)
+
+    # all ties: every edge of a row reads the same rows, so every message
+    # ties; K=9 puts two edges on one lane and eight lanes on a row, and the
+    # staged route's first-win argmax must still be 0 everywhere
+    B, N, K, T, C = 8, 16, 9, 2, 16
+    h = torch.randn(1, 1, T, C, device="cuda").expand(B, 2 * N, T, C)
+    idx = torch.zeros(N, K, dtype=torch.int32, device="cuda")
+    et = torch.ones(B, N, K, T, device="cuda")
+    before = fused_mp.EXT_COUNTS["kernel_launches"]
+    _, am = fused_mp.typed_gather_mix_agg(h.contiguous(), idx, et, "max",
+                                          want_argmax=True, ext=True)
+    require(fused_mp.EXT_COUNTS["kernel_launches"] == before + 1,
+            "all ties: the staged forward")
+    require(am.max().item() == 0, "all-ties argmax is 0 (extensions)")
+    emit("kernel_check_ext", name="all_ties", argmax_max=int(am.max().item()),
+         max_abs_err=worst)
     return worst, rows
 
 
@@ -819,6 +912,8 @@ def _run_syn(torch, fused_mp, dev, workload, args, steps, eval_batches,
     require(fused_mp.KEPT_EXT_BWD_COUNTS["kernel_launches"] == 0
             and fused_mp.KEPT_BWD_COUNTS["kernel_launches"] == 0,
             f"{workload}: every backward took the staged route")
+    require(fused_mp.KEPT_EXT_COUNTS["kernel_launches"] == 0,
+            f"{workload}: every forward took the staged route")
     require(0.0 <= acc <= 1.0 and 0.0 <= lp_acc <= 1.0,
             f"{workload}: acc and lp_acc in [0, 1]")
     (run,) = os.listdir(args.work_dir)
@@ -841,6 +936,7 @@ def _run_syn(torch, fused_mp, dev, workload, args, steps, eval_batches,
                 eval_samples_per_s=logged["syn_test/samples_per_s"][0],
                 fwd_launches=fwd["kernel_launches"],
                 bwd_launches=bwd["kernel_launches"],
+                kept_fwd_launches=fused_mp.KEPT_EXT_COUNTS["kernel_launches"],
                 plain_calls=fwd["plain_calls"] + bwd["plain_calls"])
 
 

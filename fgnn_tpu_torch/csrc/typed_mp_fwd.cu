@@ -27,54 +27,92 @@
 // about 20 MB, or 6 us at 3.35 TB/s, against 38 MFLOP (under 1 us of f32
 // FMA).  At the synthetic hop conv (B=32, N=Nd=60, K=9, T=16, C=64, an
 // extension) it reads h 15.7 MB and etype 1.1 MB and writes 0.6 MB with the
-// argmax: 17 MB, or 5 us, against 53 MFLOP.  The design only streams those
-// bytes once:
-//   * no one-hot gather matmul (the TPU kernel's [onehot(dst) | onehot(src)]
-//     for the extensions) and none of its (T, N, B*C) k-major layouts or
-//     tile/VMEM policy: h rows are indexed by nn_idx (and by d);
-//   * threads run along c in 16-byte vectors where C % 4 == 0, so h rows
-//     (T*C contiguous floats) and out rows are read and written coalesced;
-//   * each thread reads the K indices and K*T etype values of its row once;
-//     threads of one row share them, so each is one broadcast load per warp;
-//   * the K reduction runs in registers as the messages are formed (softmax
-//     by the online log-sum-exp), so per-edge messages never reach memory;
-//   * an h row is read by every edge that sources it (6x for f2v, 3x for
-//     v2f, K x for the extensions' rows); at these sizes h fits the 50 MB
-//     L2, so device memory sees each byte about once.
-// The kernel allocates nothing and never synchronises; the wrapper
-// (fgnn_tpu_torch/ops/fused_mp.py) checks the arguments and allocates the
-// outputs.
+// argmax: 17 MB, or 5 us, against 53 MFLOP.
+//
+// Two routes, each behind its own C entry point; ops/fused_mp.py:fwd_slab
+// picks one from the shapes alone, before the launch:
+//
+// * typed_mp_fwd: typed_mp_fwd_kernel, the first kernel of the port, every
+//   NO_EXTENSION launch.  Threads run along c in 16-byte vectors, a block
+//   takes 256 / (C / 4) rows, and each thread forms its row's K messages one
+//   after another, reading h rows from L2 by nn_idx (none of the TPU
+//   kernel's one-hot gather matmuls, k-major layouts or tile/VMEM policy).
+//   At the LDPC batch of 256 that fills the card.  For the extensions it is
+//   kept for graphs too wide to stage, and as the baseline the staged route
+//   is timed against (chip_smoke.py).
+// * typed_mp_fwd_staged: staged_fwd_kernel, DIFF/NEIGHBOR.  At the synthetic
+//   models' B=32 the first kernel ran 4-30 thousand threads, each through a
+//   serial chain of K T steps with two 16-byte L2 loads each, and re-read the
+//   self row for every edge (141 MB through L2 at the hop table against
+//   17 MB of bytes to move).  Here one block per (sample, slab of Cs
+//   channels, tile of rows) copies the slab of the sample's 2 N rows, the
+//   rows' etype and their part of the table into shared memory with
+//   cp.async, so each byte of h crosses L2 once per block and the K-fold
+//   reuse of neighbour rows comes from shared memory.  The work is spread
+//   over (row, 4 channels, lane g of G): lane g takes every G-th edge, KC at
+//   a time, reading the self row once per type for all of them, and the G
+//   lanes combine in a fixed butterfly (no atomics: two launches give the
+//   same bits).  Indices split with one multiply (FastDiv).  Row tiles and
+//   G come from the shapes, so that the grid keeps most SMs busy at C=2 and
+//   a block fills at Nd=30.
+//
+// Each route launches on the caller's stream, allocates nothing and never
+// synchronises; the wrapper (fgnn_tpu_torch/ops/fused_mp.py) checks the
+// arguments, picks the route and allocates the outputs.
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "typed_mp_common.cuh"
+
 namespace {
 
-enum Agg { AGG_MAX = 0, AGG_SUM = 1, AGG_MEAN = 2, AGG_SOFTMAX = 3 };
+// One step of the aggregation over k, taken in ascending k: max keeps the
+// first maximal k (strict >, as the TPU kernel), softmax the running max
+// and sum_k exp(g (m_k - max)) (the online log-sum-exp).
+template <int AGG, int VEC>
+__device__ __forceinline__ void agg_step(const float* m, int k, bool first,
+                                         float gamma, float* acc, float* s,
+                                         int* am) {
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    if (AGG == AGG_MAX) {
+      if (first || m[i] > acc[i]) {  // strict >: the first max wins
+        acc[i] = m[i];
+        am[i] = k;
+      }
+    } else if (AGG == AGG_SOFTMAX) {
+      if (first) {
+        acc[i] = m[i];
+        s[i] = 1.f;
+      } else if (m[i] > acc[i]) {
+        s[i] = s[i] * expf(gamma * (acc[i] - m[i])) + 1.f;
+        acc[i] = m[i];
+      } else {
+        s[i] += expf(gamma * (m[i] - acc[i]));
+      }
+    } else {
+      acc[i] = first ? m[i] : acc[i] + m[i];
+    }
+  }
+}
 
-template <int VEC>
-struct Vec;
-template <>
-struct Vec<1> {
-  __device__ static void load(const float* p, float* v) { v[0] = __ldg(p); }
-  __device__ static void store(float* p, const float* v) { p[0] = v[0]; }
-  __device__ static void store_u8(uint8_t* p, const int* v) { p[0] = (uint8_t)v[0]; }
-};
-template <>
-struct Vec<4> {
-  __device__ static void load(const float* p, float* v) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+// out from the aggregate: mean divides by K, softmax adds log(s) / g.
+template <int AGG, int VEC>
+__device__ __forceinline__ void agg_finish(int K, float gamma, const float* s,
+                                           float* acc) {
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    if (AGG == AGG_MEAN) acc[i] = acc[i] / (float)K;
+    if (AGG == AGG_SOFTMAX) acc[i] = acc[i] + logf(s[i]) / gamma;
   }
-  __device__ static void store(float* p, const float* v) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-  __device__ static void store_u8(uint8_t* p, const int* v) {
-    *reinterpret_cast<uchar4*>(p) =
-        make_uchar4((uint8_t)v[0], (uint8_t)v[1], (uint8_t)v[2], (uint8_t)v[3]);
-  }
-};
+}
+
+// --------------------------------------------------------------------------
+// the kept route: the first kernel of the port, every NO_EXTENSION launch
+// and the DIFF/NEIGHBOR shapes no staged slab fits
 
 // blockIdx.x walks (b, tile of blockDim.y destination rows); threadIdx.y
 // picks the row, threadIdx.x strides over the row's C / VEC vectors.
@@ -123,33 +161,9 @@ __global__ void typed_mp_fwd_kernel(const float* __restrict__ h,
 #pragma unroll
         for (int i = 0; i < VEC; ++i) m[i] = fmaf(w, hv[i], m[i]);
       }
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        if (AGG == AGG_MAX) {
-          if (k == 0 || m[i] > acc[i]) {  // strict >: the first max wins
-            acc[i] = m[i];
-            am[i] = k;
-          }
-        } else if (AGG == AGG_SOFTMAX) {
-          if (k == 0) {
-            acc[i] = m[i];
-            s[i] = 1.f;
-          } else if (m[i] > acc[i]) {
-            s[i] = s[i] * expf(gamma * (acc[i] - m[i])) + 1.f;
-            acc[i] = m[i];
-          } else {
-            s[i] += expf(gamma * (m[i] - acc[i]));
-          }
-        } else {
-          acc[i] = k == 0 ? m[i] : acc[i] + m[i];
-        }
-      }
+      agg_step<AGG, VEC>(m, k, k == 0, gamma, acc, s, am);
     }
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      if (AGG == AGG_MEAN) acc[i] = acc[i] / (float)K;
-      if (AGG == AGG_SOFTMAX) acc[i] = acc[i] + logf(s[i]) / gamma;
-    }
+    agg_finish<AGG, VEC>(K, gamma, s, acc);
     Vec<VEC>::store(out + o_row + c, acc);
     if (AGG == AGG_MAX && argmax != nullptr) Vec<VEC>::store_u8(argmax + o_row + c, am);
   }
@@ -194,6 +208,265 @@ int by_ext(int ext, Args... args) {
   return ext ? dispatch<VEC, true>(args...) : dispatch<VEC, false>(args...);
 }
 
+// --------------------------------------------------------------------------
+// the staged route: DIFF/NEIGHBOR only
+
+constexpr int STAGED_THREADS = 512;  // most threads a block
+constexpr int MAX_KC = 4;            // most edges a lane carries at once
+constexpr int SMS = 132;             // the H100's SMs
+
+// Row stride of the staged slab of h, in words.  A warp's 16-byte loads
+// run in quarter-warps of 8 lanes; with the vector index fastest, one
+// quarter-warp reads 32 / Cs rows of Cs channels, and rows whose stride is
+// Cs modulo 32 words start on distinct bank groups whenever their indices
+// differ modulo 32 / Cs.  Other slabs take the backward's stride.
+__host__ __device__ inline int fwd_row_stride(int T, int cs) {
+  return cs % 4 == 0 && cs < 32 ? (T * cs + 31) / 32 * 32 + cs
+                                : row_stride(T, cs);
+}
+
+// Shared memory of one block, in 4-byte words, each region 16-byte
+// aligned: hs, the slab of h (rows, T, cs) in rows of fwd_row_stride
+// words; nn (nd K), the block's part of the table.
+inline size_t fwd_staged_bytes(int rows, int nd, int K, int T, int cs) {
+  return 4 * (pad4((size_t)rows * fwd_row_stride(T, cs)) +
+              pad4((size_t)nd * K));
+}
+
+// The 4 types t0..t0+3 of an etype row w (types past T are never used).
+__device__ __forceinline__ void etype_run(const float* w, int t0, int T,
+                                          bool vec, float* v) {
+  if (vec) {
+    Vec<4>::load(w + t0, v);
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = t0 + u < T ? __ldg(w + t0 + u) : 0.f;
+  }
+}
+
+// Block blockIdx.x = (b S + s) tiles + tile takes sample b's channels
+// [s Cs, (s+1) Cs) for destination rows [tile R, (tile+1) R), R =
+// tile_rows.  It stages the slab of all 2 N rows of h and its rows' part of
+// the table with cp.async, then runs one item per (row d, vector of
+// channels, lane g of G = 1 << lg).  The vector index runs
+// fastest where the G cv lanes of a row fit in a warp (`vec_fast`), else g.
+// Lane g takes the edges k = g, g + G, ... in ascending order, KC at a
+// time: for each type t it loads the self row once and the KC neighbour
+// rows together (so that their latencies overlap; the arithmetic then runs
+// for all KC slots), and forms m_k exactly as the kept kernel does (the two
+// rows added, then fmaf over ascending t from 0), with etype read from
+// global memory (through L1).  A lane folds its edges into its aggregate in
+// ascending k; the G lanes then combine in a fixed butterfly.  For max the
+// butterfly keeps the lower k on a tie, so out and the argmax are those of
+// one pass over k: bit-equal to the kept kernel.
+template <int AGG, int VEC, int KC>
+__global__ void __launch_bounds__(STAGED_THREADS)
+staged_fwd_kernel(const float* __restrict__ h,
+                  const int32_t* __restrict__ nn_idx,
+                  const float* __restrict__ etype, float* __restrict__ out,
+                  uint8_t* __restrict__ argmax, int N, int K, int T, int C,
+                  int Cs, int tiles, int tile_rows, int lg, int vec_fast,
+                  float gamma) {
+  extern __shared__ __align__(16) float smem[];
+  const int Nd = N;
+  const int S = C / Cs;
+  const int bs = blockIdx.x / tiles;
+  const int tile = blockIdx.x - bs * tiles;
+  const int b = bs / S;
+  const int c0 = (bs - b * S) * Cs;
+  const int d0 = tile * tile_rows;
+  const int nd = min(tile_rows, Nd - d0);
+  const int rows = 2 * N;
+  const int cv = Cs / VEC;  // vectors per slab row
+  const int RS = fwd_row_stride(T, Cs);
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const FastDiv by_cv(cv), by_t(T);
+  float* hs = smem;
+  int* nn = reinterpret_cast<int*>(hs + pad4((size_t)rows * RS));
+
+  // 1. stage the slab of h and the rows' part of the table
+  const float* hb = h + (size_t)b * rows * T * C + c0;
+  if (Cs == C && (T * C) % 4 == 0 &&
+      (reinterpret_cast<uintptr_t>(hb) & 15) == 0) {
+    // the slab is the whole row: 16-byte copies at any C
+    const int q4 = T * C / 4;
+    const FastDiv by_q4(q4);
+    for (int q = tid; q < rows * q4; q += nt) {
+      const int r = by_q4(q);
+      const int o = 4 * (q - r * q4);
+      cp_async(hs + (size_t)r * RS + o, hb + (size_t)r * T * C + o, 16);
+    }
+  } else {
+    for (int q = tid; q < rows * T * cv; q += nt) {
+      const int o = by_cv(q);  // o = r T + t
+      const int c = (q - o * cv) * VEC;
+      const int r = by_t(o);
+      cp_async(hs + (size_t)r * RS + (o - r * T) * Cs + c,
+               hb + (size_t)o * C + c, 4 * VEC);
+    }
+  }
+  for (int q = tid; q < nd * K; q += nt)
+    cp_async(nn + q, nn_idx + (size_t)d0 * K + q, 4);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // 2. the messages and their aggregate, one item per (d, vector, lane)
+  const int G = 1 << lg;
+  const int items = nd * cv * G;
+  const int steps = (items + nt - 1) / nt;  // the same in every warp
+  const int sx = vec_fast ? cv : 1;         // lane stride between the G lanes
+  const float* eb = etype + ((size_t)b * Nd + d0) * K * T;
+  const bool et_vec = T % 4 == 0 && (reinterpret_cast<uintptr_t>(eb) & 15) == 0;
+  for (int it = 0; it < steps; ++it) {
+    const int qq = it * nt + tid;
+    const bool live = qq < items;  // whole groups of G lanes: items % G == 0
+    const int q = live ? qq : 0;
+    int dl, c, g;
+    if (vec_fast) {  // q = (dl G + g) cv + vector
+      const int o = by_cv(q);
+      c = (q - o * cv) * VEC;
+      dl = o >> lg;
+      g = o & (G - 1);
+    } else {         // q = (dl cv + vector) G + g
+      const int o = q >> lg;
+      g = q & (G - 1);
+      dl = by_cv(o);
+      c = (o - dl * cv) * VEC;
+    }
+    // word offsets into the staged slab (32-bit shared-memory addressing)
+    const int self_row = 2 * (d0 + dl) * RS + c;
+    const int nk = (K - g + G - 1) >> lg;  // this lane's edges, >= 1 (G <= K)
+    float acc[VEC] = {}, sm[VEC] = {};
+    int am[VEC] = {};
+    for (int j0 = 0; j0 < nk; j0 += KC) {
+      const int jn = min(KC, nk - j0);
+      int nb_row[KC];
+      const float* w[KC];
+#pragma unroll
+      for (int j = 0; j < KC; ++j) {
+        const int e = dl * K + g + ((j0 + (j < jn ? j : 0)) << lg);
+        nb_row[j] = (2 * nn[e] + 1) * RS + c;
+        w[j] = eb + (size_t)e * T;
+      }
+      float m[KC][VEC];
+#pragma unroll
+      for (int j = 0; j < KC; ++j)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) m[j][i] = 0.f;
+      for (int t0 = 0; t0 < T; t0 += 4) {
+        float wv[KC][4];
+#pragma unroll
+        for (int j = 0; j < KC; ++j) {
+          if (j < jn) {
+            etype_run(w[j], t0, T, et_vec, wv[j]);
+          } else {
+#pragma unroll
+            for (int u = 0; u < 4; ++u) wv[j][u] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (t0 + u < T) {
+            // all of the lane's loads first, so that their latencies
+            // overlap; the sums of edges past jn are never used
+            const int tc = (t0 + u) * Cs;
+            float sv[VEC], hv[KC][VEC];
+            Vec<VEC>::lds(hs + self_row + tc, sv);
+#pragma unroll
+            for (int j = 0; j < KC; ++j) {
+              if (j < jn) {
+                Vec<VEC>::lds(hs + nb_row[j] + tc, hv[j]);
+              } else {
+#pragma unroll
+                for (int i = 0; i < VEC; ++i) hv[j][i] = 0.f;
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < KC; ++j)
+#pragma unroll
+              for (int i = 0; i < VEC; ++i)
+                m[j][i] = fmaf(wv[j][u], sv[i] + hv[j][i], m[j][i]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < KC; ++j)
+        if (j < jn)
+          agg_step<AGG, VEC>(m[j], g + ((j0 + j) << lg), j0 + j == 0, gamma,
+                             acc, sm, am);
+    }
+    // the G lanes' aggregates, combined in a fixed butterfly
+    for (int off = G / 2; off > 0; off /= 2) {
+      const int lane_off = off * sx;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float oa = __shfl_xor_sync(0xffffffffu, acc[i], lane_off);
+        if (AGG == AGG_MAX) {
+          const int ok = __shfl_xor_sync(0xffffffffu, am[i], lane_off);
+          if (oa > acc[i] || (oa == acc[i] && ok < am[i])) {
+            acc[i] = oa;
+            am[i] = ok;
+          }
+        } else if (AGG == AGG_SOFTMAX) {
+          const float os = __shfl_xor_sync(0xffffffffu, sm[i], lane_off);
+          const float mx = fmaxf(acc[i], oa);
+          sm[i] = sm[i] * expf(gamma * (acc[i] - mx)) +
+                  os * expf(gamma * (oa - mx));
+          acc[i] = mx;
+        } else {
+          acc[i] = acc[i] + oa;
+        }
+      }
+    }
+    if (!live || g != 0) continue;
+    agg_finish<AGG, VEC>(K, gamma, sm, acc);
+    const size_t o = ((size_t)b * Nd + d0 + dl) * C + c0 + c;
+    Vec<VEC>::store(out + o, acc);
+    if (AGG == AGG_MAX && argmax != nullptr) Vec<VEC>::store_u8(argmax + o, am);
+  }
+}
+
+template <int AGG, int VEC, int KC>
+int launch_staged(cudaStream_t st, unsigned blocks, int threads, size_t smem,
+                  const float* h, const int32_t* nn_idx, const float* etype,
+                  float* out, uint8_t* argmax, int N, int K, int T, int C,
+                  int cs, int tiles, int tile_rows, int lg, int vec_fast,
+                  float gamma) {
+  auto kernel = staged_fwd_kernel<AGG, VEC, KC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, threads, smem, st>>>(h, nn_idx, etype, out, argmax, N, K,
+                                        T, C, cs, tiles, tile_rows, lg,
+                                        vec_fast, gamma);
+  return (int)cudaGetLastError();
+}
+
+template <int VEC, int KC, typename... A>
+int dispatch_staged(int aggregator, A... a) {
+  switch (aggregator) {
+    case AGG_MAX: return launch_staged<AGG_MAX, VEC, KC>(a...);
+    case AGG_SUM: return launch_staged<AGG_SUM, VEC, KC>(a...);
+    case AGG_MEAN: return launch_staged<AGG_MEAN, VEC, KC>(a...);
+    case AGG_SOFTMAX: return launch_staged<AGG_SOFTMAX, VEC, KC>(a...);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// KC, the edges a lane carries at once: the lane's edges, rounded up to 1,
+// 2 or MAX_KC (the arithmetic of the KC slots runs for every lane).
+template <int VEC, typename... A>
+int by_kc(int kc, int aggregator, A... a) {
+  if (kc == 1) return dispatch_staged<VEC, 1>(aggregator, a...);
+  if (kc == 2) return dispatch_staged<VEC, 2>(aggregator, a...);
+  return dispatch_staged<VEC, MAX_KC>(aggregator, a...);
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  Launches on `stream` and
@@ -221,4 +494,51 @@ extern "C" int typed_mp_fwd(const float* h, const int32_t* nn_idx,
                           etype, out, argmax, N, Nd, K, T, C, gamma)
               : by_ext<1>(ext, aggregator, nb, threads_x, rows, s, h, nn_idx,
                           etype, out, argmax, N, Nd, K, T, C, gamma);
+}
+
+// The staged route, DIFF/NEIGHBOR only (h (B, 2 N, T, C), Nd == N): `cs`
+// channels per block, a divisor of C whose slab of h, with the table of
+// all N rows, fits in a block's shared memory.  `vec4` asks for the
+// 16-byte path: C % 4 == 0, cs % 4 == 0, 16-byte aligned h and out.  From
+// the shapes alone it splits the rows into tiles where the (sample, slab)
+// blocks would leave most SMs idle, and puts G lanes (1, 2, 4 or 8, at most
+// K) on each (row, vector), as many as keep one item per thread.
+extern "C" int typed_mp_fwd_staged(const float* h, const int32_t* nn_idx,
+                                   const float* etype, float* out,
+                                   uint8_t* argmax, int B, int N, int Nd,
+                                   int K, int T, int C, int aggregator,
+                                   float gamma, int vec4, int cs,
+                                   void* stream) {
+  if (B <= 0 || N <= 0 || Nd != N || K <= 0 || K > 255 || T <= 0 || C <= 0 ||
+      cs <= 0 || C % cs != 0 || (vec4 && (C % 4 != 0 || cs % 4 != 0)) ||
+      fwd_staged_bytes(2 * N, Nd, K, T, cs) > SMEM_PER_BLOCK)
+    return (int)cudaErrorInvalidValue;
+  const long long bs = (long long)B * (C / cs);  // (sample, slab) blocks
+  int tiles = 2 * bs >= SMS
+                  ? 1
+                  : (int)std::min<long long>(Nd, (SMS + bs - 1) / bs);
+  const int tile_rows = (Nd + tiles - 1) / tiles;
+  tiles = (Nd + tile_rows - 1) / tile_rows;
+  const int cv = cs / (vec4 ? 4 : 1);
+  int lg = 0;
+  while (lg < 3 && (2 << lg) <= K &&
+         (long long)tile_rows * cv * (2 << lg) <= STAGED_THREADS)
+    ++lg;
+  const int vec_fast = (cv & (cv - 1)) == 0 && (cv << lg) <= 32;
+  const int lane_edges = (K + (1 << lg) - 1) >> lg;
+  const int kc = lane_edges <= 2 ? lane_edges : MAX_KC;
+  const long long items = (long long)tile_rows * cv * (1 << lg);
+  const int threads = (int)std::max<long long>(
+      128, std::min<long long>(STAGED_THREADS, (items + 31) / 32 * 32));
+  const long long blocks = bs * tiles;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_staged_bytes(2 * N, tile_rows, K, T, cs);
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned nb = (unsigned)blocks;
+  return vec4 ? by_kc<4>(kc, aggregator, s, nb, threads, smem, h, nn_idx,
+                         etype, out, argmax, N, K, T, C, cs, tiles, tile_rows,
+                         lg, vec_fast, gamma)
+              : by_kc<1>(kc, aggregator, s, nb, threads, smem, h, nn_idx,
+                         etype, out, argmax, N, K, T, C, cs, tiles, tile_rows,
+                         lg, vec_fast, gamma);
 }

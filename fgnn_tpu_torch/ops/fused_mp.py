@@ -11,7 +11,11 @@ replace its Pallas TPU kernels, in both of their modes,
       out[b, d, c]  = AGG_k m[b, d, k, c]     (max / sum / mean / softmax)
 
   plus, for max, the first-win argmax over k (strict ``>``, as the TPU
-  kernel) as uint8;
+  kernel) as uint8.  NO_EXTENSION runs the first kernel of the port
+  (``typed_mp_fwd``); the DIFF/NEIGHBOR mode has two routes, the staged
+  kernel (``typed_mp_fwd_staged``, one block per sample, slab of channels
+  and tile of rows out of shared memory), planned by ``fwd_slab`` from the
+  shapes alone, and the first kernel where no slab fits;
 * ``csrc/typed_mp_bwd.cu`` for ``_bwd_kernel``.  From the cotangent g of
   out, the per-edge cotangent ``dm[b, d, k, c]`` (max: g where the argmax
   is k; sum: g; mean: g / K; softmax: g * exp(gamma (m_k - out))), then
@@ -45,9 +49,9 @@ Beside each kernel, as every kernel of the port has them:
   ``typed_gather_mix_agg_bwd_plain``);
 * plain integer counters of kernel launches and plain calls, one dict per
   kernel and mode (``COUNTS`` and ``BWD_COUNTS`` for NO_EXTENSION,
-  ``EXT_COUNTS`` and ``EXT_BWD_COUNTS`` for DIFF/NEIGHBOR; the backward's
-  counts the staged route, ``KEPT_BWD_COUNTS`` and ``KEPT_EXT_BWD_COUNTS``
-  the kept one);
+  ``EXT_COUNTS`` and ``EXT_BWD_COUNTS`` for DIFF/NEIGHBOR; those of the
+  staged routes count the staged kernels, ``KEPT_EXT_COUNTS``,
+  ``KEPT_BWD_COUNTS`` and ``KEPT_EXT_BWD_COUNTS`` the kept ones);
 * a wrapper (``typed_gather_mix_agg``, ``typed_gather_mix_agg_bwd``).  A
   CPU tensor goes to the plain version, a CUDA tensor to the kernel, or
   the wrapper raises; nothing falls back.
@@ -70,9 +74,9 @@ import torch
 AGGREGATORS = {"max": 0, "sum": 1, "mean": 2, "softmax": 3}
 MAX_K = 255     # the argmax is stored as uint8
 MAX_T_BWD = 16  # the backward keeps T partial sums in registers
-# the staged backward on the H100: the shared memory a block may use, the
-# slabs of a sample (their partial sums of d_etype are added in one pass),
-# and the SMs
+# the staged kernels on the H100: the shared memory a block may use, the
+# backward's slabs of a sample (their partial sums of d_etype are added in
+# one pass), and the SMs
 SMEM_PER_BLOCK = 232448
 MAX_SLABS = 8
 SMS = 132
@@ -81,6 +85,7 @@ COUNTS = {"kernel_launches": 0, "plain_calls": 0}
 BWD_COUNTS = {"kernel_launches": 0, "plain_calls": 0}
 EXT_COUNTS = {"kernel_launches": 0, "plain_calls": 0}
 EXT_BWD_COUNTS = {"kernel_launches": 0, "plain_calls": 0}
+KEPT_EXT_COUNTS = {"kernel_launches": 0}
 KEPT_BWD_COUNTS = {"kernel_launches": 0}
 KEPT_EXT_BWD_COUNTS = {"kernel_launches": 0}
 
@@ -96,6 +101,9 @@ _ARGTYPES = {
     # stream
     "typed_mp_fwd": [_PTR] * 5 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 2
     + [_PTR],
+    # the same; vec4 and the channels per block before the stream
+    "typed_mp_fwd_staged": [_PTR] * 5 + [_INT] * 7 + [ctypes.c_float]
+    + [_INT] * 2 + [_PTR],
     # g, argmax, h, nn_idx, src_ptr, src_edge, etype, out, dh, d_etype;
     # B N Nd K T C agg; gamma; vec4 ext; stream
     "typed_mp_bwd": [_PTR] * 10 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 2
@@ -118,7 +126,7 @@ def library(name: str) -> str:
 
 def reset_counts() -> None:
     for counts in (COUNTS, BWD_COUNTS, EXT_COUNTS, EXT_BWD_COUNTS,
-                   KEPT_BWD_COUNTS, KEPT_EXT_BWD_COUNTS):
+                   KEPT_EXT_COUNTS, KEPT_BWD_COUNTS, KEPT_EXT_BWD_COUNTS):
         for k in counts:
             counts[k] = 0
 
@@ -131,17 +139,25 @@ def nvcc_path() -> str:
     return path
 
 
+def sources_mtime(name: str) -> float:
+    """The newest modification time of ``csrc/<name>.cu`` and the headers
+    in ``csrc/`` that both sources include."""
+    headers = [os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
+               if f.endswith(".cuh")]
+    return max(os.path.getmtime(f) for f in [source(name), *headers])
+
+
 def build(names=KERNELS, force: bool = False) -> dict:
     """Compile ``csrc/<name>.cu`` for each name whose library is missing or
-    older than its source (all of them with ``force``), one ``nvcc`` per
-    source, all started together.  Returns {name: (seconds, compiler
-    log)} for the libraries it built."""
+    older than its source or a shared header (all of them with ``force``),
+    one ``nvcc`` per source, all started together.  Returns {name:
+    (seconds, compiler log)} for the libraries it built."""
     procs = {}
     os.makedirs(BUILD_DIR, exist_ok=True)
     for name in names:
         lib, src = library(name), source(name)
         if (not force and os.path.exists(lib)
-                and os.path.getmtime(lib) >= os.path.getmtime(src)):
+                and os.path.getmtime(lib) >= sources_mtime(name)):
             continue
         tmp = f"{lib}.{os.getpid()}.tmp"
         procs[name] = (tmp, time.perf_counter(), subprocess.Popen(
@@ -182,6 +198,25 @@ def _launch(lib: str, name: str, device, shape, *args) -> None:
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _row_stride(T: int, cs: int) -> int:
+    """Words per staged row of a slab of h (``row_stride`` in
+    ``csrc/typed_mp_common.cuh``): rows below 32 channels padded by 16
+    bytes."""
+    return T * cs + (4 if cs < 32 else 0)
+
+
+def _busiest(fits: list, B: int, C: int) -> int:
+    """Both staged kernels' plan: the widest of the slabs ``fits`` (widest
+    first) whose (sample, slab) grid gives at least every second SM a
+    block, else the widest, or 0 where none fits (the kept route)."""
+    busy = [cs for cs in fits if 2 * B * (C // cs) >= SMS]
+    return (busy or fits or [0])[0]
 
 
 # --------------------------------------------------------------------------
@@ -270,16 +305,81 @@ def check_kernel_args(h, nn_idx, etype, aggregator: str, want_argmax: bool,
     _check_placed(h, nn_idx=nn_idx, etype=etype)
 
 
+def _fwd_row_stride(T: int, cs: int) -> int:
+    """Words per staged row of the forward's slab of h
+    (``fwd_row_stride`` in ``csrc/typed_mp_fwd.cu``): below 32 channels, on
+    the 16-byte path, a multiple of 32 words plus cs, so that the rows one
+    quarter-warp reads start on distinct bank groups; else the
+    backward's."""
+    if cs % 4 == 0 and cs < 32:
+        return -(-T * cs // 32) * 32 + cs
+    return _row_stride(T, cs)
+
+
+def fwd_bytes(rows: int, Nd: int, K: int, T: int, cs: int) -> int:
+    """Shared memory of one block of the staged forward kernel
+    (``csrc/typed_mp_fwd.cu``) over all Nd destination rows, each region
+    16-byte aligned: its slab of h (rows, T, cs) in rows of
+    ``_fwd_row_stride`` words, and the table (Nd K) int32.  A block of a
+    tile of rows needs less; etype is read from global memory."""
+    return 4 * (_pad4(rows * _fwd_row_stride(T, cs)) + _pad4(Nd * K))
+
+
+def fwd_slabs(rows: int, Nd: int, K: int, T: int, C: int) -> list:
+    """The slabs the staged forward kernel takes, widest first: divisors of
+    C, multiples of 4 channels where C % 4 == 0 (the 16-byte path), that
+    fit in a block's shared memory.  Slabs write disjoint channels, so
+    their number is not bounded."""
+    step = 4 if C % 4 == 0 else 1
+    return [cs for cs in range(C, 0, -1)
+            if C % cs == 0 and cs % step == 0
+            and fwd_bytes(rows, Nd, K, T, cs) <= SMEM_PER_BLOCK]
+
+
+def fwd_slab(B: int, rows: int, Nd: int, K: int, T: int, C: int,
+             aggregator: str) -> int:
+    """Channels per block of the staged forward kernel for the
+    DIFF/NEIGHBOR mode's h (B, rows = 2 Nd, T, C), or 0 where no slab fits
+    and the kept kernel runs: the backward's rule (``_busiest``).  It reads
+    the shapes alone; the kernel's row tiles and lanes per row, on which
+    the bits of a sum, mean or softmax depend, come from the shapes too.
+    ``aggregator`` does not change the bytes a block stages."""
+    if aggregator not in AGGREGATORS:
+        raise ValueError(f"unknown aggregator {aggregator!r}")
+    return _busiest(fwd_slabs(rows, Nd, K, T, C), B, C)
+
+
+def checked_fwd_slab(slab, B: int, rows: int, Nd: int, K: int, T: int,
+                     C: int, aggregator: str) -> int:
+    """``slab`` if the staged forward kernel takes it (0, the kept kernel,
+    always), ``fwd_slab`` of the shapes for None; raises otherwise."""
+    if slab is None:
+        return fwd_slab(B, rows, Nd, K, T, C, aggregator)
+    nbytes = fwd_bytes(rows, Nd, K, T, slab) if slab > 0 else 0
+    if slab and not (0 < slab <= C and C % slab == 0
+                     and nbytes <= SMEM_PER_BLOCK):
+        raise ValueError(
+            f"no forward slab of {slab} channels for C={C}: it must divide "
+            f"C and fit {SMEM_PER_BLOCK} bytes (it needs {nbytes})")
+    return slab
+
+
 def typed_gather_mix_agg(h, nn_idx, etype, aggregator: str,
                          gamma: float = 3.0, want_argmax: bool = False,
-                         ext: bool = False):
+                         ext: bool = False, slab=None):
     """out (B, Nd, C) f32 [, argmax (B, Nd, C) uint8 for max].
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    CPU tensors take the plain version; CUDA tensors launch a kernel or
     raise.  ``nn_idx`` must hold valid nodes of h: the kernel does not
     check the indices (``ops.typed_mp.GatherTable`` checks them once, on
-    the host).  ``ext`` selects the DIFF/NEIGHBOR mode."""
+    the host).  ``ext`` selects the DIFF/NEIGHBOR mode, and for it ``slab``
+    the staged kernel's channels per block, ``fwd_slab`` of the shapes by
+    default; 0 takes the kept kernel (the checks on the card pass it to
+    hold and time both routes).  NO_EXTENSION has one route."""
     counts = EXT_COUNTS if ext else COUNTS
+    if slab and not ext:
+        raise ValueError("the staged forward takes the DIFF/NEIGHBOR mode "
+                         "only")
     if h.device.type == "cpu":
         counts["plain_calls"] += 1
         return typed_gather_mix_agg_plain(h, nn_idx, etype, aggregator,
@@ -290,15 +390,23 @@ def typed_gather_mix_agg(h, nn_idx, etype, aggregator: str,
     B, rows, T, C = h.shape
     Nd, K = nn_idx.shape
     N = rows // 2 if ext else rows
+    slab = (checked_fwd_slab(slab, B, rows, Nd, K, T, C, aggregator)
+            if ext else 0)
     out = torch.empty((B, Nd, C), dtype=torch.float32, device=h.device)
     am = (torch.empty((B, Nd, C), dtype=torch.uint8, device=h.device)
           if want_argmax else None)
-    vec4 = int(C % 4 == 0 and h.data_ptr() % 16 == 0)
-    _launch("typed_mp_fwd", "typed_mp_fwd", h.device,
-            (B, N, Nd, K, T, C), h.data_ptr(), nn_idx.data_ptr(),
-            etype.data_ptr(), out.data_ptr(), _ptr(am),
-            B, N, Nd, K, T, C, AGGREGATORS[aggregator], float(gamma), vec4,
-            int(ext))
+    vec4 = int(C % 4 == 0 and slab % 4 == 0 and h.data_ptr() % 16 == 0)
+    args = (h.data_ptr(), nn_idx.data_ptr(), etype.data_ptr(),
+            out.data_ptr(), _ptr(am), B, N, Nd, K, T, C,
+            AGGREGATORS[aggregator], float(gamma), vec4)
+    if slab:
+        _launch("typed_mp_fwd", "typed_mp_fwd_staged", h.device,
+                (B, N, Nd, K, T, C), *args, slab)
+    else:
+        _launch("typed_mp_fwd", "typed_mp_fwd", h.device,
+                (B, N, Nd, K, T, C), *args, int(ext))
+        if ext:
+            counts = KEPT_EXT_COUNTS
     counts["kernel_launches"] += 1
     return (out, am) if want_argmax else out
 
@@ -343,10 +451,6 @@ def typed_gather_mix_agg_bwd_plain(g, h, nn_idx, etype, aggregator: str,
     return dh.reshape(B, N, T, C), d_etype
 
 
-def _pad4(n: int) -> int:
-    return -(-n // 4) * 4
-
-
 def staged_bytes(rows: int, Nd: int, K: int, T: int, cs: int,
                  aggregator: str) -> int:
     """Shared memory of one block of the staged backward kernel
@@ -358,7 +462,7 @@ def staged_bytes(rows: int, Nd: int, K: int, T: int, cs: int,
     (rows + 1, at most 2 Nd K), int32."""
     E = Nd * K
     softmax = aggregator == "softmax"
-    row = T * cs + (4 if cs < 32 else 0)
+    row = _row_stride(T, cs)
     cot = (_pad4(E * cs) if softmax
            else _pad4(Nd * cs) + _pad4(-(-Nd * cs // 4)))
     et = _pad4(T) + (4 if softmax else 0)
@@ -385,9 +489,7 @@ def bwd_slab(B: int, rows: int, Nd: int, K: int, T: int, C: int,
     and the kept kernels run: the widest of ``staged_slabs`` whose grid
     gives at least every second SM a block, else the widest.  It reads the
     shapes alone, so the bits of a result depend on the shapes alone."""
-    fits = staged_slabs(rows, Nd, K, T, C, aggregator)
-    busy = [cs for cs in fits if 2 * B * (C // cs) >= SMS]
-    return (busy or fits or [0])[0]
+    return _busiest(staged_slabs(rows, Nd, K, T, C, aggregator), B, C)
 
 
 def checked_slab(slab, B: int, rows: int, Nd: int, K: int, T: int, C: int,

@@ -42,10 +42,12 @@ from collections import defaultdict
 import torch
 
 
-# the port's __global__ functions (csrc/*.cu), by name: the forward, the
-# staged backward and its sum over slabs, and the two of the kept backward
-PORT_KERNELS = ("typed_mp_fwd_kernel", "staged_bwd_kernel", "sum_slabs",
-                "d_etype_kernel", "dh_kernel")
+# the port's __global__ functions (csrc/*.cu), by name: the kept and the
+# staged forward, the staged backward and its sum over slabs, and the two
+# of the kept backward
+PORT_KERNELS = ("typed_mp_fwd_kernel", "staged_fwd_kernel",
+                "staged_bwd_kernel", "sum_slabs", "d_etype_kernel",
+                "dh_kernel")
 
 
 def _kernel_events(trace_path: str):
@@ -91,6 +93,7 @@ def _trace(fn, steps: int, wall_ms: float, per: str, top: int) -> dict:
     bwd = fused_mp.BWD_COUNTS["kernel_launches"]
     ext = fused_mp.EXT_COUNTS["kernel_launches"]
     ext_bwd = fused_mp.EXT_BWD_COUNTS["kernel_launches"]
+    kept_ext_fwd = fused_mp.KEPT_EXT_COUNTS["kernel_launches"]
     kept = fused_mp.KEPT_BWD_COUNTS["kernel_launches"]
     kept_ext = fused_mp.KEPT_EXT_BWD_COUNTS["kernel_launches"]
     with tempfile.TemporaryDirectory() as tmp:
@@ -119,6 +122,7 @@ def _trace(fn, steps: int, wall_ms: float, per: str, top: int) -> dict:
     }
     for name, n in (("typed_mp_fwd", fwd), ("typed_mp_bwd", bwd),
                     ("typed_mp_fwd_ext", ext), ("typed_mp_bwd_ext", ext_bwd),
+                    ("typed_mp_fwd_ext_kept", kept_ext_fwd),
                     ("typed_mp_bwd_kept", kept),
                     ("typed_mp_bwd_ext_kept", kept_ext)):
         if n or name == "typed_mp_fwd":

@@ -18,8 +18,9 @@ pytestmark = pytest.mark.cuda
 # (B, N_src, Nd, K, T, C): LDPC f2v / v2f, ragged, scalar path (C % 4 != 0)
 SHAPES = [(16, 48, 96, 3, 4, 64), (16, 96, 48, 6, 4, 128),
           (5, 136, 8, 5, 3, 24), (3, 17, 11, 2, 1, 30)]
-# the backward's routes: the staged kernel with the planned slab (two slabs
-# a sample at the v2f C=128 shape), and the kept kernels
+# the routes of the backward and of the extension forward: the staged
+# kernel with the planned slab (two slabs a sample at the v2f C=128 shape),
+# and the kept kernels
 ROUTES = {"staged": None, "kept": 0}
 
 
@@ -245,16 +246,22 @@ def _ext_inputs(shape, dev, agg, seed=0):
     return gout, h, table, et, am, out
 
 
+def _fwd_counts(route):
+    return fused_mp.KEPT_EXT_COUNTS if route == "kept" else \
+        fused_mp.EXT_COUNTS
+
+
+@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("shape", EXT_SHAPES)
 @pytest.mark.parametrize("agg", ["max", "sum", "mean", "softmax"])
-def test_ext_kernel_matches_plain(cuda, shape, agg):
+def test_ext_kernel_matches_plain(cuda, shape, agg, route):
     _, h, table, et, _, _ = _ext_inputs(shape, cuda, "sum")
     want = agg == "max"
-    before = dict(fused_mp.EXT_COUNTS), dict(fused_mp.COUNTS)
+    counts = _fwd_counts(route)
+    before = counts["kernel_launches"], dict(fused_mp.COUNTS)
     got = fused_mp.typed_gather_mix_agg(h, table.idx, et, agg, 3.0, want,
-                                        ext=True)
-    assert fused_mp.EXT_COUNTS["kernel_launches"] == \
-        before[0]["kernel_launches"] + 1
+                                        ext=True, slab=ROUTES[route])
+    assert counts["kernel_launches"] == before[0] + 1
     assert fused_mp.COUNTS == before[1]
     ref = fused_mp.typed_gather_mix_agg_plain(h, table.idx, et, agg, 3.0,
                                               want, ext=True)
@@ -268,6 +275,65 @@ def test_ext_kernel_matches_plain(cuda, shape, agg):
         top2 = msgs.topk(2, dim=2).values
         clear = (top2[:, :, 0] - top2[:, :, 1]) > 1e-5 * top2[:, :, 0].abs()
         assert (got[1] == ref[1])[clear].all()
+
+
+@pytest.mark.parametrize("want", [True, False])
+@pytest.mark.parametrize("shape", EXT_SHAPES)
+def test_ext_staged_max_is_bit_equal_to_the_kept_kernel(cuda, shape, want):
+    """Both routes form each message in the same order and keep the first
+    maximal k, so max's out and argmax agree to the bit."""
+    _, h, table, et, _, _ = _ext_inputs(shape, cuda, "sum", seed=4)
+    got, kept = (fused_mp.typed_gather_mix_agg(
+        h, table.idx, et, "max", 3.0, want, ext=True, slab=slab)
+        for slab in (None, 0))
+    torch.cuda.synchronize()
+    for a, b in zip(got if want else (got,), kept if want else (kept,)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", EXT_SHAPES)
+@pytest.mark.parametrize("agg", ["max", "softmax"])
+def test_ext_staged_kernel_is_deterministic(cuda, shape, agg):
+    _, h, table, et, _, _ = _ext_inputs(shape, cuda, "sum", seed=5)
+    want = agg == "max"
+    runs = [fused_mp.typed_gather_mix_agg(h, table.idx, et, agg, 3.0, want,
+                                          ext=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*(r if want else (r,) for r in runs)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("slab", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("agg", ["max", "sum", "softmax"])
+def test_ext_staged_kernel_every_slab_matches_plain(cuda, agg, slab):
+    """The fixed chain (30, 8) at C=64: one to sixteen slabs a sample; 64
+    channels do not fit a block and are refused."""
+    _, h, table, et, _, _ = _ext_inputs(EXT_SHAPES[3], cuda, "sum", seed=6)
+    if slab not in fused_mp.fwd_slabs(60, 30, 8, 16, 64):
+        with pytest.raises(ValueError, match="no forward slab"):
+            fused_mp.typed_gather_mix_agg(h, table.idx, et, agg, ext=True,
+                                          slab=slab)
+        return
+    before = fused_mp.EXT_COUNTS["kernel_launches"]
+    got = fused_mp.typed_gather_mix_agg(h, table.idx, et, agg, 3.0,
+                                        ext=True, slab=slab)
+    assert fused_mp.EXT_COUNTS["kernel_launches"] == before + 1
+    ref = fused_mp.typed_gather_mix_agg_plain(h, table.idx, et, agg, 3.0,
+                                              ext=True)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_ext_staged_all_ties_argmax_is_the_first_edge(cuda):
+    # every edge of a row reads the same two rows, so all K messages tie;
+    # K=9 puts two edges on one lane and eight lanes on a row
+    B, N, K, T, C = 8, 16, 9, 2, 16
+    h = torch.randn(1, 1, T, C).expand(B, 2 * N, T, C).contiguous().to(cuda)
+    idx = torch.zeros(N, K, dtype=torch.int32, device=cuda)
+    et = torch.ones(B, N, K, T, device=cuda)
+    _, am = fused_mp.typed_gather_mix_agg(h, idx, et, "max",
+                                          want_argmax=True, ext=True)
+    assert am.max().item() == 0
 
 
 @pytest.mark.parametrize("route", ROUTES)
@@ -347,6 +413,7 @@ def test_ext_conv_backward_on_cuda_launches_the_kernels(cuda, ext, agg):
         assert fused_mp.EXT_COUNTS[kind] == 1
         assert fused_mp.EXT_BWD_COUNTS[kind] == 1
         assert fused_mp.COUNTS["kernel_launches"] == 0
+        assert fused_mp.KEPT_EXT_COUNTS["kernel_launches"] == 0
         grads.append([t.grad.cpu() for t in ts])
     # d_filters = x^T dh sums B * N rows of dh, each a sum over K * T
     # terms: cuBLAS and the CPU add them in other orders, so each gradient
