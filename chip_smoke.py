@@ -53,15 +53,39 @@ Phases, one JSON line each:
                    [0, 1]; the step time on one staged batch
   syn_train_vs_cpu one hop train step from the same weights (after
                    SYN_WARM_STEPS steps on the card) and batch on the card,
-                   on the port's CPU path and in f64 on the CPU
+                   on the port's CPU path, and in f64 on the CPU on each f32
+                   run's own ReLU and max branches, from each seed pair of
+                   SYN_VS_CPU_SEEDS, and their spread
   syn_fixed        ``train_and_eval("fixed", ...)`` (mp_nn), 5 steps at
                    B=32 and one eval batch: the NEIGHBOR mode on a path
+  kernel_check_bf16     the bf16 mode of the NO_EXTENSION forward and of
+                   the staged backward against their plain versions at the
+                   LDPC and ragged shapes, all four aggregators (out within
+                   one bf16 ulp, dh and d_etype within BF16_REL_L2), two
+                   launches bit-equal, an all-ties case; at each LDPC shape
+                   the f32 and bf16 instantiations timed in turns (f32,
+                   bf16, bf16, f32), the bf16 plain and bound times, and
+                   every bf16 slab of the backward (each checked)
+  kernel_check_ext_bf16 the same for both routes of the DIFF/NEIGHBOR
+                   forward (max bit-equal between them) and the staged
+                   backward, with every bf16 slab of both staged kernels
+  decode_bf16      ``evaluate`` with ``--bf16`` on the decode phase's
+                   weights and grid: 15 of the 16 launches per batch in the
+                   bf16 mode (layer 6's v2f conv gets an f32 x), no plain
+                   version; words/s; the bf16 logits within
+                   DECODE_BF16_REL_L2 of the f32 logits
+  train_bf16       20 LDPC steps (``train.ldpc.train``) and 20 hop steps
+                   with 4 eval batches (``train_and_eval``) with ``--bf16``:
+                   finite losses, the bf16 launches per step the CPU
+                   dtype-flow test implies (LDPC 15 forward and 14
+                   backward, hop 12 and 12), f32 parameters; step times
 
 then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failed check raises and the script exits non-zero; without a
 CUDA device, or outside a checkout, it exits non-zero before any phase.
 """
 
+import contextlib
 import copy
 import json
 import math
@@ -159,6 +183,44 @@ FIXED_STEPS = 5
 # those steps leave, each gradient tensor on the card and on the CPU held to
 # GRAD_REL_L2 of an f64 run, as the LDPC step is.
 SYN_WARM_STEPS = 10
+# Even there the step is piecewise smooth: among the millions of ReLU,
+# leaky ReLU and max decisions of a hop step a few sit so near their kink
+# (an activation near 0, two messages near a tie) that f32 rounding takes
+# one branch and f64 the other, and the gradients of every layer below move
+# with it: at one of four seed pairs the card and the CPU alike lay 6.4e-3
+# from f64 on one tensor (PERF.md), and the card, rounding in other
+# orders, flips other decisions than the CPU.  So each f32 run is
+# compared with an f64 run that takes the f32 run's own branches
+# (``_branches``): the same piece of the function, where only rounding
+# separates the two.
+# (data seed, init seed) of each syn_train_vs_cpu reading: the spread over
+# seeds says how much headroom the 3e-3 limit has
+SYN_VS_CPU_SEEDS = ((3, 2), (11, 12), (21, 22), (31, 32))
+
+# The bf16 compute policy (--bf16).  Every conv whose x is bf16 runs the
+# kernels' bf16 mode.  Of the 16 type-0 convs of an LDPC forward, 15 get a
+# bf16 x; layer 6's v2f conv (v2f_c64) gets an f32 x, since the skip link
+# from layer 2 adds the global-factor conv's f32 output, and runs the f32
+# mode; autograd skips layer 7's v2f backward (bf16).  Every conv of a hop
+# step gets a bf16 x.  tests/test_torch_bf16.py::
+# test_path_convs_take_the_bf16_mode_where_jax_does holds that dtype flow
+# against the JAX package's on the CPU.  bf16 launches per forward (decode)
+# and per train step, by LDPC shape:
+BF16_FWD = {"f2v_c64": 7, "f2v_c128": 1, "v2f_c64": 6, "v2f_c128": 1}
+BF16_BWD = {"f2v_c64": 7, "f2v_c128": 1, "v2f_c64": 5, "v2f_c128": 1}
+BF16_FWD_PER_STEP = sum(BF16_FWD.values())   # 15
+BF16_BWD_PER_STEP = sum(BF16_BWD.values())   # 14
+# Kernel against plain version in the bf16 mode: both round at the same
+# places and sum in f32 in other orders, so out within one bf16 ulp of the
+# plain value per element plus KERNEL_TOL of the largest (values that
+# cancel to near zero), dh and d_etype within BF16_REL_L2 relative L2: the
+# tolerances of the plain version against the TPU kernel's bf16 mode on
+# the CPU (tests/test_torch_bf16.py).
+BF16_REL_L2 = 4e-3
+# The bf16 decode's logits against the f32 decode of the same weights: bf16
+# keeps 8 significant bits (2^-9 of relative rounding a value) through the
+# 8 layers; 5e-2 relative L2 allows about 25 such roundings in a row.
+DECODE_BF16_REL_L2 = 5e-2
 
 
 def emit(phase, **kw):
@@ -963,16 +1025,88 @@ def phase_syn_train(torch, fused_mp, dev, tmp):
     return res
 
 
+@contextlib.contextmanager
+def _branches(torch, fused_mp, record=None, replay=None):
+    """Within the block, every ReLU and leaky ReLU of the port's models and
+    every max conv's first-win argmax appends its branch (the mask of
+    positive inputs, the argmax) to ``record``; or, with ``replay``, takes
+    the branch ``replay`` holds for that call, in call order (the values
+    of the other branch where the inputs disagree)."""
+    import torch.nn.functional as F
+
+    relu, leaky = torch.relu, F.leaky_relu
+    wrapped = fused_mp.typed_gather_mix_agg
+
+    def branch(taken):
+        if record is not None:
+            record.append(taken.cpu())
+            return taken
+        return replay.pop(0).to(taken.device)
+
+    def relu_(x):
+        if record is not None:
+            branch(x > 0)
+            return relu(x)
+        return torch.where(branch(x > 0), x, torch.zeros_like(x))
+
+    def leaky_(x, negative_slope=0.01, inplace=False):
+        if record is not None:
+            branch(x > 0)
+            return leaky(x, negative_slope)
+        return torch.where(branch(x > 0), x, negative_slope * x)
+
+    def routed(h, nn_idx, etype, aggregator, gamma=3.0, want_argmax=False,
+               ext=False, **kw):
+        if aggregator != "max" or not want_argmax:
+            return wrapped(h, nn_idx, etype, aggregator, gamma, want_argmax,
+                           ext=ext, **kw)
+        if record is not None:
+            out, am = wrapped(h, nn_idx, etype, aggregator, gamma, True,
+                              ext=ext, **kw)
+            branch(am)
+            return out, am
+        hx, et = fused_mp._operands(h, etype)
+        msgs = (fused_mp._gathered(hx, nn_idx.long(), ext)
+                * et[..., None]).sum(dim=3)
+        am = replay.pop(0).to(h.device)
+        out = msgs.gather(2, am[:, :, None].long()).squeeze(2)
+        return out.to(h.dtype), am
+
+    torch.relu, F.leaky_relu = relu_, leaky_
+    fused_mp.typed_gather_mix_agg = routed
+    try:
+        yield
+    finally:
+        torch.relu, F.leaky_relu = relu, leaky
+        fused_mp.typed_gather_mix_agg = wrapped
+
+
 def phase_syn_train_vs_cpu(torch, dev):
+    """The hop step against the CPU and f64 from each (data, init) seed
+    pair of SYN_VS_CPU_SEEDS; every reading must pass, and their spread is
+    emitted."""
+    worst = []
+    for data_seed, init_seed in SYN_VS_CPU_SEEDS:
+        worst.append(_syn_train_vs_cpu(torch, dev, data_seed, init_seed))
+    emit("syn_train_vs_cpu", seeds=[list(p) for p in SYN_VS_CPU_SEEDS],
+         card_vs_f64_rel_l2_worst_by_seed=[w[0] for w in worst],
+         cpu_vs_f64_rel_l2_worst_by_seed=[w[1] for w in worst],
+         card_vs_f64_rel_l2_spread=[min(w[0] for w in worst),
+                                    max(w[0] for w in worst)],
+         tol_rel_l2=GRAD_REL_L2)
+
+
+def _syn_train_vs_cpu(torch, dev, data_seed, init_seed):
     from fgnn_tpu_torch.data import batches
     from fgnn_tpu_torch.models import init_weights
     from fgnn_tpu_torch.train.common import make_optimizer
+    from fgnn_tpu_torch.ops import fused_mp
     from fgnn_tpu_torch.train.synthetic import BASE_LR, SynWorkload, \
         parse_args, train_step
 
-    args = parse_args(["--seed", "3"], "hop")
+    args = parse_args(["--seed", str(data_seed)], "hop")
     wl = SynWorkload("hop", args)
-    init_weights(wl.model, 2)
+    init_weights(wl.model, init_seed)
     wl.to(dev)
     data = batches(wl.dataset, SYN_BATCH, SYN_WARM_STEPS + 1)
     opt = make_optimizer(wl.model.parameters(), BASE_LR, weight_decay=0.0)
@@ -980,10 +1114,12 @@ def phase_syn_train_vs_cpu(torch, dev):
         train_step(wl, opt, next(data), dev)
     start = {k: v.cpu() for k, v in wl.model.state_dict().items()}
     batch = next(data)
-    runs = {}
-    for name, where, dtype in (("card", dev, torch.float32),
-                               ("cpu", "cpu", torch.float32),
-                               ("f64", "cpu", torch.float64)):
+    runs, routing = {}, {"card": [], "cpu": []}
+    for name, where, dtype, routed in (
+            ("card", dev, torch.float32, dict(record=routing["card"])),
+            ("cpu", "cpu", torch.float32, dict(record=routing["cpu"])),
+            ("f64", "cpu", torch.float64, dict(replay=routing["card"])),
+            ("f64_cpu", "cpu", torch.float64, dict(replay=routing["cpu"]))):
         wl = SynWorkload("hop", args)
         wl.model.load_state_dict(start)
         wl.to(where)
@@ -994,17 +1130,23 @@ def phase_syn_train_vs_cpu(torch, dev):
                   for k, v in wl.stage(batch, where).items()}
         opt = make_optimizer(wl.model.parameters(), BASE_LR,
                              weight_decay=0.0)
-        metrics = train_step(wl, opt, staged, where)
+        with _branches(torch, fused_mp, **routed):
+            metrics = train_step(wl, opt, staged, where)
         runs[name] = ({k: float(v) for k, v in metrics.items()},
                       {n: None if p.grad is None else p.grad.cpu().double()
                        for n, p in wl.model.named_parameters()})
-    (gm, gg), (cm, cg), (_, rg) = runs["card"], runs["cpu"], runs["f64"]
+        if "record" in routed:
+            require(routed["record"], f"{name}: the branches recorded")
+    require(not routing["card"] and not routing["cpu"],
+            "every recorded branch replayed")
+    (gm, gg), (cm, cg) = runs["card"], runs["cpu"]
+    refs = {"card": runs["f64"][1], "cpu": runs["f64_cpu"][1]}
     require(math.isfinite(gm["loss"]), "finite loss")
     require(abs(gm["loss"] - cm["loss"]) <= LOSS_RTOL * abs(cm["loss"]),
             f"loss: card {gm['loss']} vs CPU {cm['loss']}")
     readings, bad = {}, []
     for side, grads in (("card", gg), ("cpu", cg)):
-        rel, noise, floor, failed = _grad_errors(torch, grads, rg)
+        rel, noise, floor, failed = _grad_errors(torch, grads, refs[side])
         readings[side] = rel
         bad += [f"{side}: {m}" for m in failed]
         bad += ([f"{side} {n}: relative L2 error {v}" for n, v in rel.items()
@@ -1014,7 +1156,8 @@ def phase_syn_train_vs_cpu(torch, dev):
     card, cpu = readings["card"], readings["cpu"]
     vs_cpu, _, _, _ = _grad_errors(torch, gg, cg)
     worst = sorted(card, key=card.get, reverse=True)[:5]
-    emit("syn_train_vs_cpu", warm_steps=SYN_WARM_STEPS, loss=gm["loss"],
+    emit("syn_train_vs_cpu", seeds=[data_seed, init_seed],
+         warm_steps=SYN_WARM_STEPS, loss=gm["loss"],
          loss_cpu=cm["loss"], acc=gm["acc"], acc_cpu=cm["acc"],
          lp_acc=gm["lp_acc"], tensors_rel_l2=len(card),
          tensors_at_noise_floor=len(noise), noise_floor=floor,
@@ -1026,6 +1169,7 @@ def phase_syn_train_vs_cpu(torch, dev):
          tol_rel_l2=GRAD_REL_L2, failed=bad)
     require(not bad, "hop gradients on the card and on the CPU within "
                      "GRAD_REL_L2 of the f64 run")
+    return max(card.values()), max(cpu.values())
 
 
 def phase_syn_fixed(torch, fused_mp, dev, tmp):
@@ -1036,6 +1180,526 @@ def phase_syn_fixed(torch, fused_mp, dev, tmp):
     emit("syn_fixed", batch_size=SYN_BATCH, model_name=args.model_name,
          **res)
     return res
+
+
+# --------------------------------------------------------------------------
+# the bf16 mode
+
+
+def _ulp_bf16(torch, v):
+    e = torch.floor(torch.log2(v.abs().float().clamp_min(2.0 ** -120)))
+    return torch.exp2(e - 7)
+
+
+def _check_bf16_out(torch, got, ref, what):
+    """A bf16 out against the plain version's: one bf16 ulp per element
+    plus KERNEL_TOL of the largest value.  Returns the max abs error."""
+    got, ref = got.float(), ref.float()
+    require(torch.isfinite(got).all().item(), f"{what} finite")
+    err = (got - ref).abs()
+    ok = (err <= _ulp_bf16(torch, ref)
+          + KERNEL_TOL * ref.abs().max()).all().item()
+    require(ok, f"{what}: out beyond one bf16 ulp (max abs err "
+                f"{err.max().item()})")
+    return err.max().item()
+
+
+def _check_rel_l2(torch, got, ref, what, tol=BF16_REL_L2):
+    got, ref = got.float(), ref.float()
+    require(torch.isfinite(got).all().item(), f"{what} finite")
+    rel = ((got - ref).norm() / ref.norm()).item()
+    require(rel <= tol, f"{what}: relative L2 error {rel} > {tol}")
+    return (got - ref).abs().max().item()
+
+
+def _same_bits(torch, a, b, what):
+    require(all(torch.equal(x, y) for x, y in zip(a, b)),
+            f"{what}: two launches give the same bits")
+
+
+def _time_modes(torch, call, plain, slabs, check):
+    """``call(dtype, slab)`` of the f32 and bf16 instantiations timed in
+    turns (f32, bf16, bf16, f32), the bf16 plain version, and every bf16
+    slab of ``slabs`` (the staged kernels), each checked by ``check(result,
+    slab)`` first.  Returns (timings, worst error of the slabs)."""
+    f32, b16 = torch.float32, torch.bfloat16
+    runs = [device_ms(lambda d=d: call(d, None), 200, torch)
+            for d in (f32, b16, b16, f32)]
+    plain_ms, _ = device_ms(plain, 20, torch)
+    worst, slab_ms = 0.0, {}
+    for cs in slabs:
+        got = call(b16, cs)
+        torch.cuda.synchronize()
+        worst = max(worst, check(got, cs))
+        slab_ms[cs] = device_ms(lambda s=cs: call(b16, s), 200, torch)[0]
+    ms = (runs[1][0] + runs[2][0]) / 2
+    f32_ms = (runs[0][0] + runs[3][0]) / 2
+    return dict(ms=ms, f32_ms=f32_ms, ms_in_turns=[r[0] for r in runs],
+                wrapper_host_ms=runs[1][1], plain_ms=plain_ms,
+                bf16_over_f32=ms / f32_ms, slab_ms=slab_ms), worst
+
+
+def _bf16_fwd_bytes(B, rows, Nd, K, T, C, argmax):
+    """A forward's bytes in the bf16 mode: h and out bf16, the table and
+    etype 4 bytes, the argmax 1."""
+    return (2 * B * rows * T * C + 4 * Nd * K + 4 * B * Nd * K * T
+            + 2 * B * Nd * C + (B * Nd * C if argmax else 0))
+
+
+def _bf16_bwd_bytes(B, rows, Nd, K, T, C, agg, table_ints):
+    """A backward's bytes in the bf16 mode: g, h and dh bf16, the argmax
+    (max) 1 byte or the f32 log-sum-exp (softmax) 4, etype and d_etype and
+    the tables 4."""
+    saved = B * Nd * C * (1 if agg == "max" else
+                          4 if agg == "softmax" else 0)
+    return (2 * B * Nd * C + saved + 2 * 2 * B * rows * T * C
+            + 2 * 4 * B * Nd * K * T + 4 * table_ints)
+
+
+def phase_kernel_check_bf16(torch, fused_mp):
+    """The NO_EXTENSION forward and the staged backward in the bf16 mode
+    against their plain versions at every LDPC and ragged shape, all four
+    aggregators; two launches bit-equal; at the path shapes the f32 and
+    bf16 instantiations timed in turns, and every bf16 slab of the
+    backward."""
+    from fgnn_tpu_torch.ops.typed_mp import GatherTable
+
+    b16 = torch.bfloat16
+    worst, fwd_rows, bwd_rows = 0.0, [], []
+    for si, (name, B, N, Nd, K, T, C, per_fwd, per_step) in enumerate(
+            SHAPES):
+        h32, idx, et = _inputs(torch, B, N, Nd, K, T, C, 600 + si)
+        h = h32.to(b16)
+        table = GatherTable(idx.cpu().numpy(), N).to("cuda")
+        gen = torch.Generator(device="cuda").manual_seed(700 + si)
+        g = torch.randn(B, Nd, C, device="cuda", generator=gen).to(b16)
+        saved = {}
+        for agg in AGGS:
+            kw = dict(want_argmax=agg == "max", want_lse=agg == "softmax")
+            before = fused_mp.BF16_COUNTS["typed_mp_fwd"]
+            runs = [fused_mp.typed_gather_mix_agg(h, idx, et, agg, 3.0, **kw)
+                    for _ in range(2)]
+            ref = fused_mp.typed_gather_mix_agg_plain(h, idx, et, agg, 3.0,
+                                                      **kw)
+            torch.cuda.synchronize()
+            require(fused_mp.BF16_COUNTS["typed_mp_fwd"] == before + 2,
+                    f"{name} {agg}: two launches of the bf16 forward")
+            two = agg in ("max", "softmax")
+            first, again = ((r if two else (r,)) for r in runs)
+            ref = ref if two else (ref,)
+            _same_bits(torch, first, again, f"{name} {agg} bf16 forward")
+            require(first[0].dtype == b16, f"{name} {agg}: a bf16 out")
+            worst = max(worst, _check_bf16_out(torch, first[0], ref[0],
+                                               f"{name} {agg} bf16"))
+            if agg == "softmax":
+                worst = max(worst, _check_close(torch, first[1], ref[1],
+                                                f"{name} bf16 lse"))
+            if agg == "max" and K > 1:
+                msgs = (h.float()[:, idx.long()]
+                        * et.to(b16).float()[..., None]).sum(dim=3)
+                top2 = msgs.topk(2, dim=2).values
+                clear = ((top2[:, :, 0] - top2[:, :, 1])
+                         > 2.0 ** -8 * top2[:, :, 0].abs())
+                require((first[1] == ref[1])[clear].all().item(),
+                        f"{name}: bf16 argmax differs where the gap is "
+                        "clear")
+            am = first[1] if agg == "max" else None
+            lse = first[1] if agg == "softmax" else None
+            saved[agg] = (am, lse)
+            before = fused_mp.BF16_COUNTS["typed_mp_bwd"]
+            bwd = [fused_mp.typed_gather_mix_agg_bwd(
+                g, h, idx, table.src_ptr, table.src_edge, et, agg, 3.0,
+                argmax=am, out=lse) for _ in range(2)]
+            bref = fused_mp.typed_gather_mix_agg_bwd_plain(
+                g, h, idx, et, agg, 3.0, argmax=am, out=lse)
+            torch.cuda.synchronize()
+            require(fused_mp.BF16_COUNTS["typed_mp_bwd"] == before + 2,
+                    f"{name} {agg}: two launches of the bf16 backward")
+            _same_bits(torch, bwd[0], bwd[1], f"{name} {agg} bf16 backward")
+            require(bwd[0][0].dtype == b16
+                    and bwd[0][1].dtype == torch.float32,
+                    f"{name} {agg}: bf16 dh, f32 d_etype")
+            for what, a, b in zip(("dh", "d_etype"), bwd[0], bref):
+                worst = max(worst, _check_rel_l2(
+                    torch, a, b, f"{name} {agg} bf16 {what}"))
+        if per_fwd == 0:
+            continue
+        # the path's calls: max, the argmax for training, none for decode
+        for argmax in (False, True):
+            timing, _ = _time_modes(
+                torch, lambda d, _s, a=argmax: fused_mp.typed_gather_mix_agg(
+                    h32.to(d) if d != b16 else h, idx, et, "max", 3.0, a),
+                lambda a=argmax: fused_mp.typed_gather_mix_agg_plain(
+                    h, idx, et, "max", 3.0, a), (), None)
+            nbytes = _bf16_fwd_bytes(B, N, Nd, K, T, C, argmax)
+            ops = B * Nd * K * C * (2 * T + 1)
+            fwd_rows.append(dict(
+                name=name, argmax=argmax, B=B, N_src=N, Nd=Nd, K=K, T=T, C=C,
+                bf16_per_forward=BF16_FWD[name], f32_per_forward=per_fwd
+                - BF16_FWD[name], **timing, bytes=nbytes, ops=ops,
+                bound_ms=bound_ms(nbytes, ops),
+                bound_by=bound_by(nbytes, ops)))
+            emit("kernel_check_bf16", kernel="typed_mp_fwd", **fwd_rows[-1],
+                 max_abs_err=worst)
+        am, _ = saved["max"]
+        h_f32 = h.float()
+        g_f32 = g.float()
+
+        def bwd_call(d, slab):
+            if d == b16:
+                return fused_mp.typed_gather_mix_agg_bwd(
+                    g, h, idx, table.src_ptr, table.src_edge, et, "max", 3.0,
+                    argmax=am, slab=slab)
+            return fused_mp.typed_gather_mix_agg_bwd(
+                g_f32, h_f32, idx, table.src_ptr, table.src_edge, et, "max",
+                3.0, argmax=am, slab=slab)
+
+        bref = fused_mp.typed_gather_mix_agg_bwd_plain(
+            g, h, idx, et, "max", 3.0, argmax=am)
+
+        def check(got, cs, bref=bref):
+            return max(_check_rel_l2(torch, a, b, f"{name} bf16 slab {cs}")
+                       for a, b in zip(got, bref))
+
+        timing, err = _time_modes(
+            torch, bwd_call, lambda: fused_mp.typed_gather_mix_agg_bwd_plain(
+                g, h, idx, et, "max", 3.0, argmax=am),
+            fused_mp.staged_slabs(N, Nd, K, T, C, "max", 2), check)
+        worst = max(worst, err)
+        nbytes = _bf16_bwd_bytes(B, N, Nd, K, T, C, "max",
+                                 2 * idx.numel() + N + 1)
+        ops = B * Nd * K * C * (4 * T + 1)
+        slab = fused_mp.bwd_slab(B, N, Nd, K, T, C, "max", 2)
+        bwd_rows.append(dict(
+            name=name, B=B, N_src=N, Nd=Nd, K=K, T=T, C=C,
+            bf16_per_step=BF16_BWD[name], f32_per_step=per_step
+            - BF16_BWD[name], **timing, slab=slab,
+            slab_bytes=fused_mp.staged_bytes(N, Nd, K, T, slab, "max", 2),
+            bytes=nbytes, ops=ops, bound_ms=bound_ms(nbytes, ops),
+            bound_by=bound_by(nbytes, ops)))
+        emit("kernel_check_bf16", kernel="typed_mp_bwd", **bwd_rows[-1],
+             max_abs_err=worst)
+
+    # all ties in bf16: the first-win argmax is 0, and the whole cotangent
+    # goes to k = 0
+    B, N, Nd, K, T, C = 8, 16, 16, 3, 2, 16
+    h = torch.randn(1, 1, T, C, device="cuda").to(b16).expand(
+        B, N, T, C).contiguous()
+    idx = torch.zeros(Nd, K, dtype=torch.int32, device="cuda")
+    table = GatherTable(idx.cpu().numpy(), N).to("cuda")
+    et = torch.ones(B, Nd, K, T, device="cuda")
+    _, am = fused_mp.typed_gather_mix_agg(h, idx, et, "max", want_argmax=True)
+    require(am.max().item() == 0, "bf16 all-ties argmax is 0")
+    g = torch.randn(B, Nd, C, device="cuda").to(b16)
+    _, det = fused_mp.typed_gather_mix_agg_bwd(
+        g, h, idx, table.src_ptr, table.src_edge, et, "max", argmax=am)
+    require(not det[:, :, 1:].any().item() and det[:, :, 0].any().item(),
+            "bf16 all ties: d_etype only at k = 0")
+    emit("kernel_check_bf16", name="all_ties", max_abs_err=worst)
+    return worst, fwd_rows, bwd_rows
+
+
+def phase_kernel_check_ext_bf16(torch, fused_mp):
+    """Both routes of the DIFF/NEIGHBOR forward (the staged kernel with its
+    bf16 plan, and the kept kernel) and the staged backward in the bf16
+    mode, at every extension shape and aggregator: against the plain
+    versions, two launches bit-equal, max bit-equal between the routes; at
+    the path shapes the f32 and bf16 instantiations timed in turns with
+    every bf16 slab; an all-ties case."""
+    b16 = torch.bfloat16
+    worst, fwd_rows, bwd_rows = 0.0, [], []
+    for si, (name, B, N, K, T, C, path_agg, per_hop, _) in enumerate(
+            EXT_SHAPES):
+        h32, table, et = _ext_inputs(torch, B, N, K, T, C, 800 + si)
+        h, idx = h32.to(b16), table.idx
+        gen = torch.Generator(device="cuda").manual_seed(900 + si)
+        g = torch.randn(B, N, C, device="cuda", generator=gen).to(b16)
+        saved = {}
+        for agg in AGGS:
+            require(fused_mp.fwd_slab(B, 2 * N, N, K, T, C, agg, 2) > 0,
+                    f"{name} {agg}: a bf16 forward slab is planned")
+            kw = dict(want_argmax=agg == "max", want_lse=agg == "softmax")
+            two = agg in ("max", "softmax")
+            ref = fused_mp.typed_gather_mix_agg_plain(h, idx, et, agg, 3.0,
+                                                      ext=True, **kw)
+            ref = ref if two else (ref,)
+            routes = {}
+            for route, slab in ROUTES:
+                runs = [fused_mp.typed_gather_mix_agg(
+                    h, idx, et, agg, 3.0, ext=True, slab=slab, **kw)
+                    for _ in range(2)]
+                torch.cuda.synchronize()
+                first, again = ((r if two else (r,)) for r in runs)
+                _same_bits(torch, first, again,
+                           f"{name} {agg} bf16 {route} forward")
+                worst = max(worst, _check_bf16_out(
+                    torch, first[0], ref[0], f"{name} {agg} bf16 {route}"))
+                routes[route] = first
+            if agg == "max":
+                require(all(torch.equal(a, b) for a, b in zip(
+                    routes["staged"], routes["kept"])),
+                    f"{name}: bf16 max bit-equal between the routes")
+                hg = h.float()[:, 0::2, None] + h.float()[:, 1::2][
+                    :, idx.long()]
+                msgs = (hg * et.to(b16).float()[..., None]).sum(dim=3)
+                top2 = msgs.topk(2, dim=2).values
+                clear = ((top2[:, :, 0] - top2[:, :, 1])
+                         > 2.0 ** -8 * top2[:, :, 0].abs())
+                require((routes["staged"][1] == ref[1])[clear].all().item(),
+                        f"{name}: bf16 argmax differs where the gap is "
+                        "clear")
+            am = routes["staged"][1] if agg == "max" else None
+            lse = routes["staged"][1] if agg == "softmax" else None
+            saved[agg] = (am, lse)
+            bwd = [fused_mp.typed_gather_mix_agg_bwd(
+                g, h, idx, table.ext_ptr, table.ext_edge, et, agg, 3.0,
+                argmax=am, out=lse, ext=True) for _ in range(2)]
+            bref = fused_mp.typed_gather_mix_agg_bwd_plain(
+                g, h, idx, et, agg, 3.0, argmax=am, out=lse, ext=True)
+            torch.cuda.synchronize()
+            _same_bits(torch, bwd[0], bwd[1], f"{name} {agg} bf16 backward")
+            for what, a, b in zip(("dh", "d_etype"), bwd[0], bref):
+                worst = max(worst, _check_rel_l2(
+                    torch, a, b, f"{name} {agg} bf16 {what}"))
+        if path_agg is None:
+            continue
+        want = path_agg == "max"
+        am, lse = saved[path_agg]
+        kw = dict(want_argmax=want)
+        ref = fused_mp.typed_gather_mix_agg_plain(h, idx, et, path_agg, 3.0,
+                                                  ext=True, **kw)
+        ref = ref if want else (ref,)
+
+        def fwd_call(d, slab, agg=path_agg, kw=kw):
+            x = h if d == b16 else h32
+            return fused_mp.typed_gather_mix_agg(x, idx, et, agg, 3.0,
+                                                 ext=True, slab=slab, **kw)
+
+        def fwd_check(got, cs, want=want, ref=ref):
+            got = got if want else (got,)
+            return _check_bf16_out(torch, got[0], ref[0],
+                                   f"{name} bf16 slab {cs}")
+
+        timing, err = _time_modes(
+            torch, fwd_call, lambda agg=path_agg, kw=kw:
+            fused_mp.typed_gather_mix_agg_plain(h, idx, et, agg, 3.0,
+                                                ext=True, **kw),
+            fused_mp.fwd_slabs(2 * N, N, K, T, C, 2), fwd_check)
+        worst = max(worst, err)
+        nbytes = _bf16_fwd_bytes(B, 2 * N, N, K, T, C, want)
+        ops = B * N * K * C * (3 * T + 1)
+        slab = fused_mp.fwd_slab(B, 2 * N, N, K, T, C, path_agg, 2)
+        fwd_rows.append(dict(
+            name=name, B=B, N=N, K=K, T=T, C=C, aggregator=path_agg,
+            argmax=want, per_hop_step=per_hop, **timing, slab=slab,
+            slab_bytes=fused_mp.fwd_bytes(2 * N, N, K, T, slab, 2),
+            bytes=nbytes, ops=ops, bound_ms=bound_ms(nbytes, ops),
+            bound_by=bound_by(nbytes, ops)))
+        emit("kernel_check_ext_bf16", kernel="typed_mp_fwd", **fwd_rows[-1],
+             max_abs_err=worst)
+        h_f32, g_f32 = h.float(), g.float()
+
+        def bwd_call(d, slab, agg=path_agg, am=am, lse=lse):
+            x, gg = (h, g) if d == b16 else (h_f32, g_f32)
+            return fused_mp.typed_gather_mix_agg_bwd(
+                gg, x, idx, table.ext_ptr, table.ext_edge, et, agg, 3.0,
+                argmax=am, out=lse, ext=True, slab=slab)
+
+        bref = fused_mp.typed_gather_mix_agg_bwd_plain(
+            g, h, idx, et, path_agg, 3.0, argmax=am, out=lse, ext=True)
+
+        def bwd_check(got, cs, bref=bref):
+            return max(_check_rel_l2(torch, a, b, f"{name} bf16 slab {cs}")
+                       for a, b in zip(got, bref))
+
+        timing, err = _time_modes(
+            torch, bwd_call, lambda agg=path_agg, am=am, lse=lse:
+            fused_mp.typed_gather_mix_agg_bwd_plain(
+                g, h, idx, et, agg, 3.0, argmax=am, out=lse, ext=True),
+            fused_mp.staged_slabs(2 * N, N, K, T, C, path_agg, 2),
+            bwd_check)
+        worst = max(worst, err)
+        nbytes = _bf16_bwd_bytes(B, 2 * N, N, K, T, C, path_agg,
+                                 idx.numel() + table.ext_ptr.numel()
+                                 + table.ext_edge.numel())
+        ops = B * N * K * C * (7 * T + 1 + (3 * T if path_agg == "softmax"
+                                            else 0))
+        bwd_rows.append(dict(
+            name=name, B=B, N=N, K=K, T=T, C=C, aggregator=path_agg,
+            per_hop_step=per_hop, **timing,
+            slab=fused_mp.bwd_slab(B, 2 * N, N, K, T, C, path_agg, 2),
+            bytes=nbytes, ops=ops, bound_ms=bound_ms(nbytes, ops),
+            bound_by=bound_by(nbytes, ops)))
+        emit("kernel_check_ext_bf16", kernel="typed_mp_bwd", **bwd_rows[-1],
+             max_abs_err=worst)
+
+    B, N, K, T, C = 8, 16, 9, 2, 16
+    h = torch.randn(1, 1, T, C, device="cuda").to(b16).expand(
+        B, 2 * N, T, C).contiguous()
+    idx = torch.zeros(N, K, dtype=torch.int32, device="cuda")
+    et = torch.ones(B, N, K, T, device="cuda")
+    for route, slab in ROUTES:
+        _, am = fused_mp.typed_gather_mix_agg(h, idx, et, "max",
+                                              want_argmax=True, ext=True,
+                                              slab=slab)
+        require(am.max().item() == 0,
+                f"bf16 all-ties argmax is 0 (extensions, {route})")
+    emit("kernel_check_ext_bf16", name="all_ties", max_abs_err=worst)
+    return worst, fwd_rows, bwd_rows
+
+
+def phase_decode_bf16(torch, fused_mp, dev, model, batch, path):
+    """``train.ldpc.evaluate`` with ``--bf16`` over the decode phase's eval
+    grid, the same weights: 15 bf16 and 1 f32 forward launches per batch,
+    no plain version; the bf16 logits against the f32 logits of one
+    batch."""
+    from fgnn_tpu_torch.data import Codes
+    from fgnn_tpu_torch.models.policy import compute_dtype
+    from fgnn_tpu_torch.train.ldpc import (
+        decode_logits,
+        decode_step,
+        evaluate,
+        model_inputs,
+        parse_args,
+    )
+
+    args = parse_args(["--bf16", "--test-path", path, "--batch-size",
+                       str(BATCH), "--eval-per-cell", str(EVAL_PER_CELL)])
+    n_batches = len(Codes(path)) // BATCH
+    with compute_dtype(torch.bfloat16):
+        decode_step(model, batch, dev)  # warm-up
+    torch.cuda.synchronize()
+    fused_mp.reset_counts()
+    t0 = time.perf_counter()
+    ber_total, err = evaluate(args, model, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts, bf16 = dict(fused_mp.COUNTS), dict(fused_mp.BF16_COUNTS)
+    require(counts["kernel_launches"] == FWD_PER_STEP * n_batches,
+            f"bf16 decode: {counts['kernel_launches']} forward launches")
+    require(bf16["typed_mp_fwd"] == BF16_FWD_PER_STEP * n_batches,
+            f"bf16 decode: {bf16['typed_mp_fwd']} bf16 launches != "
+            f"{BF16_FWD_PER_STEP} x {n_batches}")
+    require(counts["plain_calls"] == 0, "no plain calls on the card")
+    require(0.0 <= ber_total <= 1.0 and err.shape == (5, 6),
+            "BER in [0, 1], 5 x 6 matrix")
+    f32 = decode_logits(model, batch, dev).double()
+    with compute_dtype(torch.bfloat16):
+        got = decode_logits(model, batch, dev).double()
+        inputs = model_inputs(model, batch, dev)
+        with torch.inference_mode():
+            fwd_ms = cuda_ms(lambda: model(**inputs), 20, torch)
+    require(got.shape == (BATCH, 48) and torch.isfinite(got).all().item(),
+            "finite bf16 logits (256, 48)")
+    rel = ((got - f32).norm() / f32.norm()).item()
+    require(rel <= DECODE_BF16_REL_L2,
+            f"bf16 logits {rel} relative L2 from f32 > {DECODE_BF16_REL_L2}")
+    words = n_batches * BATCH
+    emit("decode_bf16", words=words, batches=n_batches, batch_size=BATCH,
+         seconds=seconds, words_per_s=words / seconds,
+         edges_per_s=words * EDGES_PER_WORD / seconds, forward_ms=fwd_ms,
+         forward_words_per_s=BATCH / fwd_ms * 1e3, ber_total=float(ber_total),
+         logits_rel_l2_vs_f32=rel, tol_rel_l2=DECODE_BF16_REL_L2,
+         decisions_agree=((got >= 0) == (f32 >= 0)).double().mean().item(),
+         kernel_launches=counts["kernel_launches"],
+         bf16_launches=bf16["typed_mp_fwd"],
+         plain_calls=counts["plain_calls"])
+    return bf16["typed_mp_fwd"]
+
+
+def phase_train_bf16(torch, fused_mp, dev, tmp):
+    """20 LDPC steps (``train.ldpc.train``) and 20 hop steps with 4 eval
+    batches (``train.synthetic.train_and_eval``) with ``--bf16``, at the
+    reference widths: finite losses, and every launch the path makes in the
+    bf16 mode but layer 6's v2f conv (f32 x) on the LDPC path."""
+    from fgnn_tpu_torch.data import ContinuousCodesSP, batches
+    from fgnn_tpu_torch.models import LDPCModel, init_weights
+    from fgnn_tpu_torch.models.policy import compute_dtype
+    from fgnn_tpu_torch.train import ldpc, synthetic
+    from fgnn_tpu_torch.train.common import make_optimizer
+    from fgnn_tpu_torch.utils.logging import MetricsWriter
+
+    args = ldpc.parse_args([
+        "--train", "--bf16", "--n-epochs", "1", "--steps-per-epoch",
+        str(TRAIN_STEPS), "--batch-size", str(BATCH),
+        "--samples-per-epoch", str(TRAIN_STEPS * BATCH), "--seed", "0"])
+    model = init_weights(LDPCModel(), seed=0).to(dev)
+    warm = init_weights(LDPCModel(), seed=1).to(dev)
+    warm_batch = next(ContinuousCodesSP(length=BATCH, seed=9).batches(BATCH))
+    with compute_dtype(torch.bfloat16):
+        ldpc.train_step(warm, make_optimizer(warm.parameters(),
+                                             ldpc.BASE_LR), warm_batch, dev)
+    torch.cuda.synchronize()
+    run_dir = os.path.join(tmp, "train_bf16")
+    fused_mp.reset_counts()
+    t0 = time.perf_counter()
+    with MetricsWriter(os.path.join(run_dir, "tf_logs")) as writer:
+        ldpc.train(args, model, writer, run_dir, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    fwd, bwd = dict(fused_mp.COUNTS), dict(fused_mp.BWD_COUNTS)
+    bf16 = dict(fused_mp.BF16_COUNTS)
+    require(fwd["kernel_launches"] == FWD_PER_STEP * TRAIN_STEPS
+            and bwd["kernel_launches"] == BWD_PER_STEP * TRAIN_STEPS,
+            f"bf16 train: {fwd['kernel_launches']} forward and "
+            f"{bwd['kernel_launches']} backward launches")
+    require(bf16["typed_mp_fwd"] == BF16_FWD_PER_STEP * TRAIN_STEPS
+            and bf16["typed_mp_bwd"] == BF16_BWD_PER_STEP * TRAIN_STEPS,
+            f"bf16 train: {bf16} bf16 launches != {BF16_FWD_PER_STEP} and "
+            f"{BF16_BWD_PER_STEP} x {TRAIN_STEPS}")
+    require(fwd["plain_calls"] == 0 and bwd["plain_calls"] == 0
+            and fused_mp.KEPT_BWD_COUNTS["kernel_launches"] == 0,
+            "no plain calls, no kept backward")
+    with open(os.path.join(run_dir, "tf_logs", "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    losses = [r["value"] for r in logged if r["tag"] == "syn_train/loss"]
+    require(len(losses) == TRAIN_STEPS // 10 and all(
+        math.isfinite(r["value"]) for r in logged), "finite logged metrics")
+    require(all(p.dtype == torch.float32 for p in model.parameters()),
+            "f32 parameters under the bf16 policy")
+    opt = make_optimizer(model.parameters(), ldpc.BASE_LR)
+    staged = ldpc.stage_batch(model, warm_batch, dev)
+    with compute_dtype(torch.bfloat16):
+        step_ms = cuda_ms(lambda: ldpc.train_step(model, opt, staged, dev),
+                          20, torch)
+    ldpc_res = dict(steps=TRAIN_STEPS, batch_size=BATCH, seconds=seconds,
+                    steps_per_s=TRAIN_STEPS / seconds, train_step_ms=step_ms,
+                    train_edges_per_s=EDGES_PER_WORD * BATCH / step_ms * 1e3,
+                    losses=losses, fwd_launches=fwd["kernel_launches"],
+                    bwd_launches=bwd["kernel_launches"],
+                    bf16_fwd_launches=bf16["typed_mp_fwd"],
+                    bf16_bwd_launches=bf16["typed_mp_bwd"])
+    emit("train_bf16", workload="ldpc", **ldpc_res)
+
+    hop_args = synthetic.parse_args([
+        "--bf16", "--train-epoches", "1",
+        "--train-size", str(SYN_STEPS * SYN_BATCH),
+        "--test-size", str(SYN_EVAL_BATCHES * SYN_BATCH),
+        "--batch-size", str(SYN_BATCH), "--seed", "0",
+        "--work-dir", os.path.join(tmp, "hop_bf16")], "hop")
+    hop = _run_syn(torch, fused_mp, dev, "hop", hop_args, SYN_STEPS,
+                   SYN_EVAL_BATCHES, HOP_PER_STEP)
+    bf16 = dict(fused_mp.BF16_COUNTS)
+    require(bf16["typed_mp_fwd_ext"] == hop["fwd_launches"]
+            and bf16["typed_mp_bwd_ext"] == hop["bwd_launches"],
+            f"bf16 hop: every launch in the bf16 mode ({bf16})")
+    require(all(math.isfinite(v) for v in hop["losses"]),
+            "bf16 hop: finite losses")
+    wl = synthetic.SynWorkload("hop", hop_args)
+    init_weights(wl.model, 1)
+    wl.to(dev)
+    opt = make_optimizer(wl.model.parameters(), synthetic.BASE_LR,
+                         weight_decay=0.0)
+    staged = wl.stage(next(batches(wl.dataset, SYN_BATCH, 1)), dev)
+    with compute_dtype(torch.bfloat16):
+        step_ms = cuda_ms(lambda: synthetic.train_step(wl, opt, staged, dev),
+                          20, torch)
+    hop.update(syn_train_step_ms=step_ms,
+               step_samples_per_s=SYN_BATCH / step_ms * 1e3,
+               bf16_fwd_launches=bf16["typed_mp_fwd_ext"],
+               bf16_bwd_launches=bf16["typed_mp_bwd_ext"])
+    emit("train_bf16", workload="hop", batch_size=SYN_BATCH, **hop)
+    return ldpc_res, hop
 
 
 def main():
@@ -1062,14 +1726,20 @@ def main():
     worst_ext, shapes_ext = phase_kernel_check_ext(torch, fused_mp)
     worst_ext_bwd, shapes_ext_bwd = phase_kernel_check_ext_bwd(torch,
                                                                fused_mp)
+    worst_b16, fwd_b16, bwd_b16 = phase_kernel_check_bf16(torch, fused_mp)
+    worst_ext_b16, ext_fwd_b16, ext_bwd_b16 = phase_kernel_check_ext_bf16(
+        torch, fused_mp)
     with tempfile.TemporaryDirectory() as tmp:
         model, batch, counts = phase_decode(torch, fused_mp, dev, tmp)
         phase_decode_vs_cpu(torch, model, batch, dev)
+        decode_b16 = phase_decode_bf16(torch, fused_mp, dev, model, batch,
+                                       os.path.join(tmp, "ldpc_eval.npz"))
         fwd_train, bwd_train = phase_train(torch, fused_mp, dev, tmp)
         phase_train_vs_cpu(torch, dev)
         syn = phase_syn_train(torch, fused_mp, dev, tmp)
         phase_syn_train_vs_cpu(torch, dev)
         fixed = phase_syn_fixed(torch, fused_mp, dev, tmp)
+        ldpc_b16, hop_b16 = phase_train_bf16(torch, fused_mp, dev, tmp)
 
     def per_call(rows, key, per):
         return sum(r[key] * r[per] for r in rows)
@@ -1083,7 +1753,63 @@ def main():
                "bound_by": bound_by(nbytes, ops)}
         if "previous_ms" in rows[0]:  # the backward's kept route
             res["previous_ms"] = per_call(rows, "previous_ms", per)
+        if "f32_ms" in rows[0]:  # the f32 instantiation, timed in turns
+            res["f32_ms"] = per_call(rows, "f32_ms", per)
         return res
+
+    def bf16_entry(name, source, replaces, tpu_kernel, launches, by_path,
+                   worst, rows, per, what, **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "tpu_kernel": tpu_kernel,
+                "checked": True, "launches": launches,
+                "launches_by_path": by_path, "max_abs_err": worst,
+                **entry(rows, per), "library_ms": None, "per": what,
+                **extra}
+
+    fwd_cuda = "fgnn_tpu_torch/csrc/typed_mp_fwd.cu"
+    bwd_cuda = "fgnn_tpu_torch/csrc/typed_mp_bwd.cu"
+    bf16_kernels = [
+        bf16_entry(
+            "typed_mp_fwd (bf16 mode)", fwd_cuda,
+            "fgnn_tpu/ops/fused_mp.py:243", "_fwd_kernel, mm_dtype bfloat16",
+            decode_b16 + ldpc_b16["bf16_fwd_launches"],
+            {"decode_bf16": decode_b16,
+             "train_bf16": ldpc_b16["bf16_fwd_launches"]}, worst_b16,
+            [r for r in fwd_b16 if not r["argmax"]], "bf16_per_forward",
+            f"one bf16 decode forward at B={BATCH}: {BF16_FWD_PER_STEP} "
+            "bf16 launches (ms; f32_ms the f32 instantiation on the same "
+            "launches)",
+            train_step={**entry([r for r in fwd_b16 if r["argmax"]],
+                                "bf16_per_forward"),
+                        "per": f"one bf16 train step: {BF16_FWD_PER_STEP} "
+                               "bf16 launches with the argmax"}),
+        bf16_entry(
+            "typed_mp_bwd (bf16 mode)", bwd_cuda,
+            "fgnn_tpu/ops/fused_mp.py:297", "_bwd_kernel, mm_dtype bfloat16",
+            ldpc_b16["bf16_bwd_launches"],
+            {"train_bf16": ldpc_b16["bf16_bwd_launches"]}, worst_b16,
+            bwd_b16, "bf16_per_step",
+            f"one bf16 train step at B={BATCH}: {BF16_BWD_PER_STEP} bf16 "
+            "launches, staged route"),
+        bf16_entry(
+            "typed_mp_fwd (DIFF/NEIGHBOR mode, bf16)", fwd_cuda,
+            "fgnn_tpu/ops/fused_mp.py:243",
+            "_fwd_kernel, extension mode, mm_dtype bfloat16",
+            hop_b16["bf16_fwd_launches"],
+            {"train_bf16": hop_b16["bf16_fwd_launches"]}, worst_ext_b16,
+            ext_fwd_b16, "per_hop_step",
+            f"one bf16 hop train step at B={SYN_BATCH}: {HOP_PER_STEP} "
+            "launches, 10 with the argmax, staged route"),
+        bf16_entry(
+            "typed_mp_bwd (DIFF/NEIGHBOR mode, bf16)", bwd_cuda,
+            "fgnn_tpu/ops/fused_mp.py:297",
+            "_bwd_kernel, extension mode, mm_dtype bfloat16",
+            hop_b16["bf16_bwd_launches"],
+            {"train_bf16": hop_b16["bf16_bwd_launches"]}, worst_ext_b16,
+            ext_bwd_b16, "per_hop_step",
+            f"one bf16 hop train step at B={SYN_BATCH}: {HOP_PER_STEP} "
+            "launches, staged route"),
+    ]
 
     print(json.dumps({"kernels": [{
         "name": "typed_mp_fwd", "route": "cuda",
@@ -1148,7 +1874,7 @@ def main():
         "fixed_step": {**entry(shapes_ext_bwd, "per_fixed_step"),
                        "per": f"one fixed (mp_nn) train step: "
                               f"{FIXED_PER_STEP} launches"},
-    }]}), flush=True)
+    }] + bf16_kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -84,6 +84,18 @@
 //   h rows from L2 by nn_idx, rebuild dm in registers wherever it is
 //   needed, and walk the transposed table in T_CHUNK passes.
 //
+// The staged route has an f32 and a bf16 mode (the template argument TH,
+// the storage type of h, g and dh), as the TPU kernel's mm_dtype.  The bf16
+// mode reads bf16 h and g; for max, sum and mean dm is bf16 (g, or g / K
+// rounded to bf16 for mean), for softmax f32 (g times the weight, from the
+// forward's f32 log-sum-exp `out`); etype is rounded to bf16 where it is
+// read; every product dm hg (d_etype) and dm etype (dh) is rounded to bf16
+// before its f32 sum, as the TPU kernel rounds its matmuls' operands; d_etype
+// stays f32 and dh is rounded once to bf16 on the store.  The gathered row
+// sum hg of the extensions stays f32 (the TPU kernel's bf16 store of it for
+// softmax is a VMEM tiling choice).  The staged slab of h and g halve.  The
+// kept route is f32 only (the wrapper refuses a bf16 h there).
+//
 // Each route launches on the caller's stream, allocates nothing and never
 // synchronises; the wrapper (fgnn_tpu_torch/ops/fused_mp.py) checks the
 // arguments, picks the route and allocates the outputs.
@@ -113,27 +125,27 @@ __host__ __device__ inline int et_stride(int T, bool softmax) {
   return (int)pad4(T) + (softmax ? 4 : 0);
 }
 
-// Shared memory of one block, in 4-byte words, each region 16-byte
-// aligned: hs, the slab of h, rows of row_stride words; the cotangent:
-// softmax keeps dm (E, Cs), the others g (Nd, Cs) and, as bytes, the
-// argmax (Nd, Cs), and build dm where they read it; et, the sample's
-// etype, rows of et_stride words; nn (E), the gather table; sp (rows + 1)
-// and se (at most 2 E), the transposed table.
+// Shared memory of one block, in bytes, each region 16-byte aligned: hs,
+// the slab of h, rows of row_stride elements of esz bytes; the cotangent:
+// softmax keeps f32 dm (E, Cs), the others g (Nd, Cs) in h's type and, as
+// bytes, the argmax (Nd, Cs), and build dm where they read it; et, the
+// sample's f32 etype, rows of et_stride words; nn (E), the gather table; sp
+// (rows + 1) and se (at most 2 E), the transposed table.
 inline size_t staged_bytes(int rows, int Nd, int K, int T, int cs,
-                           bool softmax) {
+                           bool softmax, int esz) {
   const size_t E = (size_t)Nd * K;
-  const size_t cot =
-      softmax ? pad4(E * cs)
-              : pad4((size_t)Nd * cs) + pad4(((size_t)Nd * cs + 3) / 4);
-  return 4 * (pad4((size_t)rows * row_stride(T, cs)) + cot +
-              pad4(E * et_stride(T, softmax)) + pad4(E) +
+  const size_t cot = softmax ? 4 * pad4(E * cs)
+                             : pad16((size_t)Nd * cs * esz) +
+                                   pad16((size_t)Nd * cs);
+  return pad16((size_t)rows * row_stride(T, cs, esz) * esz) + cot +
+         4 * (pad4(E * et_stride(T, softmax)) + pad4(E) +
               pad4((size_t)rows + 1) + pad4(2 * E));
 }
 
 // dm[e, c..c+VEC-1] for max, sum and mean, from the staged g and argmax of
-// e's destination d (e = d K + k).
-template <int AGG, int VEC>
-__device__ __forceinline__ void staged_dm(const float* gs, const uint8_t* as,
+// e's destination d (e = d K + k); mean's g / K in the mode's type.
+template <int AGG, int VEC, class TH>
+__device__ __forceinline__ void staged_dm(const TH* gs, const uint8_t* as,
                                           int d, int k, int Cs, int c,
                                           float inv_k, float* v) {
   Vec<VEC>::lds(gs + (size_t)d * Cs + c, v);
@@ -149,7 +161,7 @@ __device__ __forceinline__ void staged_dm(const float* gs, const uint8_t* as,
     for (int i = 0; i < VEC; ++i) v[i] = a[i] == k ? v[i] : 0.f;
   } else if (AGG == AGG_MEAN) {
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) v[i] *= inv_k;
+    for (int i = 0; i < VEC; ++i) v[i] = rnd<TH>(v[i] * inv_k);
   }
 }
 
@@ -157,20 +169,21 @@ __device__ __forceinline__ void staged_dm(const float* gs, const uint8_t* as,
 // The types are handled in runs of 4: a thread of dh or d_etype keeps 4
 // types x VEC channels of sums in registers, so each load of dm or of a
 // row of h feeds 4 VEC FMAs.
-template <int AGG, int VEC, bool EXT>
+template <int AGG, int VEC, bool EXT, class TH>
 __global__ void __launch_bounds__(STAGED_THREADS)
-staged_bwd_kernel(const float* __restrict__ g,
+staged_bwd_kernel(const TH* __restrict__ g,
                   const uint8_t* __restrict__ argmax,
-                  const float* __restrict__ h,
+                  const TH* __restrict__ h,
                   const int32_t* __restrict__ nn_idx,
                   const int32_t* __restrict__ src_ptr,
                   const int32_t* __restrict__ src_edge,
                   const float* __restrict__ etype,
-                  const float* __restrict__ out, float* __restrict__ dh,
+                  const float* __restrict__ out, TH* __restrict__ dh,
                   float* __restrict__ d_etype, float* __restrict__ part,
                   int N, int Nd, int K, int T, int C, int Cs, float gamma) {
   constexpr int R = EXT ? 2 : 1;
   constexpr bool SOFTMAX = AGG == AGG_SOFTMAX;
+  constexpr int ESZ = (int)sizeof(TH);
   extern __shared__ __align__(16) float smem[];
   const int S = C / Cs;
   const int b = blockIdx.x / S;
@@ -179,32 +192,35 @@ staged_bwd_kernel(const float* __restrict__ g,
   const int rows = R * N;
   const int E = Nd * K;
   const int cv = Cs / VEC;               // vectors per slab row
-  const int RS = row_stride(T, Cs);
+  const int RS = row_stride(T, Cs, ESZ);
   const int ET = et_stride(T, SOFTMAX);
   const int runs = (T + 3) / 4;          // runs of 4 types
   const int tid = threadIdx.x;
   const int nt = STAGED_THREADS;
   const FastDiv by_cv(cv), by_t(T), by_k(K), by_runs(runs), by_e(E);
   const float inv_k = 1.f / (float)K;
-  float* hs = smem;
-  float* dm = hs + pad4((size_t)rows * RS);  // softmax: dm; else g
-  uint8_t* as = reinterpret_cast<uint8_t*>(dm + pad4((size_t)Nd * Cs));
-  float* et = dm + (SOFTMAX ? pad4((size_t)E * Cs)
-                            : pad4((size_t)Nd * Cs) +
-                                  pad4(((size_t)Nd * Cs + 3) / 4));
+  TH* hs = reinterpret_cast<TH*>(smem);
+  char* cot = reinterpret_cast<char*>(smem) + pad16((size_t)rows * RS * ESZ);
+  float* dm = reinterpret_cast<float*>(cot);  // softmax
+  TH* gs = reinterpret_cast<TH*>(cot);        // max, sum, mean
+  uint8_t* as = reinterpret_cast<uint8_t*>(cot) +
+                pad16((size_t)Nd * Cs * ESZ);
+  float* et = reinterpret_cast<float*>(
+      cot + (SOFTMAX ? 4 * pad4((size_t)E * Cs)
+                     : pad16((size_t)Nd * Cs * ESZ) + pad16((size_t)Nd * Cs)));
   int* nn = reinterpret_cast<int*>(et + pad4((size_t)E * ET));
   int* sp = nn + pad4(E);
   int* se = sp + pad4((size_t)rows + 1);
 
   // 1. stage the slab of h, the sample's etype and the table, and for max,
   // sum and mean the slab of g and of the argmax
-  const float* hb = h + (size_t)b * rows * T * C + c0;
+  const TH* hb = h + (size_t)b * rows * T * C + c0;
   for (int q = tid; q < rows * T * cv; q += nt) {
     const int o = by_cv(q);  // o = r T + t
     const int c = (q - o * cv) * VEC;
     const int r = by_t(o);
-    cp_async(hs + (size_t)r * RS + (o - r * T) * Cs + c,
-             hb + (size_t)o * C + c, 4 * VEC);
+    stage<VEC>(hs + (size_t)r * RS + (o - r * T) * Cs + c,
+               hb + (size_t)o * C + c);
   }
   const float* eb = etype + (size_t)b * E * T;
   if (T % 4 == 0 && (reinterpret_cast<uintptr_t>(eb) & 15) == 0) {
@@ -227,7 +243,7 @@ staged_bwd_kernel(const float* __restrict__ g,
     for (int q = tid; q < Nd * cv; q += nt) {
       const int d = by_cv(q);
       const int c = (q - d * cv) * VEC;
-      cp_async(dm + (size_t)d * Cs + c, g + g0 + (size_t)d * C + c, 4 * VEC);
+      stage<VEC>(gs + (size_t)d * Cs + c, g + g0 + (size_t)d * C + c);
       if (AGG == AGG_MAX) {
         uint8_t* a = as + (size_t)d * Cs + c;
         if (VEC == 4)
@@ -248,8 +264,8 @@ staged_bwd_kernel(const float* __restrict__ g,
       const int c = (q - e * cv) * VEC;
       const int d = by_k(e);
       const size_t off = ((size_t)b * Nd + d) * C + c0 + c;
-      const float* hn = hs + (size_t)(nn[e] * R + R - 1) * RS + c;
-      const float* hf = hs + (size_t)(2 * d) * RS + c;  // EXT only
+      const TH* hn = hs + (size_t)(nn[e] * R + R - 1) * RS + c;
+      const TH* hf = hs + (size_t)(2 * d) * RS + c;  // EXT only
       const float* w = et + (size_t)e * ET;
       float gv[VEC], o[VEC], m[VEC];
       Vec<VEC>::load(g + off, gv);
@@ -267,7 +283,7 @@ staged_bwd_kernel(const float* __restrict__ g,
           for (int i = 0; i < VEC; ++i) hv[i] = sv[i] + hv[i];
         }
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) m[i] = fmaf(w[t], hv[i], m[i]);
+        for (int i = 0; i < VEC; ++i) m[i] = fmaf(rnd<TH>(w[t]), hv[i], m[i]);
       }
 #pragma unroll
       for (int i = 0; i < VEC; ++i)
@@ -281,7 +297,7 @@ staged_bwd_kernel(const float* __restrict__ g,
   // the row's in-edges once, in the table's order.  The et rows are padded
   // to a multiple of 4 words, so each edge's run loads as one vector (sums
   // past T are never stored).
-  float* dhb = dh + (size_t)b * rows * T * C + c0;
+  TH* dhb = dh + (size_t)b * rows * T * C + c0;
   for (int q = tid; q < rows * runs * cv; q += nt) {
     const int o = by_cv(q);  // o = r runs + run
     const int c = (q - o * cv) * VEC;
@@ -305,14 +321,16 @@ staged_bwd_kernel(const float* __restrict__ g,
           Vec<VEC>::lds(dm + (size_t)ev[u] * Cs + c, v);
         } else {
           const int d = by_k(ev[u]);
-          staged_dm<AGG, VEC>(dm, as, d, ev[u] - d * K, Cs, c, inv_k, v);
+          staged_dm<AGG, VEC>(gs, as, d, ev[u] - d * K, Cs, c, inv_k, v);
         }
         Vec<4>::lds(et + (size_t)ev[u] * ET + t0, w);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) w[i] = rnd<TH>(w[i]);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
           for (int j = 0; j < VEC; ++j)
-            acc[i][j] = fmaf(v[j], w[i], acc[i][j]);
+            acc[i][j] = mac<TH>(v[j], w[i], acc[i][j]);
       }
     }
 #pragma unroll
@@ -344,8 +362,8 @@ staged_bwd_kernel(const float* __restrict__ g,
     const int e = q - run * E;
     const int d = by_k(e);
     const int t0 = run * 4;
-    const float* hn = hs + (size_t)(nn[e] * R + R - 1) * RS + t0 * Cs;
-    const float* hf = hs + (size_t)(2 * d) * RS + t0 * Cs;  // EXT only
+    const TH* hn = hs + (size_t)(nn[e] * R + R - 1) * RS + t0 * Cs;
+    const TH* hf = hs + (size_t)(2 * d) * RS + t0 * Cs;  // EXT only
     float acc[4][VEC];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -358,7 +376,7 @@ staged_bwd_kernel(const float* __restrict__ g,
       if (SOFTMAX)
         Vec<VEC>::lds(dm + (size_t)e * Cs + u, x);
       else
-        staged_dm<AGG, VEC>(dm, as, d, e - d * K, Cs, u, inv_k, x);
+        staged_dm<AGG, VEC>(gs, as, d, e - d * K, Cs, u, inv_k, x);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         if (t0 + i < T) {
@@ -372,7 +390,7 @@ staged_bwd_kernel(const float* __restrict__ g,
           }
 #pragma unroll
           for (int j = 0; j < VEC; ++j)
-            acc[i][j] = fmaf(x[j], y[j], acc[i][j]);
+            acc[i][j] = mac<TH>(x[j], y[j], acc[i][j]);
         }
       }
       if (++m == per_lane) m = 0;
@@ -402,17 +420,17 @@ __global__ void sum_slabs(const float* __restrict__ part,
   d_etype[i] = v;
 }
 
-template <int AGG, int VEC, bool EXT>
-int launch_staged(cudaStream_t st, const float* g, const uint8_t* argmax,
-                  const float* h, const int32_t* nn_idx,
+template <int AGG, int VEC, bool EXT, class TH>
+int launch_staged(cudaStream_t st, const TH* g, const uint8_t* argmax,
+                  const TH* h, const int32_t* nn_idx,
                   const int32_t* src_ptr, const int32_t* src_edge,
-                  const float* etype, const float* out, float* dh,
+                  const float* etype, const float* out, TH* dh,
                   float* d_etype, int B, int N, int Nd, int K, int T, int C,
                   float gamma, float* part, int cs) {
   const int S = C / cs;
   const size_t smem = staged_bytes((EXT ? 2 : 1) * N, Nd, K, T, cs,
-                                   AGG == AGG_SOFTMAX);
-  auto kernel = staged_bwd_kernel<AGG, VEC, EXT>;
+                                   AGG == AGG_SOFTMAX, (int)sizeof(TH));
+  auto kernel = staged_bwd_kernel<AGG, VEC, EXT, TH>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
       cudaSharedmemCarveoutMaxShared);
@@ -661,6 +679,7 @@ int launch_kept(cudaStream_t s, const float* g, const uint8_t* argmax,
 // dispatch: the aggregator, the vector width and the mode are template
 // arguments of each route's launcher
 
+// the staged route in the mode of its pointers' type; the kept route, f32
 struct Staged {
   template <int AGG, int VEC, bool EXT, typename... A>
   static int run(A... a) { return launch_staged<AGG, VEC, EXT>(a...); }
@@ -713,26 +732,36 @@ bool refused(const uint8_t* argmax, const float* out, int B, int N, int Nd,
 // The staged route: `cs` channels per block, a divisor of C with
 // C / cs <= 8 whose shared memory fits in a block.  With S = C / cs > 1,
 // `part` is scratch for the S partial sums of d_etype, (B, S, Nd, K, T)
-// f32.
-extern "C" int typed_mp_bwd_staged(const float* g, const uint8_t* argmax,
-                                   const float* h, const int32_t* nn_idx,
+// f32.  `bf16` says g, h and dh are bf16 (the bf16 mode); `out` is the f32
+// log-sum-exp in either mode.
+extern "C" int typed_mp_bwd_staged(const void* g, const uint8_t* argmax,
+                                   const void* h, const int32_t* nn_idx,
                                    const int32_t* src_ptr,
                                    const int32_t* src_edge,
                                    const float* etype, const float* out,
-                                   float* dh, float* d_etype, int B, int N,
+                                   void* dh, float* d_etype, int B, int N,
                                    int Nd, int K, int T, int C,
                                    int aggregator, float gamma, int vec4,
-                                   int ext, float* part, int cs,
-                                   void* stream) {
+                                   int ext, int bf16_mode, float* part,
+                                   int cs, void* stream) {
   if (refused(argmax, out, B, N, Nd, K, T, C, aggregator, vec4, ext) ||
       cs <= 0 || C % cs != 0 || C / cs > MAX_SLABS || (vec4 && cs % 4 != 0) ||
       (C / cs > 1 && part == nullptr) || (long long)B * (C / cs) > INT_MAX ||
       (long long)B * Nd * K * T / THREADS >= INT_MAX ||
       staged_bytes((ext ? 2 : 1) * N, Nd, K, T, cs,
-                   aggregator == AGG_SOFTMAX) > SMEM_PER_BLOCK)
+                   aggregator == AGG_SOFTMAX, bf16_mode ? 2 : 4) >
+          SMEM_PER_BLOCK)
     return (int)cudaErrorInvalidValue;
-  return by_mode<Staged>(vec4, ext, aggregator, (cudaStream_t)stream, g,
-                         argmax, h, nn_idx, src_ptr, src_edge, etype, out, dh,
+  if (bf16_mode)
+    return by_mode<Staged>(vec4, ext, aggregator, (cudaStream_t)stream,
+                           static_cast<const bf16*>(g), argmax,
+                           static_cast<const bf16*>(h), nn_idx, src_ptr,
+                           src_edge, etype, out, static_cast<bf16*>(dh),
+                           d_etype, B, N, Nd, K, T, C, gamma, part, cs);
+  return by_mode<Staged>(vec4, ext, aggregator, (cudaStream_t)stream,
+                         static_cast<const float*>(g), argmax,
+                         static_cast<const float*>(h), nn_idx, src_ptr,
+                         src_edge, etype, out, static_cast<float*>(dh),
                          d_etype, B, N, Nd, K, T, C, gamma, part, cs);
 }
 

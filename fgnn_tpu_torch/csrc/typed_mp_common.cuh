@@ -1,12 +1,21 @@
 // Helpers shared by typed_mp_fwd.cu and typed_mp_bwd.cu: the aggregator
-// codes, 1- and 16-byte loads and stores, cp.async into shared memory, index
-// division by one multiply, and the row stride of a staged slab of h.
+// codes, loads and stores of 1 and 4 values of f32 or bf16 (converted to and
+// from f32 in registers), cp.async into shared memory, index division by one
+// multiply, and the row stride of a staged slab of h.
 // ops/fused_mp.py:build rebuilds a library when this header changes.
+//
+// The storage type TH of h (and of out, g and dh) is float or bf16: the
+// kernels' f32 and bf16 modes.  Arithmetic is f32 in both; rnd<TH> rounds a
+// value where the bf16 mode of the TPU kernel rounds it (to nearest even, as
+// torch's .to(torch.bfloat16)), and is the identity for f32, so the f32
+// instantiations compute what they computed before the bf16 mode existed.
 
 #pragma once
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -15,16 +24,55 @@ enum Agg { AGG_MAX = 0, AGG_SUM = 1, AGG_MEAN = 2, AGG_SOFTMAX = 3 };
 
 constexpr int SMEM_PER_BLOCK = 232448;  // shared memory an H100 block may use
 
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+template <class TH>
+__device__ __forceinline__ TH from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// v rounded to TH and back: bf16's round to nearest even, f32's identity
+template <class TH>
+__device__ __forceinline__ float rnd(float v) {
+  return to_f32(from_f32<TH>(v));
+}
+
+// acc + a b, as the mode sums products: f32 fuses them (fmaf), bf16 rounds
+// each product to bf16 first, as the TPU kernel rounds a matmul operand
+template <class TH>
+__device__ __forceinline__ float mac(float a, float b, float acc) {
+  if constexpr (std::is_same<TH, float>::value)
+    return fmaf(a, b, acc);
+  else
+    return acc + rnd<TH>(__fmul_rn(a, b));
+}
+
 template <int VEC>
 struct Vec;
 template <>
 struct Vec<1> {
   __device__ static void load(const float* p, float* v) { v[0] = __ldg(p); }
+  __device__ static void load(const bf16* p, float* v) {
+    v[0] = __bfloat162float(__ldg(p));
+  }
   __device__ static void load_u8(const uint8_t* p, int* v) { v[0] = __ldg(p); }
   __device__ static void store(float* p, const float* v) { p[0] = v[0]; }
+  __device__ static void store(bf16* p, const float* v) {
+    p[0] = __float2bfloat16_rn(v[0]);
+  }
   __device__ static void store_u8(uint8_t* p, const int* v) { p[0] = (uint8_t)v[0]; }
   // shared memory
   __device__ static void lds(const float* p, float* v) { v[0] = p[0]; }
+  __device__ static void lds(const bf16* p, float* v) {
+    v[0] = __bfloat162float(p[0]);
+  }
 };
 template <>
 struct Vec<4> {
@@ -47,6 +95,26 @@ struct Vec<4> {
     const float4 q = *reinterpret_cast<const float4*>(p);
     v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
   }
+  // bf16: 8 bytes, two pairs
+  __device__ static void unpack(uint2 q, float* v) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+  }
+  __device__ static void load(const bf16* p, float* v) {
+    unpack(__ldg(reinterpret_cast<const uint2*>(p)), v);
+  }
+  __device__ static void lds(const bf16* p, float* v) {
+    unpack(*reinterpret_cast<const uint2*>(p), v);
+  }
+  __device__ static void store(bf16* p, const float* v) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 q;
+    q.x = *reinterpret_cast<const unsigned*>(&a);
+    q.y = *reinterpret_cast<const unsigned*>(&b);
+    *reinterpret_cast<uint2*>(p) = q;
+  }
 };
 
 __device__ __forceinline__ void cp_async(void* dst, const void* src,
@@ -55,9 +123,24 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
   if (bytes == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                  "l"(src) : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(src) : "memory");
   else
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                  "l"(src) : "memory");
+}
+
+// Stage VEC values of type T into shared memory: cp.async for 4, 8 or 16
+// bytes; a single bf16 (2 bytes, under cp.async's least copy) through a
+// register.  Visible after cp_async_wait_all() and __syncthreads().
+template <int VEC, class T>
+__device__ __forceinline__ void stage(T* dst, const T* src) {
+  constexpr int bytes = VEC * (int)sizeof(T);
+  if constexpr (bytes >= 4)
+    cp_async(dst, src, bytes);
+  else
+    *dst = *src;
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -78,11 +161,15 @@ struct FastDiv {
 
 __host__ __device__ inline size_t pad4(size_t n) { return (n + 3) / 4 * 4; }
 
-// Row stride of a staged slab of h, in words: below 32 channels the rows
-// are padded by 16 bytes, so that rows start on different banks (from 32
-// on, staggered starts spread the lanes instead).
-__host__ __device__ inline int row_stride(int T, int cs) {
-  return T * cs + (cs < 32 ? 4 : 0);
+// n bytes padded to a multiple of 16
+__host__ __device__ inline size_t pad16(size_t n) { return (n + 15) / 16 * 16; }
+
+// Row stride of a staged slab of h, in elements of esz bytes: where a row of
+// one type is under 128 bytes the rows are padded by 16 bytes, so that rows
+// start on different banks (from 128 bytes on, staggered starts spread the
+// lanes instead).
+__host__ __device__ inline int row_stride(int T, int cs, int esz) {
+  return T * cs + (cs * esz < 128 ? 16 / esz : 0);
 }
 
 }  // namespace

@@ -56,6 +56,15 @@
 //   G come from the shapes, so that the grid keeps most SMs busy at C=2 and
 //   a block fills at Nd=30.
 //
+// Both routes have an f32 and a bf16 mode (the template argument TH, the
+// storage type of h and out), as the TPU kernel's mm_dtype.  The bf16 mode
+// reads bf16 h, rounds etype to bf16 as it reads it, forms the messages and
+// their aggregate in f32 exactly as the f32 mode does, and rounds out once to
+// bf16 on the store; softmax may also write the f32 log-sum-exp (`lse`),
+// which the backward needs and a bf16 out no longer holds.  The staged slab
+// of a bf16 h takes half the shared memory, in rows padded by the same rule
+// counted in bytes.
+//
 // Each route launches on the caller's stream, allocates nothing and never
 // synchronises; the wrapper (fgnn_tpu_torch/ops/fused_mp.py) checks the
 // arguments, picks the route and allocates the outputs.
@@ -63,6 +72,7 @@
 #include <algorithm>
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "typed_mp_common.cuh"
@@ -116,12 +126,13 @@ __device__ __forceinline__ void agg_finish(int K, float gamma, const float* s,
 
 // blockIdx.x walks (b, tile of blockDim.y destination rows); threadIdx.y
 // picks the row, threadIdx.x strides over the row's C / VEC vectors.
-template <int AGG, int VEC, bool EXT>
-__global__ void typed_mp_fwd_kernel(const float* __restrict__ h,
+template <int AGG, int VEC, bool EXT, class TH>
+__global__ void typed_mp_fwd_kernel(const TH* __restrict__ h,
                                     const int32_t* __restrict__ nn_idx,
                                     const float* __restrict__ etype,
-                                    float* __restrict__ out,
+                                    TH* __restrict__ out,
                                     uint8_t* __restrict__ argmax,
+                                    float* __restrict__ lse,
                                     int N, int Nd, int K, int T, int C,
                                     float gamma) {
   const int tiles = (Nd + blockDim.y - 1) / blockDim.y;
@@ -131,8 +142,8 @@ __global__ void typed_mp_fwd_kernel(const float* __restrict__ h,
 
   constexpr int R = EXT ? 2 : 1;  // rows of h per node
   const size_t TC = (size_t)T * C;
-  const float* h_b = h + (size_t)b * N * R * TC;
-  const float* h_self = h_b + (size_t)d * R * TC;  // read by EXT only
+  const TH* h_b = h + (size_t)b * N * R * TC;
+  const TH* h_self = h_b + (size_t)d * R * TC;  // read by EXT only
   const float* et_bd = etype + ((size_t)b * Nd + d) * K * T;
   const int32_t* idx_d = nn_idx + (size_t)d * K;
   const size_t o_row = ((size_t)b * Nd + d) * C;
@@ -142,14 +153,14 @@ __global__ void typed_mp_fwd_kernel(const float* __restrict__ h,
     float s[VEC];    // softmax: sum_k exp(g (m_k - acc))
     int am[VEC];     // max: first-win argmax
     for (int k = 0; k < K; ++k) {
-      const float* hs =
+      const TH* hs =
           h_b + ((size_t)__ldg(idx_d + k) * R + (R - 1)) * TC + c;
       const float* e = et_bd + (size_t)k * T;
       float m[VEC];
 #pragma unroll
       for (int i = 0; i < VEC; ++i) m[i] = 0.f;
       for (int t = 0; t < T; ++t) {
-        const float w = __ldg(e + t);
+        const float w = rnd<TH>(__ldg(e + t));
         float hv[VEC];
         Vec<VEC>::load(hs + (size_t)t * C, hv);
         if (EXT) {
@@ -166,46 +177,36 @@ __global__ void typed_mp_fwd_kernel(const float* __restrict__ h,
     agg_finish<AGG, VEC>(K, gamma, s, acc);
     Vec<VEC>::store(out + o_row + c, acc);
     if (AGG == AGG_MAX && argmax != nullptr) Vec<VEC>::store_u8(argmax + o_row + c, am);
+    if (AGG == AGG_SOFTMAX && lse != nullptr) Vec<VEC>::store(lse + o_row + c, acc);
   }
 }
 
-template <int AGG, int VEC, bool EXT>
+template <int AGG, int VEC, bool EXT, class TH>
 void launch(unsigned blocks, int threads_x, int rows, cudaStream_t stream,
-            const float* h, const int32_t* nn_idx, const float* etype,
-            float* out, uint8_t* argmax, int N, int Nd, int K, int T, int C,
+            const TH* h, const int32_t* nn_idx, const float* etype, TH* out,
+            uint8_t* argmax, float* lse, int N, int Nd, int K, int T, int C,
             float gamma) {
-  typed_mp_fwd_kernel<AGG, VEC, EXT>
+  typed_mp_fwd_kernel<AGG, VEC, EXT, TH>
       <<<blocks, dim3(threads_x, rows), 0, stream>>>(
-          h, nn_idx, etype, out, argmax, N, Nd, K, T, C, gamma);
+          h, nn_idx, etype, out, argmax, lse, N, Nd, K, T, C, gamma);
 }
 
-template <int VEC, bool EXT>
-int dispatch(int aggregator, unsigned blocks, int threads_x, int rows,
-             cudaStream_t s, const float* h, const int32_t* nn_idx,
-             const float* etype, float* out, uint8_t* argmax, int N, int Nd,
-             int K, int T, int C, float gamma) {
+template <int VEC, bool EXT, class TH, typename... A>
+int dispatch(int aggregator, A... a) {
   switch (aggregator) {
-    case AGG_MAX:
-      launch<AGG_MAX, VEC, EXT>(blocks, threads_x, rows, s, h, nn_idx, etype, out, argmax, N, Nd, K, T, C, gamma);
-      break;
-    case AGG_SUM:
-      launch<AGG_SUM, VEC, EXT>(blocks, threads_x, rows, s, h, nn_idx, etype, out, argmax, N, Nd, K, T, C, gamma);
-      break;
-    case AGG_MEAN:
-      launch<AGG_MEAN, VEC, EXT>(blocks, threads_x, rows, s, h, nn_idx, etype, out, argmax, N, Nd, K, T, C, gamma);
-      break;
-    case AGG_SOFTMAX:
-      launch<AGG_SOFTMAX, VEC, EXT>(blocks, threads_x, rows, s, h, nn_idx, etype, out, argmax, N, Nd, K, T, C, gamma);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    case AGG_MAX: launch<AGG_MAX, VEC, EXT, TH>(a...); break;
+    case AGG_SUM: launch<AGG_SUM, VEC, EXT, TH>(a...); break;
+    case AGG_MEAN: launch<AGG_MEAN, VEC, EXT, TH>(a...); break;
+    case AGG_SOFTMAX: launch<AGG_SOFTMAX, VEC, EXT, TH>(a...); break;
+    default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-template <int VEC, typename... Args>
+template <int VEC, class TH, typename... Args>
 int by_ext(int ext, Args... args) {
-  return ext ? dispatch<VEC, true>(args...) : dispatch<VEC, false>(args...);
+  return ext ? dispatch<VEC, true, TH>(args...)
+             : dispatch<VEC, false, TH>(args...);
 }
 
 // --------------------------------------------------------------------------
@@ -215,22 +216,25 @@ constexpr int STAGED_THREADS = 512;  // most threads a block
 constexpr int MAX_KC = 4;            // most edges a lane carries at once
 constexpr int SMS = 132;             // the H100's SMs
 
-// Row stride of the staged slab of h, in words.  A warp's 16-byte loads
-// run in quarter-warps of 8 lanes; with the vector index fastest, one
-// quarter-warp reads 32 / Cs rows of Cs channels, and rows whose stride is
-// Cs modulo 32 words start on distinct bank groups whenever their indices
-// differ modulo 32 / Cs.  Other slabs take the backward's stride.
-__host__ __device__ inline int fwd_row_stride(int T, int cs) {
-  return cs % 4 == 0 && cs < 32 ? (T * cs + 31) / 32 * 32 + cs
-                                : row_stride(T, cs);
+// Row stride of the staged slab of h, in elements of esz bytes.  A warp's
+// vector loads (16 bytes of f32, 8 of bf16) run in wavefronts of 128 bytes;
+// with the vector index fastest, one wavefront reads 128 / (Cs esz) rows of
+// Cs channels, and rows whose stride is Cs elements modulo 128 bytes start
+// on distinct bank groups whenever their indices differ modulo that count.
+// Other slabs take the backward's stride.
+__host__ __device__ inline int fwd_row_stride(int T, int cs, int esz) {
+  const int w = 128 / esz;  // elements per 128 bytes
+  return cs % 4 == 0 && cs < w ? (T * cs + w - 1) / w * w + cs
+                               : row_stride(T, cs, esz);
 }
 
-// Shared memory of one block, in 4-byte words, each region 16-byte
-// aligned: hs, the slab of h (rows, T, cs) in rows of fwd_row_stride
-// words; nn (nd K), the block's part of the table.
-inline size_t fwd_staged_bytes(int rows, int nd, int K, int T, int cs) {
-  return 4 * (pad4((size_t)rows * fwd_row_stride(T, cs)) +
-              pad4((size_t)nd * K));
+// Shared memory of one block, in bytes, each region 16-byte aligned: hs,
+// the slab of h (rows, T, cs) in rows of fwd_row_stride elements; nn
+// (nd K), the block's part of the table.
+inline size_t fwd_staged_bytes(int rows, int nd, int K, int T, int cs,
+                               int esz) {
+  return pad16((size_t)rows * fwd_row_stride(T, cs, esz) * esz) +
+         4 * pad4((size_t)nd * K);
 }
 
 // The 4 types t0..t0+3 of an etype row w (types past T are never used).
@@ -259,14 +263,16 @@ __device__ __forceinline__ void etype_run(const float* w, int t0, int T,
 // ascending k; the G lanes then combine in a fixed butterfly.  For max the
 // butterfly keeps the lower k on a tie, so out and the argmax are those of
 // one pass over k: bit-equal to the kept kernel.
-template <int AGG, int VEC, int KC>
+template <int AGG, int VEC, int KC, class TH>
 __global__ void __launch_bounds__(STAGED_THREADS)
-staged_fwd_kernel(const float* __restrict__ h,
+staged_fwd_kernel(const TH* __restrict__ h,
                   const int32_t* __restrict__ nn_idx,
-                  const float* __restrict__ etype, float* __restrict__ out,
-                  uint8_t* __restrict__ argmax, int N, int K, int T, int C,
-                  int Cs, int tiles, int tile_rows, int lg, int vec_fast,
-                  float gamma) {
+                  const float* __restrict__ etype, TH* __restrict__ out,
+                  uint8_t* __restrict__ argmax, float* __restrict__ lse,
+                  int N, int K, int T, int C, int Cs, int tiles,
+                  int tile_rows, int lg, int vec_fast, float gamma) {
+  constexpr int ESZ = (int)sizeof(TH);
+  constexpr int EPC = 16 / ESZ;  // elements per 16-byte copy
   extern __shared__ __align__(16) float smem[];
   const int Nd = N;
   const int S = C / Cs;
@@ -278,23 +284,24 @@ staged_fwd_kernel(const float* __restrict__ h,
   const int nd = min(tile_rows, Nd - d0);
   const int rows = 2 * N;
   const int cv = Cs / VEC;  // vectors per slab row
-  const int RS = fwd_row_stride(T, Cs);
+  const int RS = fwd_row_stride(T, Cs, ESZ);
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const FastDiv by_cv(cv), by_t(T);
-  float* hs = smem;
-  int* nn = reinterpret_cast<int*>(hs + pad4((size_t)rows * RS));
+  TH* hs = reinterpret_cast<TH*>(smem);
+  int* nn = reinterpret_cast<int*>(reinterpret_cast<char*>(smem) +
+                                   pad16((size_t)rows * RS * ESZ));
 
   // 1. stage the slab of h and the rows' part of the table
-  const float* hb = h + (size_t)b * rows * T * C + c0;
-  if (Cs == C && (T * C) % 4 == 0 &&
+  const TH* hb = h + (size_t)b * rows * T * C + c0;
+  if (Cs == C && (T * C) % EPC == 0 && RS % EPC == 0 &&
       (reinterpret_cast<uintptr_t>(hb) & 15) == 0) {
     // the slab is the whole row: 16-byte copies at any C
-    const int q4 = T * C / 4;
+    const int q4 = T * C / EPC;
     const FastDiv by_q4(q4);
     for (int q = tid; q < rows * q4; q += nt) {
       const int r = by_q4(q);
-      const int o = 4 * (q - r * q4);
+      const int o = EPC * (q - r * q4);
       cp_async(hs + (size_t)r * RS + o, hb + (size_t)r * T * C + o, 16);
     }
   } else {
@@ -302,8 +309,8 @@ staged_fwd_kernel(const float* __restrict__ h,
       const int o = by_cv(q);  // o = r T + t
       const int c = (q - o * cv) * VEC;
       const int r = by_t(o);
-      cp_async(hs + (size_t)r * RS + (o - r * T) * Cs + c,
-               hb + (size_t)o * C + c, 4 * VEC);
+      stage<VEC>(hs + (size_t)r * RS + (o - r * T) * Cs + c,
+                 hb + (size_t)o * C + c);
     }
   }
   for (int q = tid; q < nd * K; q += nt)
@@ -360,6 +367,8 @@ staged_fwd_kernel(const float* __restrict__ h,
         for (int j = 0; j < KC; ++j) {
           if (j < jn) {
             etype_run(w[j], t0, T, et_vec, wv[j]);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) wv[j][u] = rnd<TH>(wv[j][u]);
           } else {
 #pragma unroll
             for (int u = 0; u < 4; ++u) wv[j][u] = 0.f;
@@ -424,16 +433,17 @@ staged_fwd_kernel(const float* __restrict__ h,
     const size_t o = ((size_t)b * Nd + d0 + dl) * C + c0 + c;
     Vec<VEC>::store(out + o, acc);
     if (AGG == AGG_MAX && argmax != nullptr) Vec<VEC>::store_u8(argmax + o, am);
+    if (AGG == AGG_SOFTMAX && lse != nullptr) Vec<VEC>::store(lse + o, acc);
   }
 }
 
-template <int AGG, int VEC, int KC>
+template <int AGG, int VEC, int KC, class TH>
 int launch_staged(cudaStream_t st, unsigned blocks, int threads, size_t smem,
-                  const float* h, const int32_t* nn_idx, const float* etype,
-                  float* out, uint8_t* argmax, int N, int K, int T, int C,
-                  int cs, int tiles, int tile_rows, int lg, int vec_fast,
-                  float gamma) {
-  auto kernel = staged_fwd_kernel<AGG, VEC, KC>;
+                  const TH* h, const int32_t* nn_idx, const float* etype,
+                  TH* out, uint8_t* argmax, float* lse, int N, int K, int T,
+                  int C, int cs, int tiles, int tile_rows, int lg,
+                  int vec_fast, float gamma) {
+  auto kernel = staged_fwd_kernel<AGG, VEC, KC, TH>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
       cudaSharedmemCarveoutMaxShared);
@@ -441,44 +451,53 @@ int launch_staged(cudaStream_t st, unsigned blocks, int threads, size_t smem,
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks, threads, smem, st>>>(h, nn_idx, etype, out, argmax, N, K,
-                                        T, C, cs, tiles, tile_rows, lg,
+  kernel<<<blocks, threads, smem, st>>>(h, nn_idx, etype, out, argmax, lse,
+                                        N, K, T, C, cs, tiles, tile_rows, lg,
                                         vec_fast, gamma);
   return (int)cudaGetLastError();
 }
 
-template <int VEC, int KC, typename... A>
+template <int VEC, int KC, class TH, typename... A>
 int dispatch_staged(int aggregator, A... a) {
   switch (aggregator) {
-    case AGG_MAX: return launch_staged<AGG_MAX, VEC, KC>(a...);
-    case AGG_SUM: return launch_staged<AGG_SUM, VEC, KC>(a...);
-    case AGG_MEAN: return launch_staged<AGG_MEAN, VEC, KC>(a...);
-    case AGG_SOFTMAX: return launch_staged<AGG_SOFTMAX, VEC, KC>(a...);
+    case AGG_MAX: return launch_staged<AGG_MAX, VEC, KC, TH>(a...);
+    case AGG_SUM: return launch_staged<AGG_SUM, VEC, KC, TH>(a...);
+    case AGG_MEAN: return launch_staged<AGG_MEAN, VEC, KC, TH>(a...);
+    case AGG_SOFTMAX: return launch_staged<AGG_SOFTMAX, VEC, KC, TH>(a...);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // KC, the edges a lane carries at once: the lane's edges, rounded up to 1,
 // 2 or MAX_KC (the arithmetic of the KC slots runs for every lane).
-template <int VEC, typename... A>
+template <int VEC, class TH, typename... A>
 int by_kc(int kc, int aggregator, A... a) {
-  if (kc == 1) return dispatch_staged<VEC, 1>(aggregator, a...);
-  if (kc == 2) return dispatch_staged<VEC, 2>(aggregator, a...);
-  return dispatch_staged<VEC, MAX_KC>(aggregator, a...);
+  if (kc == 1) return dispatch_staged<VEC, 1, TH>(aggregator, a...);
+  if (kc == 2) return dispatch_staged<VEC, 2, TH>(aggregator, a...);
+  return dispatch_staged<VEC, MAX_KC, TH>(aggregator, a...);
+}
+
+// The storage type of h and out: bf16 or f32.
+template <typename F>
+int by_type(int bf16_mode, const void* h, void* out, F&& f) {
+  return bf16_mode ? f(static_cast<const bf16*>(h), static_cast<bf16*>(out))
+                   : f(static_cast<const float*>(h), static_cast<float*>(out));
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  Launches on `stream` and
 // returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// arguments it does not take.  `argmax` may be null; `vec4` asks for the
-// 16-byte path, which needs C % 4 == 0 and 16-byte aligned h and out; `ext`
-// selects the DIFF/NEIGHBOR mode, whose h has 2 N rows and needs Nd == N.
-extern "C" int typed_mp_fwd(const float* h, const int32_t* nn_idx,
-                            const float* etype, float* out, uint8_t* argmax,
-                            int B, int N, int Nd, int K, int T, int C,
-                            int aggregator, float gamma, int vec4, int ext,
-                            void* stream) {
+// arguments it does not take.  `argmax` and `lse` (softmax's f32
+// log-sum-exp) may be null; `vec4` asks for the vector path, which needs
+// C % 4 == 0 and 16-byte aligned h and out; `bf16` says h and out are bf16
+// (the bf16 mode); `ext` selects the DIFF/NEIGHBOR mode, whose h has 2 N
+// rows and needs Nd == N.
+extern "C" int typed_mp_fwd(const void* h, const int32_t* nn_idx,
+                            const float* etype, void* out, uint8_t* argmax,
+                            float* lse, int B, int N, int Nd, int K, int T,
+                            int C, int aggregator, float gamma, int vec4,
+                            int bf16_mode, int ext, void* stream) {
   if (B <= 0 || N <= 0 || Nd <= 0 || K <= 0 || K > 255 || T <= 0 || C <= 0 ||
       (vec4 && C % 4 != 0) || (ext && Nd != N))
     return (int)cudaErrorInvalidValue;
@@ -490,28 +509,35 @@ extern "C" int typed_mp_fwd(const float* h, const int32_t* nn_idx,
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned nb = (unsigned)blocks;
-  return vec4 ? by_ext<4>(ext, aggregator, nb, threads_x, rows, s, h, nn_idx,
-                          etype, out, argmax, N, Nd, K, T, C, gamma)
-              : by_ext<1>(ext, aggregator, nb, threads_x, rows, s, h, nn_idx,
-                          etype, out, argmax, N, Nd, K, T, C, gamma);
+  return by_type(bf16_mode, h, out, [&](auto hp, auto op) {
+    using TH = std::remove_const_t<std::remove_pointer_t<decltype(hp)>>;
+    return vec4 ? by_ext<4, TH>(ext, aggregator, nb, threads_x, rows, s, hp,
+                                nn_idx, etype, op, argmax, lse, N, Nd, K, T,
+                                C, gamma)
+                : by_ext<1, TH>(ext, aggregator, nb, threads_x, rows, s, hp,
+                                nn_idx, etype, op, argmax, lse, N, Nd, K, T,
+                                C, gamma);
+  });
 }
 
 // The staged route, DIFF/NEIGHBOR only (h (B, 2 N, T, C), Nd == N): `cs`
 // channels per block, a divisor of C whose slab of h, with the table of
 // all N rows, fits in a block's shared memory.  `vec4` asks for the
-// 16-byte path: C % 4 == 0, cs % 4 == 0, 16-byte aligned h and out.  From
-// the shapes alone it splits the rows into tiles where the (sample, slab)
-// blocks would leave most SMs idle, and puts G lanes (1, 2, 4 or 8, at most
-// K) on each (row, vector), as many as keep one item per thread.
-extern "C" int typed_mp_fwd_staged(const float* h, const int32_t* nn_idx,
-                                   const float* etype, float* out,
-                                   uint8_t* argmax, int B, int N, int Nd,
-                                   int K, int T, int C, int aggregator,
-                                   float gamma, int vec4, int cs,
-                                   void* stream) {
+// vector path: C % 4 == 0, cs % 4 == 0, 16-byte aligned h and out.  `bf16`
+// and `lse` as for typed_mp_fwd.  From the shapes alone it splits the rows
+// into tiles where the (sample, slab) blocks would leave most SMs idle, and
+// puts G lanes (1, 2, 4 or 8, at most K) on each (row, vector), as many as
+// keep one item per thread.
+extern "C" int typed_mp_fwd_staged(const void* h, const int32_t* nn_idx,
+                                   const float* etype, void* out,
+                                   uint8_t* argmax, float* lse, int B, int N,
+                                   int Nd, int K, int T, int C,
+                                   int aggregator, float gamma, int vec4,
+                                   int bf16_mode, int cs, void* stream) {
+  const int esz = bf16_mode ? 2 : 4;
   if (B <= 0 || N <= 0 || Nd != N || K <= 0 || K > 255 || T <= 0 || C <= 0 ||
       cs <= 0 || C % cs != 0 || (vec4 && (C % 4 != 0 || cs % 4 != 0)) ||
-      fwd_staged_bytes(2 * N, Nd, K, T, cs) > SMEM_PER_BLOCK)
+      fwd_staged_bytes(2 * N, Nd, K, T, cs, esz) > SMEM_PER_BLOCK)
     return (int)cudaErrorInvalidValue;
   const long long bs = (long long)B * (C / cs);  // (sample, slab) blocks
   int tiles = 2 * bs >= SMS
@@ -532,13 +558,16 @@ extern "C" int typed_mp_fwd_staged(const float* h, const int32_t* nn_idx,
       128, std::min<long long>(STAGED_THREADS, (items + 31) / 32 * 32));
   const long long blocks = bs * tiles;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  const size_t smem = fwd_staged_bytes(2 * N, tile_rows, K, T, cs);
+  const size_t smem = fwd_staged_bytes(2 * N, tile_rows, K, T, cs, esz);
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned nb = (unsigned)blocks;
-  return vec4 ? by_kc<4>(kc, aggregator, s, nb, threads, smem, h, nn_idx,
-                         etype, out, argmax, N, K, T, C, cs, tiles, tile_rows,
-                         lg, vec_fast, gamma)
-              : by_kc<1>(kc, aggregator, s, nb, threads, smem, h, nn_idx,
-                         etype, out, argmax, N, K, T, C, cs, tiles, tile_rows,
-                         lg, vec_fast, gamma);
+  return by_type(bf16_mode, h, out, [&](auto hp, auto op) {
+    using TH = std::remove_const_t<std::remove_pointer_t<decltype(hp)>>;
+    return vec4 ? by_kc<4, TH>(kc, aggregator, s, nb, threads, smem, hp,
+                               nn_idx, etype, op, argmax, lse, N, K, T, C, cs,
+                               tiles, tile_rows, lg, vec_fast, gamma)
+                : by_kc<1, TH>(kc, aggregator, s, nb, threads, smem, hp,
+                               nn_idx, etype, op, argmax, lse, N, K, T, C, cs,
+                               tiles, tile_rows, lg, vec_fast, gamma);
+  });
 }

@@ -3,14 +3,18 @@
 Counterpart of ``fgnn_tpu/models/norm.py``, layout ``(B, N, C)``:
 
 * ``Dense``: per-node linear map; ``weight`` is (out, in), the transpose
-  of the flax kernel (in, out).
+  of the flax kernel (in, out).  It casts its input to the compute dtype
+  (``models/policy.py``); under bf16 the product is rounded to bf16 and
+  the bias added in bf16, as the flax module does.
 * ``BatchNorm``: normalise each channel over every other axis; running
   stats with momentum 0.1, eps 1e-5, biased variance to normalise and
   unbiased variance for the running average; statistics in f32 (f64 for
   an f64 input, a reference run) with the two-pass variance (a one-pass
   variant failed golden parity in the JAX package).  ``self.training``
-  selects batch or running statistics.
-* ``instance_norm``: per (b, c) over N, no affine, no running stats.
+  selects batch or running statistics.  The output is in x's dtype:
+  statistics, scale and shift are cast to it, as the flax module does.
+* ``instance_norm``: per (b, c) over N, no affine, no running stats;
+  statistics in f32, the result in x's dtype.
 
 Every module with parameters has ``init_(generator)``, which draws them
 from the same distributions as the JAX init; ``init_weights`` walks a
@@ -24,6 +28,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .policy import cast_compute
 
 
 def _stats(x: torch.Tensor) -> torch.Tensor:
@@ -41,6 +47,13 @@ def uniform_(t: torch.Tensor, low: float, high: float,
 
 class Dense(nn.Linear):
     """Per-node linear map (torch Conv2d-1x1 init: U(+-1/sqrt(fan_in)))."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = cast_compute(x)
+        if x.dtype != torch.bfloat16:
+            return super().forward(x)
+        y = F.linear(x, self.weight.to(x.dtype))
+        return y if self.bias is None else y + self.bias.to(x.dtype)
 
     def init_(self, generator: torch.Generator) -> None:
         bound = 1.0 / math.sqrt(self.in_features)
@@ -84,8 +97,10 @@ class BatchNorm(nn.Module):
                     self.momentum * unbiased)
         else:
             mean, var = self.running_mean, self.running_var
-        inv = torch.rsqrt(var + self.eps).to(x.dtype)
-        return (x - mean.to(x.dtype)) * inv * self.weight + self.bias
+        dt = x.dtype
+        inv = torch.rsqrt(var + self.eps).to(dt)
+        return ((x - mean.to(dt)) * inv * self.weight.to(dt)
+                + self.bias.to(dt))
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

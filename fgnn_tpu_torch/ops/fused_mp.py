@@ -39,6 +39,20 @@ per node, interleaved: the self row 2 n (x_n W_a) and the neighbour row
 it needs Nd == N.  Its backward walks ``GatherTable.ext_ptr`` /
 ``ext_edge``, the same transposed table over the 2 N rows.
 
+Both kernels have an f32 and a bf16 mode, chosen by the dtype of h, as
+the TPU kernels' ``mm_dtype_name``.  The bf16 mode rounds where the TPU
+kernel's does and nowhere else: h is stored in bf16 (the conv rounds
+``x @ W`` once), etype is rounded to bf16 as it is read, messages and
+aggregates are f32, and out is rounded once to bf16.  The backward rounds
+g (and g / K for mean) to bf16 for max, sum and mean, keeps g and dm f32
+for softmax, sums bf16-rounded products dm * hg into the f32 d_etype and
+bf16-rounded products dm * bf16(etype) into an f32 dh that is rounded once
+to bf16.  The gathered row sum hg of the DIFF/NEIGHBOR mode stays f32: the
+TPU kernel's bf16 store of it for softmax (``hg_all``, a VMEM tiling
+choice of ``_store_hg``) is not copied.  Softmax's backward needs the f32
+log-sum-exp, which a bf16 out no longer holds, so under autograd the bf16
+forward also writes it (``want_lse``).  The f32 mode is IEEE f32.
+
 ``h = x @ W_tmajor`` stays a plain matmul outside, as does its gradient.
 Both kernels are bound by bytes, not operations; the sources' header notes
 have the details.
@@ -51,7 +65,8 @@ Beside each kernel, as every kernel of the port has them:
   kernel and mode (``COUNTS`` and ``BWD_COUNTS`` for NO_EXTENSION,
   ``EXT_COUNTS`` and ``EXT_BWD_COUNTS`` for DIFF/NEIGHBOR; those of the
   staged routes count the staged kernels, ``KEPT_EXT_COUNTS``,
-  ``KEPT_BWD_COUNTS`` and ``KEPT_EXT_BWD_COUNTS`` the kept ones);
+  ``KEPT_BWD_COUNTS`` and ``KEPT_EXT_BWD_COUNTS`` the kept ones), and
+  ``BF16_COUNTS``, the launches of the bf16 mode among them;
 * a wrapper (``typed_gather_mix_agg``, ``typed_gather_mix_agg_bwd``).  A
   CPU tensor goes to the plain version, a CUDA tensor to the kernel, or
   the wrapper raises; nothing falls back.
@@ -88,6 +103,10 @@ EXT_BWD_COUNTS = {"kernel_launches": 0, "plain_calls": 0}
 KEPT_EXT_COUNTS = {"kernel_launches": 0}
 KEPT_BWD_COUNTS = {"kernel_launches": 0}
 KEPT_EXT_BWD_COUNTS = {"kernel_launches": 0}
+# the launches of the bf16 mode among those above, per kernel and route
+BF16_COUNTS = {"typed_mp_fwd": 0, "typed_mp_fwd_ext": 0,
+               "typed_mp_fwd_ext_kept": 0, "typed_mp_bwd": 0,
+               "typed_mp_bwd_ext": 0}
 
 KERNELS = ("typed_mp_fwd", "typed_mp_bwd")
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
@@ -97,21 +116,21 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    # h, nn_idx, etype, out, argmax; B N Nd K T C agg; gamma; vec4 ext;
-    # stream
-    "typed_mp_fwd": [_PTR] * 5 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 2
+    # h, nn_idx, etype, out, argmax, lse; B N Nd K T C agg; gamma; vec4
+    # bf16 ext; stream
+    "typed_mp_fwd": [_PTR] * 6 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 3
     + [_PTR],
-    # the same; vec4 and the channels per block before the stream
-    "typed_mp_fwd_staged": [_PTR] * 5 + [_INT] * 7 + [ctypes.c_float]
-    + [_INT] * 2 + [_PTR],
+    # the same with the channels per block in place of ext
+    "typed_mp_fwd_staged": [_PTR] * 6 + [_INT] * 7 + [ctypes.c_float]
+    + [_INT] * 3 + [_PTR],
     # g, argmax, h, nn_idx, src_ptr, src_edge, etype, out, dh, d_etype;
-    # B N Nd K T C agg; gamma; vec4 ext; stream
+    # B N Nd K T C agg; gamma; vec4 ext; stream (f32 only)
     "typed_mp_bwd": [_PTR] * 10 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 2
     + [_PTR],
-    # the same, scratch for the slabs' partial sums of d_etype and the
-    # channels per block before the stream
+    # the same with bf16 after ext, then scratch for the slabs' partial
+    # sums of d_etype and the channels per block before the stream
     "typed_mp_bwd_staged": [_PTR] * 10 + [_INT] * 7 + [ctypes.c_float]
-    + [_INT] * 2 + [_PTR, _INT, _PTR],
+    + [_INT] * 3 + [_PTR, _INT, _PTR],
 }
 _libs = {}
 
@@ -126,7 +145,8 @@ def library(name: str) -> str:
 
 def reset_counts() -> None:
     for counts in (COUNTS, BWD_COUNTS, EXT_COUNTS, EXT_BWD_COUNTS,
-                   KEPT_EXT_COUNTS, KEPT_BWD_COUNTS, KEPT_EXT_BWD_COUNTS):
+                   KEPT_EXT_COUNTS, KEPT_BWD_COUNTS, KEPT_EXT_BWD_COUNTS,
+                   BF16_COUNTS):
         for k in counts:
             counts[k] = 0
 
@@ -204,11 +224,16 @@ def _pad4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def _row_stride(T: int, cs: int) -> int:
-    """Words per staged row of a slab of h (``row_stride`` in
-    ``csrc/typed_mp_common.cuh``): rows below 32 channels padded by 16
-    bytes."""
-    return T * cs + (4 if cs < 32 else 0)
+def _pad16(n: int, esz: int) -> int:
+    """n elements of ``esz`` bytes, in bytes, padded to 16 bytes."""
+    return -(-n * esz // 16) * 16
+
+
+def _row_stride(T: int, cs: int, esz: int = 4) -> int:
+    """Elements per staged row of a slab of h (``row_stride`` in
+    ``csrc/typed_mp_common.cuh``), elements of ``esz`` bytes: rows of one
+    type under 128 bytes padded by 16 bytes."""
+    return T * cs + (16 // esz if cs * esz < 128 else 0)
 
 
 def _busiest(fits: list, B: int, C: int) -> int:
@@ -242,24 +267,44 @@ def _gathered(h, idx, ext: bool):
     return h[:, 0::2, None] + h[:, 1::2][:, idx]
 
 
+def _rbf(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (to nearest even) and back to f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def _operands(h, etype):
+    """(h, etype) in the arithmetic's dtype: for a bf16 h (the bf16 mode)
+    both f32, etype rounded to bf16 first; else unchanged."""
+    if h.dtype != torch.bfloat16:
+        return h, etype
+    return h.float(), _rbf(etype)
+
+
 def typed_gather_mix_agg_plain(h, nn_idx, etype, aggregator: str,
                                gamma: float = 3.0, want_argmax: bool = False,
-                               ext: bool = False):
-    """Plain PyTorch version of the forward kernel, on any device."""
+                               ext: bool = False, want_lse: bool = False):
+    """Plain PyTorch version of the forward kernel, on any device: out in
+    h's dtype, and with ``want_argmax`` (max) the argmax, with
+    ``want_lse`` (softmax) the f32 log-sum-exp (out itself for f32)."""
     from .typed_mp import aggregate
 
-    hg = _gathered(h, nn_idx.long(), ext)               # (B, Nd, K, T, C)
-    msgs = (hg * etype[..., None]).sum(dim=3)           # (B, Nd, K, C)
+    hx, et = _operands(h, etype)
+    hg = _gathered(hx, nn_idx.long(), ext)              # (B, Nd, K, T, C)
+    msgs = (hg * et[..., None]).sum(dim=3)              # (B, Nd, K, C)
     if aggregator == "max":
         out, am = _first_win_max(msgs)
-        return (out, am) if want_argmax else out
-    return aggregate(msgs, aggregator, gamma)
+    else:
+        out, am = aggregate(msgs, aggregator, gamma), None
+    lse, out = out, out.to(h.dtype)
+    if want_argmax:
+        return out, am
+    return (out, lse) if want_lse else out
 
 
 def _check_common(h, nn_idx, etype, aggregator: str, ext: bool = False):
-    """Shapes (B, N, T, C), (Nd, K), (B, Nd, K, T); f32 h and etype, an
-    int32 table, 0 < K <= 255, one of the four aggregators; for the
-    extensions h has 2 Nd rows."""
+    """Shapes (B, N, T, C), (Nd, K), (B, Nd, K, T); f32 or bf16 h, f32
+    etype, an int32 table, 0 < K <= 255, one of the four aggregators; for
+    the extensions h has 2 Nd rows."""
     if aggregator not in AGGREGATORS:
         raise ValueError(f"unknown aggregator {aggregator!r}")
     if h.dim() != 4 or nn_idx.dim() != 2 or etype.dim() != 4:
@@ -275,10 +320,11 @@ def _check_common(h, nn_idx, etype, aggregator: str, ext: bool = False):
     if min(B, N, T, C, Nd) <= 0 or not 0 < K <= MAX_K:
         raise ValueError(f"unsupported sizes B={B} N={N} T={T} C={C} "
                          f"Nd={Nd} K={K} (0 < K <= {MAX_K})")
-    if h.dtype != torch.float32 or etype.dtype != torch.float32 \
-            or nn_idx.dtype != torch.int32:
-        raise TypeError(f"expected f32 h and etype and an int32 table; got "
-                        f"{h.dtype}, {etype.dtype}, {nn_idx.dtype}")
+    if h.dtype not in (torch.float32, torch.bfloat16) \
+            or etype.dtype != torch.float32 or nn_idx.dtype != torch.int32:
+        raise TypeError(f"expected f32 or bf16 h, f32 etype and an int32 "
+                        f"table; got {h.dtype}, {etype.dtype}, "
+                        f"{nn_idx.dtype}")
     if ext and N != 2 * Nd:
         raise ValueError(f"the DIFF/NEIGHBOR mode needs Nd == N_src and h "
                          f"with 2 rows per node; got Nd={Nd} and {N} rows")
@@ -296,8 +342,8 @@ def _check_placed(h, **tensors):
 def check_kernel_args(h, nn_idx, etype, aggregator: str, want_argmax: bool,
                       ext: bool = False):
     """Raise unless the forward kernel takes these arguments: one CUDA
-    device, f32 h (B, N, T, C) and etype (B, Nd, K, T), an int32 shared
-    table (Nd, K) with 0 < K <= 255, all contiguous, one of the four
+    device, f32 or bf16 h (B, N, T, C), f32 etype (B, Nd, K, T), an int32
+    shared table (Nd, K) with 0 < K <= 255, all contiguous, one of the four
     aggregators; for the extensions (``ext``) h (B, 2 Nd, T, C)."""
     _check_common(h, nn_idx, etype, aggregator, ext)
     if want_argmax and aggregator != "max":
@@ -305,57 +351,64 @@ def check_kernel_args(h, nn_idx, etype, aggregator: str, want_argmax: bool,
     _check_placed(h, nn_idx=nn_idx, etype=etype)
 
 
-def _fwd_row_stride(T: int, cs: int) -> int:
-    """Words per staged row of the forward's slab of h
-    (``fwd_row_stride`` in ``csrc/typed_mp_fwd.cu``): below 32 channels, on
-    the 16-byte path, a multiple of 32 words plus cs, so that the rows one
-    quarter-warp reads start on distinct bank groups; else the
+def _fwd_row_stride(T: int, cs: int, esz: int = 4) -> int:
+    """Elements per staged row of the forward's slab of h
+    (``fwd_row_stride`` in ``csrc/typed_mp_fwd.cu``), elements of ``esz``
+    bytes: where a row of one type is under 128 bytes, on the vector path
+    (cs % 4 == 0), a multiple of 128 bytes plus cs elements, so that the
+    rows one wavefront reads start on distinct bank groups; else the
     backward's."""
-    if cs % 4 == 0 and cs < 32:
-        return -(-T * cs // 32) * 32 + cs
-    return _row_stride(T, cs)
+    w = 128 // esz  # elements per 128 bytes
+    if cs % 4 == 0 and cs < w:
+        return -(-T * cs // w) * w + cs
+    return _row_stride(T, cs, esz)
 
 
-def fwd_bytes(rows: int, Nd: int, K: int, T: int, cs: int) -> int:
+def fwd_bytes(rows: int, Nd: int, K: int, T: int, cs: int,
+              esz: int = 4) -> int:
     """Shared memory of one block of the staged forward kernel
     (``csrc/typed_mp_fwd.cu``) over all Nd destination rows, each region
     16-byte aligned: its slab of h (rows, T, cs) in rows of
-    ``_fwd_row_stride`` words, and the table (Nd K) int32.  A block of a
-    tile of rows needs less; etype is read from global memory."""
-    return 4 * (_pad4(rows * _fwd_row_stride(T, cs)) + _pad4(Nd * K))
+    ``_fwd_row_stride`` elements of ``esz`` bytes (4: f32, 2: bf16), and
+    the table (Nd K) int32.  A block of a tile of rows needs less; etype
+    is read from global memory."""
+    return (_pad16(rows * _fwd_row_stride(T, cs, esz), esz)
+            + 4 * _pad4(Nd * K))
 
 
-def fwd_slabs(rows: int, Nd: int, K: int, T: int, C: int) -> list:
+def fwd_slabs(rows: int, Nd: int, K: int, T: int, C: int,
+              esz: int = 4) -> list:
     """The slabs the staged forward kernel takes, widest first: divisors of
-    C, multiples of 4 channels where C % 4 == 0 (the 16-byte path), that
+    C, multiples of 4 channels where C % 4 == 0 (the vector path), that
     fit in a block's shared memory.  Slabs write disjoint channels, so
     their number is not bounded."""
     step = 4 if C % 4 == 0 else 1
     return [cs for cs in range(C, 0, -1)
             if C % cs == 0 and cs % step == 0
-            and fwd_bytes(rows, Nd, K, T, cs) <= SMEM_PER_BLOCK]
+            and fwd_bytes(rows, Nd, K, T, cs, esz) <= SMEM_PER_BLOCK]
 
 
 def fwd_slab(B: int, rows: int, Nd: int, K: int, T: int, C: int,
-             aggregator: str) -> int:
+             aggregator: str, esz: int = 4) -> int:
     """Channels per block of the staged forward kernel for the
-    DIFF/NEIGHBOR mode's h (B, rows = 2 Nd, T, C), or 0 where no slab fits
-    and the kept kernel runs: the backward's rule (``_busiest``).  It reads
-    the shapes alone; the kernel's row tiles and lanes per row, on which
-    the bits of a sum, mean or softmax depend, come from the shapes too.
-    ``aggregator`` does not change the bytes a block stages."""
+    DIFF/NEIGHBOR mode's h (B, rows = 2 Nd, T, C) of ``esz``-byte
+    elements, or 0 where no slab fits and the kept kernel runs: the
+    backward's rule (``_busiest``).  It reads the shapes alone; the
+    kernel's row tiles and lanes per row, on which the bits of a sum, mean
+    or softmax depend, come from the shapes too.  ``aggregator`` does not
+    change the bytes a block stages."""
     if aggregator not in AGGREGATORS:
         raise ValueError(f"unknown aggregator {aggregator!r}")
-    return _busiest(fwd_slabs(rows, Nd, K, T, C), B, C)
+    return _busiest(fwd_slabs(rows, Nd, K, T, C, esz), B, C)
 
 
 def checked_fwd_slab(slab, B: int, rows: int, Nd: int, K: int, T: int,
-                     C: int, aggregator: str) -> int:
+                     C: int, aggregator: str, esz: int = 4) -> int:
     """``slab`` if the staged forward kernel takes it (0, the kept kernel,
     always), ``fwd_slab`` of the shapes for None; raises otherwise."""
     if slab is None:
-        return fwd_slab(B, rows, Nd, K, T, C, aggregator)
-    nbytes = fwd_bytes(rows, Nd, K, T, slab) if slab > 0 else 0
+        return fwd_slab(B, rows, Nd, K, T, C, aggregator, esz)
+    nbytes = fwd_bytes(rows, Nd, K, T, slab, esz) if slab > 0 else 0
     if slab and not (0 < slab <= C and C % slab == 0
                      and nbytes <= SMEM_PER_BLOCK):
         raise ValueError(
@@ -366,8 +419,11 @@ def checked_fwd_slab(slab, B: int, rows: int, Nd: int, K: int, T: int,
 
 def typed_gather_mix_agg(h, nn_idx, etype, aggregator: str,
                          gamma: float = 3.0, want_argmax: bool = False,
-                         ext: bool = False, slab=None):
-    """out (B, Nd, C) f32 [, argmax (B, Nd, C) uint8 for max].
+                         ext: bool = False, slab=None,
+                         want_lse: bool = False):
+    """out (B, Nd, C) in h's dtype [, argmax (B, Nd, C) uint8 for max
+    with ``want_argmax``, or the f32 log-sum-exp (B, Nd, C) for softmax
+    with ``want_lse``: what the backward needs, out itself under f32].
 
     CPU tensors take the plain version; CUDA tensors launch a kernel or
     raise.  ``nn_idx`` must hold valid nodes of h: the kernel does not
@@ -375,30 +431,36 @@ def typed_gather_mix_agg(h, nn_idx, etype, aggregator: str,
     the host).  ``ext`` selects the DIFF/NEIGHBOR mode, and for it ``slab``
     the staged kernel's channels per block, ``fwd_slab`` of the shapes by
     default; 0 takes the kept kernel (the checks on the card pass it to
-    hold and time both routes).  NO_EXTENSION has one route."""
+    hold and time both routes).  NO_EXTENSION has one route.  A bf16 h
+    selects the bf16 mode of either route."""
     counts = EXT_COUNTS if ext else COUNTS
     if slab and not ext:
         raise ValueError("the staged forward takes the DIFF/NEIGHBOR mode "
                          "only")
+    if want_lse and aggregator != "softmax":
+        raise ValueError("the log-sum-exp exists for softmax only")
     if h.device.type == "cpu":
         counts["plain_calls"] += 1
         return typed_gather_mix_agg_plain(h, nn_idx, etype, aggregator,
-                                          gamma, want_argmax, ext)
+                                          gamma, want_argmax, ext, want_lse)
     if h.device.type != "cuda":
         raise ValueError(f"no typed-mp forward for device {h.device}")
     check_kernel_args(h, nn_idx, etype, aggregator, want_argmax, ext)
     B, rows, T, C = h.shape
     Nd, K = nn_idx.shape
     N = rows // 2 if ext else rows
-    slab = (checked_fwd_slab(slab, B, rows, Nd, K, T, C, aggregator)
-            if ext else 0)
-    out = torch.empty((B, Nd, C), dtype=torch.float32, device=h.device)
+    bf16 = h.dtype == torch.bfloat16
+    slab = (checked_fwd_slab(slab, B, rows, Nd, K, T, C, aggregator,
+                             h.element_size()) if ext else 0)
+    out = torch.empty((B, Nd, C), dtype=h.dtype, device=h.device)
     am = (torch.empty((B, Nd, C), dtype=torch.uint8, device=h.device)
           if want_argmax else None)
+    lse = (torch.empty((B, Nd, C), dtype=torch.float32, device=h.device)
+           if want_lse and bf16 else None)
     vec4 = int(C % 4 == 0 and slab % 4 == 0 and h.data_ptr() % 16 == 0)
     args = (h.data_ptr(), nn_idx.data_ptr(), etype.data_ptr(),
-            out.data_ptr(), _ptr(am), B, N, Nd, K, T, C,
-            AGGREGATORS[aggregator], float(gamma), vec4)
+            out.data_ptr(), _ptr(am), _ptr(lse), B, N, Nd, K, T, C,
+            AGGREGATORS[aggregator], float(gamma), vec4, int(bf16))
     if slab:
         _launch("typed_mp_fwd", "typed_mp_fwd_staged", h.device,
                 (B, N, Nd, K, T, C), *args, slab)
@@ -408,7 +470,12 @@ def typed_gather_mix_agg(h, nn_idx, etype, aggregator: str,
         if ext:
             counts = KEPT_EXT_COUNTS
     counts["kernel_launches"] += 1
-    return (out, am) if want_argmax else out
+    if bf16:
+        BF16_COUNTS["typed_mp_fwd" + ("_ext" if ext else "")
+                    + ("" if slab or not ext else "_kept")] += 1
+    if want_argmax:
+        return out, am
+    return (out, out if lse is None else lse) if want_lse else out
 
 
 # --------------------------------------------------------------------------
@@ -419,86 +486,98 @@ def typed_gather_mix_agg_bwd_plain(g, h, nn_idx, etype, aggregator: str,
                                    gamma: float = 3.0, argmax=None,
                                    out=None, ext: bool = False):
     """Plain PyTorch version of the backward kernel, on any device:
-    (dh (B, N, T, C), d_etype (B, Nd, K, T)) from the cotangent g
-    (B, Nd, C).  Max needs the forward's argmax, softmax its out."""
+    (dh (B, N, T, C) in h's dtype, d_etype (B, Nd, K, T) in etype's) from
+    the cotangent g (B, Nd, C).  Max needs the forward's argmax, softmax
+    its f32 log-sum-exp ``out`` (``want_lse``; out itself under f32)."""
     B, N, T, C = h.shape
     Nd, K = nn_idx.shape
     idx = nn_idx.long()
-    hg = _gathered(h, idx, ext)                         # (B, Nd, K, T, C)
-    gk = g[:, :, None, :]                               # (B, Nd, 1, C)
+    bf16 = h.dtype == torch.bfloat16
+    hx, et = _operands(h, etype)
+    # the bf16 mode rounds g (max, sum) and g / K (mean) to bf16, and every
+    # product that a TPU matmul takes as an operand
+    rnd = _rbf if bf16 else (lambda t: t)
+    hg = _gathered(hx, idx, ext)                        # (B, Nd, K, T, C)
+    gk = g[:, :, None, :].to(hx.dtype)                  # (B, Nd, 1, C)
     if aggregator == "max":
         ks = torch.arange(K, device=g.device).view(1, 1, K, 1)
-        dm = torch.where(argmax[:, :, None, :].long() == ks, gk, 0.0)
+        dm = torch.where(argmax[:, :, None, :].long() == ks, rnd(gk), 0.0)
     elif aggregator == "sum":
-        dm = gk.expand(B, Nd, K, C)
+        dm = rnd(gk).expand(B, Nd, K, C)
     elif aggregator == "mean":
-        dm = (gk * (1.0 / K)).expand(B, Nd, K, C)
+        dm = rnd(gk * (1.0 / K)).expand(B, Nd, K, C)
     elif aggregator == "softmax":
-        msgs = (hg * etype[..., None]).sum(dim=3)       # (B, Nd, K, C)
+        msgs = (hg * et[..., None]).sum(dim=3)          # (B, Nd, K, C)
         dm = gk * torch.exp(gamma * (msgs - out[:, :, None, :]))
     else:
         raise ValueError(f"unknown aggregator {aggregator!r}")
-    d_etype = torch.einsum("bdkc,bdktc->bdkt", dm, hg)
-    per_edge = dm[:, :, :, None, :] * etype[..., None]  # (B, Nd, K, T, C)
+    if bf16:
+        d_etype = rnd(dm[:, :, :, None, :] * hg).sum(dim=-1)
+    else:
+        d_etype = torch.einsum("bdkc,bdktc->bdkt", dm, hg)
+    per_edge = rnd(dm[:, :, :, None, :] * et[..., None])  # (B, Nd, K, T, C)
     if not ext:
-        dh = torch.zeros_like(h).index_add_(
+        dh = torch.zeros_like(hx).index_add_(
             1, idx.reshape(-1), per_edge.reshape(B, Nd * K, T, C))
-        return dh, d_etype
+        return dh.to(h.dtype), d_etype.to(etype.dtype)
     # self row 2 d: d's own K edges; neighbour row 2 j + 1: j's in-edges
-    dh_nbr = h.new_zeros(B, N // 2, T, C).index_add_(
+    dh_nbr = hx.new_zeros(B, N // 2, T, C).index_add_(
         1, idx.reshape(-1), per_edge.reshape(B, Nd * K, T, C))
     dh = torch.stack([per_edge.sum(dim=2), dh_nbr], dim=2)
-    return dh.reshape(B, N, T, C), d_etype
+    return dh.reshape(B, N, T, C).to(h.dtype), d_etype.to(etype.dtype)
 
 
 def staged_bytes(rows: int, Nd: int, K: int, T: int, cs: int,
-                 aggregator: str) -> int:
+                 aggregator: str, esz: int = 4) -> int:
     """Shared memory of one block of the staged backward kernel
     (``csrc/typed_mp_bwd.cu``), each region 16-byte aligned: its slab of h
-    (rows, T, cs), rows 4 words longer below 32 channels; the cotangent,
-    dm (Nd K, cs) for softmax, else g (Nd, cs) f32 and the argmax (Nd, cs)
-    uint8; the sample's etype (Nd K, T), rows padded to a multiple of 4
-    words (4 more for softmax); the table (Nd K) and its transposed form
-    (rows + 1, at most 2 Nd K), int32."""
+    (rows, T, cs) in elements of ``esz`` bytes (4: f32, 2: bf16), rows 16
+    bytes longer where a row of one type is under 128 bytes; the
+    cotangent, f32 dm (Nd K, cs) for softmax, else g (Nd, cs) in h's
+    dtype and the argmax (Nd, cs) uint8; the sample's etype (Nd K, T) f32,
+    rows padded to a multiple of 4 words (4 more for softmax); the table
+    (Nd K) and its transposed form (rows + 1, at most 2 Nd K), int32."""
     E = Nd * K
     softmax = aggregator == "softmax"
-    row = _row_stride(T, cs)
-    cot = (_pad4(E * cs) if softmax
-           else _pad4(Nd * cs) + _pad4(-(-Nd * cs // 4)))
+    row = _row_stride(T, cs, esz)
+    cot = (4 * _pad4(E * cs) if softmax
+           else _pad16(Nd * cs, esz) + _pad16(Nd * cs, 1))
     et = _pad4(T) + (4 if softmax else 0)
-    return 4 * (_pad4(rows * row) + cot + _pad4(E * et) + _pad4(E)
-                + _pad4(rows + 1) + _pad4(2 * E))
+    return _pad16(rows * row, esz) + cot + 4 * (
+        _pad4(E * et) + _pad4(E) + _pad4(rows + 1) + _pad4(2 * E))
 
 
 def staged_slabs(rows: int, Nd: int, K: int, T: int, C: int,
-                 aggregator: str) -> list:
+                 aggregator: str, esz: int = 4) -> list:
     """The slabs the staged backward kernel takes, widest first: divisors
     of C into at most MAX_SLABS parts, multiples of 4 channels where
-    C % 4 == 0 (the 16-byte path), that fit in a block's shared memory."""
+    C % 4 == 0 (the vector path), that fit in a block's shared memory."""
     step = 4 if C % 4 == 0 else 1
     return [cs for cs in range(C, 0, -1)
             if C % cs == 0 and cs % step == 0 and C // cs <= MAX_SLABS
-            and staged_bytes(rows, Nd, K, T, cs, aggregator)
+            and staged_bytes(rows, Nd, K, T, cs, aggregator, esz)
             <= SMEM_PER_BLOCK]
 
 
 def bwd_slab(B: int, rows: int, Nd: int, K: int, T: int, C: int,
-             aggregator: str) -> int:
+             aggregator: str, esz: int = 4) -> int:
     """Channels per block of the staged backward kernel for h (B, rows, T,
-    C), rows = N_src or 2 N_src for the extensions, or 0 where no slab fits
-    and the kept kernels run: the widest of ``staged_slabs`` whose grid
-    gives at least every second SM a block, else the widest.  It reads the
-    shapes alone, so the bits of a result depend on the shapes alone."""
-    return _busiest(staged_slabs(rows, Nd, K, T, C, aggregator), B, C)
+    C) of ``esz``-byte elements, rows = N_src or 2 N_src for the
+    extensions, or 0 where no slab fits and the kept kernels run: the
+    widest of ``staged_slabs`` whose grid gives at least every second SM a
+    block, else the widest.  It reads the shapes alone, so the bits of a
+    result depend on the shapes alone."""
+    return _busiest(staged_slabs(rows, Nd, K, T, C, aggregator, esz), B, C)
 
 
 def checked_slab(slab, B: int, rows: int, Nd: int, K: int, T: int, C: int,
-                 aggregator: str) -> int:
+                 aggregator: str, esz: int = 4) -> int:
     """``slab`` if the staged kernel takes it (0, the kept kernels, always),
     ``bwd_slab`` of the shapes for None; raises otherwise."""
     if slab is None:
-        return bwd_slab(B, rows, Nd, K, T, C, aggregator)
-    nbytes = staged_bytes(rows, Nd, K, T, slab, aggregator) if slab else 0
+        return bwd_slab(B, rows, Nd, K, T, C, aggregator, esz)
+    nbytes = (staged_bytes(rows, Nd, K, T, slab, aggregator, esz)
+              if slab else 0)
     if slab and not (0 < slab <= C and C % slab == 0
                      and C // slab <= MAX_SLABS
                      and nbytes <= SMEM_PER_BLOCK):
@@ -512,11 +591,11 @@ def checked_slab(slab, B: int, rows: int, Nd: int, K: int, T: int, C: int,
 def check_bwd_args(g, h, nn_idx, src_ptr, src_edge, etype, aggregator: str,
                    argmax=None, out=None, ext: bool = False):
     """Raise unless the backward kernel takes these arguments: the forward
-    kernel's h, nn_idx and etype with T <= 16; f32 g (B, Nd, C); the
-    transposed table over the N rows of h as int32 src_ptr (N + 1,) and
-    src_edge (Nd * K,), or (2 Nd * K,) for the extensions; the uint8
-    argmax (B, Nd, C) for max and the f32 out (B, Nd, C) for softmax; all
-    on h's device and contiguous."""
+    kernel's h, nn_idx and etype with T <= 16; g (B, Nd, C) in h's dtype;
+    the transposed table over the N rows of h as int32 src_ptr (N + 1,)
+    and src_edge (Nd * K,), or (2 Nd * K,) for the extensions; the uint8
+    argmax (B, Nd, C) for max and the f32 log-sum-exp out (B, Nd, C) for
+    softmax; all on h's device and contiguous."""
     _check_common(h, nn_idx, etype, aggregator, ext)
     B, N, T, C = h.shape
     Nd, K = nn_idx.shape
@@ -525,8 +604,8 @@ def check_bwd_args(g, h, nn_idx, src_ptr, src_edge, etype, aggregator: str,
         raise ValueError(f"the backward kernel takes T <= {MAX_T_BWD}; "
                          f"got T={T}")
     rows = (B, Nd, C)
-    if tuple(g.shape) != rows or g.dtype != torch.float32:
-        raise ValueError(f"g must be f32 {rows}; got {g.dtype} "
+    if tuple(g.shape) != rows or g.dtype != h.dtype:
+        raise ValueError(f"g must be {h.dtype} {rows}, as h; got {g.dtype} "
                          f"{tuple(g.shape)}")
     if tuple(src_ptr.shape) != (N + 1,) or tuple(src_edge.shape) != (
             n_edges,) or src_ptr.dtype != torch.int32 \
@@ -552,7 +631,7 @@ def typed_gather_mix_agg_bwd(g, h, nn_idx, src_ptr, src_edge, etype,
                              aggregator: str, gamma: float = 3.0,
                              argmax=None, out=None, ext: bool = False,
                              slab=None):
-    """(dh (B, N, T, C), d_etype (B, Nd, K, T)) f32.
+    """(dh (B, N, T, C) in h's dtype, d_etype (B, Nd, K, T) f32).
 
     CPU tensors take the plain version; CUDA tensors launch a kernel or
     raise.  ``src_ptr``/``src_edge`` must be the transposed table of
@@ -560,7 +639,8 @@ def typed_gather_mix_agg_bwd(g, h, nn_idx, src_ptr, src_edge, etype,
     on the host: ``src_*``, and ``ext_*`` for the extensions).  ``slab``
     is the staged kernel's channels per block, ``bwd_slab`` of the shapes
     by default; 0 takes the kept kernels (the checks on the card pass it
-    to hold and time both routes)."""
+    to hold and time both routes).  A bf16 h selects the bf16 mode, which
+    the staged kernel alone has: the kept kernels raise ``TypeError``."""
     counts = EXT_BWD_COUNTS if ext else BWD_COUNTS
     if h.device.type == "cpu":
         counts["plain_calls"] += 1
@@ -578,7 +658,14 @@ def typed_gather_mix_agg_bwd(g, h, nn_idx, src_ptr, src_edge, etype,
         argmax = None
     if aggregator != "softmax":
         out = None
-    slab = checked_slab(slab, B, rows, Nd, K, T, C, aggregator)
+    bf16 = h.dtype == torch.bfloat16
+    slab = checked_slab(slab, B, rows, Nd, K, T, C, aggregator,
+                        h.element_size())
+    if bf16 and not slab:
+        raise TypeError(
+            f"the kept backward route (d_etype_kernel, dh_kernel) takes f32 "
+            f"only; no staged slab of a bf16 h {tuple(h.shape)} is taken "
+            f"here")
     dh = torch.empty_like(h)
     d_etype = torch.empty_like(etype)
     vec4 = int(C % 4 == 0 and slab % 4 == 0
@@ -593,12 +680,14 @@ def typed_gather_mix_agg_bwd(g, h, nn_idx, src_ptr, src_edge, etype,
         part = (etype.new_empty((B, C // slab) + etype.shape[1:])
                 if slab < C else None)
         _launch("typed_mp_bwd", "typed_mp_bwd_staged", h.device,
-                (B, N, Nd, K, T, C), *args, _ptr(part), slab)
+                (B, N, Nd, K, T, C), *args, int(bf16), _ptr(part), slab)
     else:
         _launch("typed_mp_bwd", "typed_mp_bwd", h.device,
                 (B, N, Nd, K, T, C), *args)
         counts = KEPT_EXT_BWD_COUNTS if ext else KEPT_BWD_COUNTS
     counts["kernel_launches"] += 1
+    if bf16:
+        BF16_COUNTS["typed_mp_bwd_ext" if ext else "typed_mp_bwd"] += 1
     return dh, d_etype
 
 
@@ -610,29 +699,35 @@ class TypedGatherMixAgg(torch.autograd.Function):
     """``typed_gather_mix_agg`` as an autograd node, with
     ``typed_gather_mix_agg_bwd`` as its backward (the port of
     ``_fused``'s custom VJP).  ``for_grad`` says whether a gradient can be
-    asked for: only then does the forward write the argmax (max) and keep
-    its inputs; a decode under ``inference_mode`` runs as without
-    autograd.  ``ext`` selects the DIFF/NEIGHBOR mode of both kernels."""
+    asked for: only then does the forward write the argmax (max) or the
+    f32 log-sum-exp (softmax; out itself under f32) and keep its inputs; a
+    decode under ``inference_mode`` runs as without autograd.  ``ext``
+    selects the DIFF/NEIGHBOR mode of both kernels.  h is f32 or bf16 and
+    etype f32: dh comes back in h's dtype (autograd carries it through the
+    conv's cast of h) and d_etype in f32, as ``_fused_bwd`` returns them."""
 
     @staticmethod
     def forward(ctx, h, etype, nn_idx, src_ptr, src_edge, aggregator, gamma,
                 for_grad, ext):
         want_argmax = for_grad and aggregator == "max"
+        want_lse = for_grad and aggregator == "softmax"
         res = typed_gather_mix_agg(h, nn_idx, etype, aggregator, gamma,
-                                   want_argmax, ext=ext)
-        out, am = res if want_argmax else (res, None)
+                                   want_argmax, ext=ext, want_lse=want_lse)
+        out, saved = res if want_argmax or want_lse else (res, None)
         if for_grad:
             ctx.aggregator, ctx.gamma, ctx.ext = aggregator, gamma, ext
-            ctx.save_for_backward(h, etype, nn_idx, src_ptr, src_edge, am,
-                                  out if aggregator == "softmax" else None)
+            ctx.save_for_backward(h, etype, nn_idx, src_ptr, src_edge,
+                                  saved if want_argmax else None,
+                                  saved if want_lse else None)
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
         h, etype, nn_idx, src_ptr, src_edge, am, out = ctx.saved_tensors
         dh, d_etype = typed_gather_mix_agg_bwd(
-            grad_out.contiguous(), h, nn_idx, src_ptr, src_edge, etype,
-            ctx.aggregator, ctx.gamma, argmax=am, out=out, ext=ctx.ext)
+            grad_out.to(h.dtype).contiguous(), h, nn_idx, src_ptr, src_edge,
+            etype, ctx.aggregator, ctx.gamma, argmax=am, out=out,
+            ext=ctx.ext)
         return dh, d_etype, None, None, None, None, None, None, None
 
 

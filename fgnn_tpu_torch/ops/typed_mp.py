@@ -30,6 +30,16 @@ classified once, on the host:
 The shortcuts serve NO_EXTENSION only: an extension conv runs the kernels'
 DIFF/NEIGHBOR mode whatever the table's kind, as the JAX package never
 takes a shortcut for one.
+
+Dtypes follow the JAX package under either compute policy
+(``models/policy.py``).  A conv whose x is bf16 runs the kernels' bf16
+mode, as the TPU kernel runs under the bf16 policy: h = x @ W is computed
+in f32 and stored in bf16, etype is taken in f32 (the kernel rounds it to
+bf16), and out is bf16.  The shortcuts compute h in f32 from the filters
+rounded to x's dtype, round etype to x's dtype, and return f32, as
+``fgnn_tpu/ops/typed_mp.py:394-415``.  An f32 x runs the f32 mode
+throughout: the port does not round h to bf16 under the f32 policy, as the
+TPU's default matmul precision does.
 """
 
 from __future__ import annotations
@@ -126,6 +136,12 @@ class GatherTable(nn.Module):
         return f"({self.nd}, {self.k}) over {self.n_src}, {self.kind}"
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 tensor in f32, any other unchanged: the type a bf16 conv's
+    products accumulate in."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
 def tmajor_filters(filters: torch.Tensor, nout: int, T: int) -> torch.Tensor:
     """Reorder columns c * T + t to t * nout + c, so that x @ W reshapes to
     (B, N, T, nout)."""
@@ -160,23 +176,25 @@ def typed_mp_conv(x: torch.Tensor, table, etype: torch.Tensor,
         out = _extension_conv(x, table, etype, filters, nout, extension,
                               aggregator, gamma)
     elif table.kind == "gather":
-        h = torch.matmul(x, tmajor_filters(filters, nout, T))
-        h = h.reshape(B, table.n_src, T, nout)
-        out = fused_mp.typed_mp_fwd(h, table, etype.contiguous(),
+        h = torch.matmul(_wide(x), tmajor_filters(filters, nout, T))
+        h = h.to(x.dtype).reshape(B, table.n_src, T, nout)
+        out = fused_mp.typed_mp_fwd(h, table, _wide(etype).contiguous(),
                                     aggregator, gamma)
     else:
-        h = torch.matmul(x, filters).reshape(B, table.n_src, nout, T)
+        h = torch.matmul(_wide(x), _wide(filters.to(x.dtype)))
+        h = h.reshape(B, table.n_src, nout, T)
         if table.kind == "broadcast":
             hg = h[:, :1, None].expand(B, table.nd, table.k, nout, T)
         else:
             hg = h.reshape(B, table.nd, table.k, nout, T)
+        et = etype.to(x.dtype)
         if T == 1:
-            msgs = hg[..., 0] * etype
+            msgs = hg[..., 0] * et
         else:
-            msgs = (hg * etype[..., None, :]).sum(dim=-1)
+            msgs = (hg * et[..., None, :]).sum(dim=-1)
         out = aggregate(msgs, aggregator, gamma)
     if bias is not None:
-        out = out + bias
+        out = out + bias.to(out.dtype)
     return out
 
 
@@ -184,7 +202,8 @@ def _extension_conv(x, table: GatherTable, etype, filters, nout: int,
                     extension: Extension, aggregator: str, gamma: float):
     """The DIFF/NEIGHBOR conv through the kernels' extension mode: one
     matmul gives each node its self row x W_a and its neighbour row
-    x W_b (the sign folded into W_b), interleaved as (B, 2 N, T, nout)."""
+    x W_b (the sign folded into W_b), interleaved as (B, 2 N, T, nout),
+    in x's dtype."""
     B, N, cin = x.shape
     T = etype.shape[-1]
     if table.nd != N:
@@ -204,6 +223,6 @@ def _extension_conv(x, table: GatherTable, etype, filters, nout: int,
         raise ValueError(f"unknown extension {extension}")
     w = torch.cat([tmajor_filters(w_a, nout, T),
                    tmajor_filters(w_b, nout, T)], dim=1)
-    h = torch.matmul(x, w).reshape(B, 2 * N, T, nout)
-    return fused_mp.typed_mp_fwd(h, table, etype.contiguous(), aggregator,
-                                 gamma, ext=True)
+    h = torch.matmul(_wide(x), w).to(x.dtype).reshape(B, 2 * N, T, nout)
+    return fused_mp.typed_mp_fwd(h, table, _wide(etype).contiguous(),
+                                 aggregator, gamma, ext=True)

@@ -17,8 +17,11 @@ Runs on ``cuda`` unless ``--device cpu`` is given.  For training,
 For decoding it is a port checkpoint: a trainer checkpoint, or a
 ``torch.save`` of ``LDPCModel.state_dict()`` (for example after
 ``models.load_flax_variables``); without it the decoder runs a seeded
-random init.  ``--bf16``, ``--bp-features``, ``--mesh`` and ``--workers``
-are not ported yet (ROADMAP.md, port queue).
+random init.  ``--bf16`` runs decoding or training under the bf16 compute
+policy (``models/policy.py``: bf16 activations and typed-mp kernels, f32
+parameters, optimizer state and normalisation statistics), as the JAX
+trainer's flag.  ``--bp-features``, ``--mesh`` and ``--workers`` are not
+ported yet (ROADMAP.md, port queue).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch.nn.functional as F
 from .. import resolve_device
 from ..data import Codes, ContinuousCodesSP, generate_eval_set
 from ..models import LDPCModel, init_weights
+from ..models.policy import bf16_policy
 from ..utils.logging import MetricsWriter, init_logger
 from .common import (
     Schedules,
@@ -112,8 +116,13 @@ def build_model(args) -> LDPCModel:
 
 def evaluate(args, model: LDPCModel = None, *, device=None):
     """The BER matrix over ``args.test_path`` (generated there, without
-    the sum-product baseline, when missing).  Returns (ber_total, err)."""
-    dev = resolve_device(device)
+    the sum-product baseline, when missing), under the bf16 compute policy
+    when ``args.bf16``.  Returns (ber_total, err)."""
+    with bf16_policy(getattr(args, "bf16", False)):
+        return _evaluate(args, model, resolve_device(device))
+
+
+def _evaluate(args, model, dev):
     if not os.path.exists(args.test_path):
         log.info("generating eval set at %s", args.test_path)
         generate_eval_set(args.test_path, n_per_cell=args.eval_per_cell,
@@ -198,10 +207,15 @@ def train_step(model: LDPCModel, optimizer: torch.optim.Optimizer,
 def train(args, model: LDPCModel, writer: MetricsWriter, model_dir: str, *,
           device=None) -> LDPCModel:
     """Train ``model`` (already initialised) for ``args.n_epochs`` epochs,
-    resuming from ``args.model_path`` when that checkpoint exists.  Saves
+    resuming from ``args.model_path`` when that checkpoint exists, under
+    the bf16 compute policy when ``args.bf16``.  Saves
     ``ldpc_latest.ckpt`` after each epoch and ``ldpc_final.ckpt`` at the
     end, in ``model_dir``."""
-    dev = resolve_device(device)
+    with bf16_policy(getattr(args, "bf16", False)):
+        return _train(args, model, writer, model_dir, resolve_device(device))
+
+
+def _train(args, model, writer, model_dir, dev):
     model = model.to(dev)
     dataset = ContinuousCodesSP(length=args.samples_per_epoch, snr=args.snr,
                                 seed=args.seed)
@@ -271,6 +285,8 @@ def parse_args(argv=None):
     p.add_argument("--clean-weight", "--clean_weight", type=float,
                    default=0.0,
                    help="extra loss weight on sigma_b<=1 samples; 0=off")
+    p.add_argument("--bf16", action="store_true", default=False,
+                   help="bfloat16 compute policy (f32 params/stats)")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 

@@ -22,9 +22,10 @@ the same generator.  Besides the JAX trainer's scalars (``syn_train/loss``,
     python -m fgnn_tpu_torch.train.syn_hop_factor --device cpu \\
         --train-size 64 --test-size 32 --train-epoches 1
 
-Runs on ``cuda`` unless ``--device cpu`` is given.  ``--model-path`` names
-a trainer checkpoint (``latest.ckpt``, a ``torch.save``) to resume from
-when it exists.  The flags of the JAX trainer that the port does not carry
+Runs on ``cuda`` unless ``--device cpu`` is given.  ``--bf16`` trains and
+tests under the bf16 compute policy (``models/policy.py``), as the JAX
+trainer's flag.  ``--model-path`` names a trainer checkpoint
+(``latest.ckpt``, a ``torch.save``) to resume from when it exists.  The flags of the JAX trainer that the port does not carry
 yet raise (``UNPORTED``).
 """
 
@@ -57,6 +58,7 @@ from ..models import (
     SynPwFactorModel,
     init_weights,
 )
+from ..models.policy import bf16_policy
 from ..ops.typed_mp import GatherTable
 from ..utils.logging import MetricsWriter, init_logger
 from .common import (
@@ -77,7 +79,6 @@ UNPORTED = {
     "workers": (0, "item 8 (multiprocess synthesis)"),
     "train_path": ("", "item 8 (pre-generated datasets)"),
     "test_path": ("", "item 8 (pre-generated datasets)"),
-    "bf16": (False, "item 2 (bf16 compute policy)"),
     "mesh": ("", "item 6 (parallel/)"),
     "coo": (False, "item 5 (COO IR)"),
     "mixed_lengths": ("", "item 5 (COO IR)"),
@@ -205,11 +206,17 @@ def train_and_eval(workload: str, args, *, device=None):
     """Train ``workload`` for ``args.train_epoches`` epochs of
     ``train_size // batch_size`` steps (resuming from ``args.model_path``
     when it exists), saving ``latest.ckpt`` after each epoch, then test on
-    ``max(test_size // batch_size, 1)`` fresh batches.  Returns (acc,
-    lp_acc) against the exact MAP labels."""
+    ``max(test_size // batch_size, 1)`` fresh batches, all under the bf16
+    compute policy when ``args.bf16``.  Returns (acc, lp_acc) against the
+    exact MAP labels."""
     check_ported(args)
     dev = resolve_device(device if device is not None
                          else getattr(args, "device", None))
+    with bf16_policy(getattr(args, "bf16", False)):
+        return _train_and_eval(workload, args, dev)
+
+
+def _train_and_eval(workload: str, args, dev):
     stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
     work = os.path.join(args.work_dir,
                         f"syn_{workload}_{args.model_name}_at_{stamp}")
@@ -310,7 +317,7 @@ def parse_args(argv=None, workload: str = "fixed"):
     p.add_argument("--test-path", "--test_path", type=str, default="",
                    help="pre-generated .npz eval dataset: not ported yet")
     p.add_argument("--bf16", action="store_true", default=False,
-                   help="bfloat16 compute policy: not ported yet")
+                   help="bfloat16 compute policy (f32 params/stats)")
     p.add_argument("--mesh", type=str, default="",
                    help="DPxTP device mesh: not ported yet")
     p.add_argument("--coo", action="store_true", default=False,

@@ -3,6 +3,7 @@
     python -m fgnn_tpu_torch.utils.profiling [--batch-size 256] [--steps 10]
     python -m fgnn_tpu_torch.utils.profiling --train [--batch-size 256]
     python -m fgnn_tpu_torch.utils.profiling --syn hop [--batch-size 32]
+    python -m fgnn_tpu_torch.utils.profiling --train --bf16
 
 Runs the LDPC decoder forward (or, with ``--train``, one Adam train step of
 ``train.ldpc.train_step``; with ``--syn``, one train step of a synthetic
@@ -24,8 +25,12 @@ JSON object:
 * ``idle_share``: 1 - device_busy_ms / wall_ms;
 * ``kernels_per_forward`` (``kernels_per_step``), the typed-mp kernels'
   launches per forward (step), in each mode and, for the backward, on each
-  route (staged, kept), the device time of each of the port's
-  ``__global__`` functions, and the kernels with the most device time.
+  route (staged, kept), with ``..._bf16_launches_per_...`` the launches of
+  their bf16 mode, the device time of each of the port's ``__global__``
+  functions, and the kernels with the most device time.
+
+``--bf16`` runs any of them under the bf16 compute policy
+(``models/policy.py``), as the trainers' flag.
 
 Needs a CUDA device; it does not run on the CPU.
 """
@@ -89,13 +94,14 @@ def _trace(fn, steps: int, wall_ms: float, per: str, top: int) -> dict:
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
-    fwd = fused_mp.COUNTS["kernel_launches"]
-    bwd = fused_mp.BWD_COUNTS["kernel_launches"]
-    ext = fused_mp.EXT_COUNTS["kernel_launches"]
-    ext_bwd = fused_mp.EXT_BWD_COUNTS["kernel_launches"]
-    kept_ext_fwd = fused_mp.KEPT_EXT_COUNTS["kernel_launches"]
-    kept = fused_mp.KEPT_BWD_COUNTS["kernel_launches"]
-    kept_ext = fused_mp.KEPT_EXT_BWD_COUNTS["kernel_launches"]
+    counts = {name: dict(c) for name, c in (
+        ("typed_mp_fwd", fused_mp.COUNTS),
+        ("typed_mp_bwd", fused_mp.BWD_COUNTS),
+        ("typed_mp_fwd_ext", fused_mp.EXT_COUNTS),
+        ("typed_mp_bwd_ext", fused_mp.EXT_BWD_COUNTS),
+        ("typed_mp_fwd_ext_kept", fused_mp.KEPT_EXT_COUNTS),
+        ("typed_mp_bwd_kept", fused_mp.KEPT_BWD_COUNTS),
+        ("typed_mp_bwd_ext_kept", fused_mp.KEPT_EXT_BWD_COUNTS))}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -120,13 +126,12 @@ def _trace(fn, steps: int, wall_ms: float, per: str, top: int) -> dict:
         "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
         f"kernels_per_{per}": len(kernels) / steps,
     }
-    for name, n in (("typed_mp_fwd", fwd), ("typed_mp_bwd", bwd),
-                    ("typed_mp_fwd_ext", ext), ("typed_mp_bwd_ext", ext_bwd),
-                    ("typed_mp_fwd_ext_kept", kept_ext_fwd),
-                    ("typed_mp_bwd_kept", kept),
-                    ("typed_mp_bwd_ext_kept", kept_ext)):
-        if n or name == "typed_mp_fwd":
-            out[f"{name}_launches_per_{per}"] = n / steps
+    bf16 = dict(fused_mp.BF16_COUNTS)
+    for name, c in counts.items():
+        if c["kernel_launches"] or name == "typed_mp_fwd":
+            out[f"{name}_launches_per_{per}"] = c["kernel_launches"] / steps
+        if bf16.get(name):
+            out[f"{name}_bf16_launches_per_{per}"] = bf16[name] / steps
     out["port_kernels"] = {
         kernel: {f"per_{per}": n / steps, f"ms_per_{per}": us / steps / 1e3}
         for kernel, (n, us) in port.items()}
@@ -184,7 +189,7 @@ def profile_decode(batch_size: int = 256, steps: int = 10, seed: int = 0,
 def profile_train(batch_size: int = 256, steps: int = 10, seed: int = 0,
                   top: int = 12) -> dict:
     """One Adam step of ``train.ldpc.train_step`` on a batch staged on the
-    card (``stage_batch``), f32, TF32 off."""
+    card (``stage_batch``), under the caller's compute policy, TF32 off."""
     from ..train.common import make_optimizer
     from ..train.ldpc import BASE_LR, stage_batch, train_step
 
@@ -209,7 +214,7 @@ def profile_syn(workload: str = "hop", batch_size: int = 32,
                 steps: int = 10, seed: int = 0, top: int = 12) -> dict:
     """One train step of ``train.synthetic.train_step`` (the JAX trainer's
     defaults: chain 30, hop order 9, the reference dims) on a batch staged
-    on the card, f32, TF32 off."""
+    on the card, under the caller's compute policy, TF32 off."""
     from ..data import batches
     from ..models import init_weights
     from ..train.common import make_optimizer
@@ -251,14 +256,19 @@ def main(argv=None):
                    help="default 256 (LDPC) or 32 (--syn)")
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--bf16", action="store_true",
+                   help="the bf16 compute policy, as the trainers' flag")
     args = p.parse_args(argv)
-    if args.syn:
-        out = profile_syn(args.syn, args.batch_size or 32, args.steps,
-                          args.seed)
-    else:
-        fn = profile_train if args.train else profile_decode
-        out = fn(args.batch_size or 256, args.steps, args.seed)
-    print(json.dumps(out))
+    from ..models.policy import bf16_policy
+
+    with bf16_policy(args.bf16):
+        if args.syn:
+            out = profile_syn(args.syn, args.batch_size or 32, args.steps,
+                              args.seed)
+        else:
+            fn = profile_train if args.train else profile_decode
+            out = fn(args.batch_size or 256, args.steps, args.seed)
+    print(json.dumps({"bf16": args.bf16, **out}))
 
 
 if __name__ == "__main__":

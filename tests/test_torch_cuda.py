@@ -421,3 +421,236 @@ def test_ext_conv_backward_on_cuda_launches_the_kernels(cuda, ext, agg):
     for got, ref in zip(grads[1], grads[0]):
         torch.testing.assert_close(got, ref, rtol=1e-4,
                                    atol=1e-4 * ref.abs().max().item())
+
+
+# --------------------------------------------------------------------------
+# the bf16 mode: bf16 h, out, g and dh, f32 etype and d_etype.  The kernel
+# and its plain version round at the same places and sum in f32 in other
+# orders, so out lies within one bf16 ulp of the plain value, element by
+# element, plus the f32 tolerance (1e-5 of the largest value: a message
+# that cancels to near zero has an ulp finer than the f32 sums' rounding),
+# and dh and d_etype within BF16_REL_L2 (relative L2), the tolerances of the
+# plain version against the TPU kernel's bf16 mode (tests/test_torch_bf16.py)
+
+BF16_REL_L2 = 4e-3
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _ulp_bf16(v):
+    e = torch.floor(torch.log2(v.abs().float().clamp_min(2.0 ** -120)))
+    return torch.exp2(e - 7)
+
+
+def _close(got, ref, dtype):
+    """got against the plain version's ref: 1e-5 of the largest value for
+    f32; for bf16 one ulp per element plus that (out) or BF16_REL_L2
+    (gradients)."""
+    assert torch.isfinite(got.float()).all()
+    got, ref = got.float(), ref.float()
+    if dtype == torch.float32:
+        assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    elif got.shape == ref.shape and got.dim() == 3:
+        assert ((got - ref).abs() <= _ulp_bf16(ref)
+                + 1e-5 * ref.abs().max()).all()
+    else:
+        assert ((got - ref).norm() / ref.norm()).item() <= BF16_REL_L2
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("agg", ["max", "sum", "mean", "softmax"])
+def test_typed_kernel_matches_plain(cuda, shape, agg, dtype):
+    """The NO_EXTENSION forward in each mode (h in the dtype, etype f32),
+    with the f32 log-sum-exp that softmax saves for the backward."""
+    dt = DTYPES[dtype]
+    h, idx, et = _inputs(shape, cuda)
+    h = h.to(dt)
+    before = fused_mp.BF16_COUNTS["typed_mp_fwd"]
+    lse = agg == "softmax"
+    got = fused_mp.typed_gather_mix_agg(h, idx, et, agg, 3.0, agg == "max",
+                                        want_lse=lse)
+    assert fused_mp.BF16_COUNTS["typed_mp_fwd"] == before + (dtype == "bf16")
+    ref = fused_mp.typed_gather_mix_agg_plain(h, idx, et, agg, 3.0,
+                                              agg == "max", want_lse=lse)
+    torch.cuda.synchronize()
+    out, ref_out = (got[0], ref[0]) if agg in ("max", "softmax") else (got,
+                                                                       ref)
+    assert out.dtype == dt
+    _close(out, ref_out, dt)
+    if lse:
+        assert got[1].dtype == torch.float32
+        assert (got[1] - ref[1]).abs().max().item() <= \
+            1e-5 * ref[1].abs().max().item()
+    if agg == "max":
+        hx = h.float()
+        msgs = (hx[:, idx.long()] * et.to(dt).float()[..., None]).sum(dim=3)
+        top2 = msgs.topk(2, dim=2).values
+        clear = (top2[:, :, 0] - top2[:, :, 1]) > 2.0 ** -8 * \
+            top2[:, :, 0].abs()
+        assert (got[1] == ref[1])[clear].all()
+
+
+def _typed_bwd_inputs(shape, dev, agg, dt, seed=0, ext=False):
+    """The backward's inputs in mode dt: the forward's saved tensors
+    (argmax for max, the f32 log-sum-exp for softmax), a cotangent g in
+    h's dtype and the transposed table."""
+    if ext:
+        gout, h, table, et, _, _ = _ext_inputs(shape, dev, "sum", seed)
+    else:
+        h, idx, et = _inputs(shape, dev, seed)
+        table = GatherTable(idx.cpu().numpy(), shape[1]).to(dev)
+    h = h.to(dt)
+    res = fused_mp.typed_gather_mix_agg(h, table.idx, et, agg, 3.0,
+                                        agg == "max", ext=ext,
+                                        want_lse=agg == "softmax")
+    out, saved = res if agg in ("max", "softmax") else (res, None)
+    gen = torch.Generator().manual_seed(seed + 1)
+    g = torch.randn(out.shape, generator=gen).to(dev).to(dt)
+    am = saved if agg == "max" else None
+    lse = saved if agg == "softmax" else None
+    return g, h, table, et, am, lse
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("agg", ["max", "sum", "mean", "softmax"])
+def test_typed_bwd_kernel_matches_plain(cuda, shape, agg, dtype):
+    """The staged backward (NO_EXTENSION) in each mode, two launches bit
+    equal."""
+    dt = DTYPES[dtype]
+    g, h, table, et, am, lse = _typed_bwd_inputs(shape, cuda, agg, dt)
+    before = fused_mp.BF16_COUNTS["typed_mp_bwd"]
+    runs = [fused_mp.typed_gather_mix_agg_bwd(
+        g, h, table.idx, table.src_ptr, table.src_edge, et, agg, 3.0,
+        argmax=am, out=lse) for _ in range(2)]
+    assert fused_mp.BF16_COUNTS["typed_mp_bwd"] == \
+        before + 2 * (dtype == "bf16")
+    ref = fused_mp.typed_gather_mix_agg_bwd_plain(
+        g, h, table.idx, et, agg, 3.0, argmax=am, out=lse)
+    torch.cuda.synchronize()
+    assert runs[0][0].dtype == dt and runs[0][1].dtype == torch.float32
+    for got, again, want in zip(runs[0], runs[1], ref):
+        assert torch.equal(got, again)
+        _close(got, want, dt)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("shape", EXT_SHAPES)
+@pytest.mark.parametrize("agg", ["max", "sum", "mean", "softmax"])
+def test_typed_ext_kernel_matches_plain(cuda, shape, agg, route, dtype):
+    """Both routes of the DIFF/NEIGHBOR forward in each mode; max bit-equal
+    between the routes, two launches bit-equal."""
+    dt = DTYPES[dtype]
+    _, h, table, et, _, _ = _ext_inputs(shape, cuda, "sum")
+    h = h.to(dt)
+    want = agg == "max"
+    runs = [fused_mp.typed_gather_mix_agg(h, table.idx, et, agg, 3.0, want,
+                                          ext=True, slab=ROUTES[route])
+            for _ in range(2)]
+    ref = fused_mp.typed_gather_mix_agg_plain(h, table.idx, et, agg, 3.0,
+                                              want, ext=True)
+    torch.cuda.synchronize()
+    got, again = ((r if want else (r,)) for r in runs)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _close(got[0], (ref[0] if want else ref), dt)
+    if want:
+        kept = fused_mp.typed_gather_mix_agg(h, table.idx, et, "max", 3.0,
+                                             True, ext=True, slab=0)
+        assert all(torch.equal(a, b) for a, b in zip(got, kept))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", EXT_SHAPES)
+@pytest.mark.parametrize("agg", ["max", "sum", "mean", "softmax"])
+def test_typed_ext_bwd_kernel_matches_plain(cuda, shape, agg, dtype):
+    dt = DTYPES[dtype]
+    g, h, table, et, am, lse = _typed_bwd_inputs(shape, cuda, agg, dt,
+                                                 ext=True)
+    runs = [fused_mp.typed_gather_mix_agg_bwd(
+        g, h, table.idx, table.ext_ptr, table.ext_edge, et, agg, 3.0,
+        argmax=am, out=lse, ext=True) for _ in range(2)]
+    ref = fused_mp.typed_gather_mix_agg_bwd_plain(
+        g, h, table.idx, et, agg, 3.0, argmax=am, out=lse, ext=True)
+    torch.cuda.synchronize()
+    for got, again, want in zip(runs[0], runs[1], ref):
+        assert torch.equal(got, again)
+        _close(got, want, dt)
+
+
+@pytest.mark.parametrize("slab", [4, 8, 16, 32])
+@pytest.mark.parametrize("agg", ["max", "sum", "softmax"])
+def test_bf16_every_slab_matches_plain(cuda, agg, slab):
+    """Every slab of both staged kernels in the bf16 mode: the extension
+    forward at the fixed chain (30, 8), the backward at LDPC f2v."""
+    _, h, table, et, _, _ = _ext_inputs(EXT_SHAPES[3], cuda, "sum", seed=6)
+    h = h.to(torch.bfloat16)
+    assert slab in fused_mp.fwd_slabs(60, 30, 8, 16, 64, 2)
+    got = fused_mp.typed_gather_mix_agg(h, table.idx, et, agg, 3.0,
+                                        ext=True, slab=slab)
+    ref = fused_mp.typed_gather_mix_agg_plain(h, table.idx, et, agg, 3.0,
+                                              ext=True)
+    _close(got, ref, torch.bfloat16)
+    g, h, table, et, am, lse = _typed_bwd_inputs(SHAPES[0], cuda, agg,
+                                                 torch.bfloat16)
+    if 64 // slab > fused_mp.MAX_SLABS:
+        return
+    got = fused_mp.typed_gather_mix_agg_bwd(
+        g, h, table.idx, table.src_ptr, table.src_edge, et, agg, 3.0,
+        argmax=am, out=lse, slab=slab)
+    ref = fused_mp.typed_gather_mix_agg_bwd_plain(
+        g, h, table.idx, et, agg, 3.0, argmax=am, out=lse)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        _close(a, b, torch.bfloat16)
+
+
+@pytest.mark.parametrize("ext", [False, True])
+def test_bf16_all_ties_argmax_is_zero(cuda, ext):
+    B, N, K, T, C = 8, 16, 9, 2, 16
+    h = torch.randn(1, 1, T, C).to(torch.bfloat16).expand(
+        B, 2 * N if ext else N, T, C).contiguous().to(cuda)
+    idx = torch.zeros(N, K, dtype=torch.int32, device=cuda)
+    et = torch.ones(B, N, K, T, device=cuda)
+    _, am = fused_mp.typed_gather_mix_agg(h, idx, et, "max",
+                                          want_argmax=True, ext=ext)
+    assert am.max().item() == 0
+
+
+def test_bf16_kept_backward_refuses(cuda):
+    g, h, table, et, am, _ = _typed_bwd_inputs(SHAPES[0], cuda, "max",
+                                               torch.bfloat16)
+    with pytest.raises(TypeError, match="kept backward"):
+        fused_mp.typed_gather_mix_agg_bwd(
+            g, h, table.idx, table.src_ptr, table.src_edge, et, "max",
+            argmax=am, slab=0)
+
+
+@pytest.mark.parametrize("ext", [False, True])
+def test_bf16_conv_backward_on_cuda(cuda, ext):
+    """A bf16 x takes the kernels' bf16 mode on the card as on the CPU:
+    out bf16, the same launches, gradients close to the CPU's."""
+    from fgnn_tpu_torch.ops.typed_mp import Extension
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 30, 16, generator=gen).to(torch.bfloat16)
+    idx = torch.randint(0, 30, (30, 8), generator=gen)
+    et = torch.randn(4, 30, 8, 16, generator=gen)
+    w = torch.randn(32 if ext else 16, 8 * 16, generator=gen) * 0.1
+    kind = Extension.ORIG_WITH_DIFF if ext else Extension.NO_EXTENSION
+    grads = []
+    for dev in ("cpu", cuda):
+        ts = [t.detach().to(dev).requires_grad_() for t in (x, et, w)]
+        table = GatherTable(idx.numpy(), 30).to(dev)
+        fused_mp.reset_counts()
+        out = typed_mp_conv(ts[0], table, ts[1], ts[2], 8, extension=kind,
+                            aggregator="max")
+        assert out.dtype == torch.bfloat16
+        out.float().sin().sum().backward()
+        if dev != "cpu":
+            name = "typed_mp_fwd_ext" if ext else "typed_mp_fwd"
+            assert fused_mp.BF16_COUNTS[name] == 1
+            assert fused_mp.BF16_COUNTS[name.replace("fwd", "bwd")] == 1
+        grads.append([t.grad.float().cpu() for t in ts])
+    for got, ref in zip(grads[1], grads[0]):
+        assert ((got - ref).norm() / ref.norm()).item() <= BF16_REL_L2

@@ -326,7 +326,7 @@ def test_cli_without_device_needs_cuda(tmp_path):
 
 @pytest.mark.parametrize("flag,item", [
     (["--workers", "2"], "item 8"), (["--train-path", "x.npz"], "item 8"),
-    (["--test-path", "x.npz"], "item 8"), (["--bf16"], "item 2"),
+    (["--test-path", "x.npz"], "item 8"),
     (["--mesh", "8x1"], "item 6"), (["--coo"], "item 5"),
     (["--mixed-lengths", "24,30"], "item 5"),
     (["--length-dist", "0.5,0.5"], "item 5")])
