@@ -65,8 +65,9 @@ Beside each kernel, as every kernel of the port has them:
   kernel and mode (``COUNTS`` and ``BWD_COUNTS`` for NO_EXTENSION,
   ``EXT_COUNTS`` and ``EXT_BWD_COUNTS`` for DIFF/NEIGHBOR; those of the
   staged routes count the staged kernels, ``KEPT_EXT_COUNTS``,
-  ``KEPT_BWD_COUNTS`` and ``KEPT_EXT_BWD_COUNTS`` the kept ones), and
-  ``BF16_COUNTS``, the launches of the bf16 mode among them;
+  ``KEPT_BWD_COUNTS`` and ``KEPT_EXT_BWD_COUNTS`` the kept ones); the
+  ``bf16_launches`` of each counts the launches of the bf16 mode among
+  its ``kernel_launches``;
 * a wrapper (``typed_gather_mix_agg``, ``typed_gather_mix_agg_bwd``).  A
   CPU tensor goes to the plain version, a CUDA tensor to the kernel, or
   the wrapper raises; nothing falls back.
@@ -96,17 +97,15 @@ SMEM_PER_BLOCK = 232448
 MAX_SLABS = 8
 SMS = 132
 
-COUNTS = {"kernel_launches": 0, "plain_calls": 0}
-BWD_COUNTS = {"kernel_launches": 0, "plain_calls": 0}
-EXT_COUNTS = {"kernel_launches": 0, "plain_calls": 0}
-EXT_BWD_COUNTS = {"kernel_launches": 0, "plain_calls": 0}
-KEPT_EXT_COUNTS = {"kernel_launches": 0}
+COUNTS = {"kernel_launches": 0, "bf16_launches": 0, "plain_calls": 0}
+BWD_COUNTS = {"kernel_launches": 0, "bf16_launches": 0, "plain_calls": 0}
+EXT_COUNTS = {"kernel_launches": 0, "bf16_launches": 0, "plain_calls": 0}
+EXT_BWD_COUNTS = {"kernel_launches": 0, "bf16_launches": 0,
+                  "plain_calls": 0}
+KEPT_EXT_COUNTS = {"kernel_launches": 0, "bf16_launches": 0}
+# the kept backward takes f32 only
 KEPT_BWD_COUNTS = {"kernel_launches": 0}
 KEPT_EXT_BWD_COUNTS = {"kernel_launches": 0}
-# the launches of the bf16 mode among those above, per kernel and route
-BF16_COUNTS = {"typed_mp_fwd": 0, "typed_mp_fwd_ext": 0,
-               "typed_mp_fwd_ext_kept": 0, "typed_mp_bwd": 0,
-               "typed_mp_bwd_ext": 0}
 
 KERNELS = ("typed_mp_fwd", "typed_mp_bwd")
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
@@ -145,8 +144,7 @@ def library(name: str) -> str:
 
 def reset_counts() -> None:
     for counts in (COUNTS, BWD_COUNTS, EXT_COUNTS, EXT_BWD_COUNTS,
-                   KEPT_EXT_COUNTS, KEPT_BWD_COUNTS, KEPT_EXT_BWD_COUNTS,
-                   BF16_COUNTS):
+                   KEPT_EXT_COUNTS, KEPT_BWD_COUNTS, KEPT_EXT_BWD_COUNTS):
         for k in counts:
             counts[k] = 0
 
@@ -471,8 +469,7 @@ def typed_gather_mix_agg(h, nn_idx, etype, aggregator: str,
             counts = KEPT_EXT_COUNTS
     counts["kernel_launches"] += 1
     if bf16:
-        BF16_COUNTS["typed_mp_fwd" + ("_ext" if ext else "")
-                    + ("" if slab or not ext else "_kept")] += 1
+        counts["bf16_launches"] += 1
     if want_argmax:
         return out, am
     return (out, out if lse is None else lse) if want_lse else out
@@ -687,7 +684,7 @@ def typed_gather_mix_agg_bwd(g, h, nn_idx, src_ptr, src_edge, etype,
         counts = KEPT_EXT_BWD_COUNTS if ext else KEPT_BWD_COUNTS
     counts["kernel_launches"] += 1
     if bf16:
-        BF16_COUNTS["typed_mp_bwd_ext" if ext else "typed_mp_bwd"] += 1
+        counts["bf16_launches"] += 1
     return dh, d_etype
 
 

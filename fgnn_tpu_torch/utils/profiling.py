@@ -126,12 +126,12 @@ def _trace(fn, steps: int, wall_ms: float, per: str, top: int) -> dict:
         "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
         f"kernels_per_{per}": len(kernels) / steps,
     }
-    bf16 = dict(fused_mp.BF16_COUNTS)
     for name, c in counts.items():
         if c["kernel_launches"] or name == "typed_mp_fwd":
             out[f"{name}_launches_per_{per}"] = c["kernel_launches"] / steps
-        if bf16.get(name):
-            out[f"{name}_bf16_launches_per_{per}"] = bf16[name] / steps
+        if c.get("bf16_launches"):
+            out[f"{name}_bf16_launches_per_{per}"] = \
+                c["bf16_launches"] / steps
     out["port_kernels"] = {
         kernel: {f"per_{per}": n / steps, f"ms_per_{per}": us / steps / 1e3}
         for kernel, (n, us) in port.items()}

@@ -150,7 +150,8 @@ def test_cpu_backward_is_the_plain_version_on_either_route(slab):
         g, h, table.idx, table.src_ptr, table.src_edge, et, "sum",
         slab=slab)
     ref = fused_mp.typed_gather_mix_agg_bwd_plain(g, h, table.idx, et, "sum")
-    assert fused_mp.BWD_COUNTS == {"kernel_launches": 0, "plain_calls": 1}
+    assert fused_mp.BWD_COUNTS == {"kernel_launches": 0,
+                                   "bf16_launches": 0, "plain_calls": 1}
     assert fused_mp.KEPT_BWD_COUNTS == {"kernel_launches": 0}
     for a, b in zip(got, ref):
         assert torch.equal(a, b)

@@ -79,7 +79,8 @@ def test_conv_on_cuda_launches_the_kernel(cuda):
     table = GatherTable(idx.numpy(), 48).to(cuda)
     got = typed_mp_conv(x.to(cuda), table, et.to(cuda), w.to(cuda), 8,
                         aggregator="max")
-    assert fused_mp.COUNTS == {"kernel_launches": 1, "plain_calls": 0}
+    assert fused_mp.COUNTS == {"kernel_launches": 1,
+                               "bf16_launches": 0, "plain_calls": 0}
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-5)
 
 
@@ -429,9 +430,15 @@ def test_ext_conv_backward_on_cuda_launches_the_kernels(cuda, ext, agg):
 # orders, so out lies within one bf16 ulp of the plain value, element by
 # element, plus the f32 tolerance (1e-5 of the largest value: a message
 # that cancels to near zero has an ulp finer than the f32 sums' rounding),
-# and dh and d_etype within BF16_REL_L2 (relative L2), the tolerances of the
-# plain version against the TPU kernel's bf16 mode (tests/test_torch_bf16.py)
+# and out, dh and d_etype within BF16_KERNEL_REL_L2 (relative L2): the
+# limit of chip_smoke.py, above the sound kernels' readings and below those
+# of kernels without the bf16 mode's roundings of etype, of each backward
+# product and of g/K.  A bf16 conv against the CPU's (matmuls in other
+# orders, h rounded to bf16) is held to BF16_REL_L2, the tolerance of the
+# plain version against the TPU kernel's bf16 mode
+# (tests/test_torch_bf16.py).
 
+BF16_KERNEL_REL_L2 = 5e-4
 BF16_REL_L2 = 4e-3
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -443,17 +450,17 @@ def _ulp_bf16(v):
 
 def _close(got, ref, dtype):
     """got against the plain version's ref: 1e-5 of the largest value for
-    f32; for bf16 one ulp per element plus that (out) or BF16_REL_L2
-    (gradients)."""
+    f32; for bf16 BF16_KERNEL_REL_L2, and for out one ulp per element plus
+    that f32 tolerance."""
     assert torch.isfinite(got.float()).all()
     got, ref = got.float(), ref.float()
     if dtype == torch.float32:
         assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
-    elif got.shape == ref.shape and got.dim() == 3:
+        return
+    if got.shape == ref.shape and got.dim() == 3:
         assert ((got - ref).abs() <= _ulp_bf16(ref)
                 + 1e-5 * ref.abs().max()).all()
-    else:
-        assert ((got - ref).norm() / ref.norm()).item() <= BF16_REL_L2
+    assert ((got - ref).norm() / ref.norm()).item() <= BF16_KERNEL_REL_L2
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -465,11 +472,11 @@ def test_typed_kernel_matches_plain(cuda, shape, agg, dtype):
     dt = DTYPES[dtype]
     h, idx, et = _inputs(shape, cuda)
     h = h.to(dt)
-    before = fused_mp.BF16_COUNTS["typed_mp_fwd"]
+    before = fused_mp.COUNTS["bf16_launches"]
     lse = agg == "softmax"
     got = fused_mp.typed_gather_mix_agg(h, idx, et, agg, 3.0, agg == "max",
                                         want_lse=lse)
-    assert fused_mp.BF16_COUNTS["typed_mp_fwd"] == before + (dtype == "bf16")
+    assert fused_mp.COUNTS["bf16_launches"] == before + (dtype == "bf16")
     ref = fused_mp.typed_gather_mix_agg_plain(h, idx, et, agg, 3.0,
                                               agg == "max", want_lse=lse)
     torch.cuda.synchronize()
@@ -519,11 +526,11 @@ def test_typed_bwd_kernel_matches_plain(cuda, shape, agg, dtype):
     equal."""
     dt = DTYPES[dtype]
     g, h, table, et, am, lse = _typed_bwd_inputs(shape, cuda, agg, dt)
-    before = fused_mp.BF16_COUNTS["typed_mp_bwd"]
+    before = fused_mp.BWD_COUNTS["bf16_launches"]
     runs = [fused_mp.typed_gather_mix_agg_bwd(
         g, h, table.idx, table.src_ptr, table.src_edge, et, agg, 3.0,
         argmax=am, out=lse) for _ in range(2)]
-    assert fused_mp.BF16_COUNTS["typed_mp_bwd"] == \
+    assert fused_mp.BWD_COUNTS["bf16_launches"] == \
         before + 2 * (dtype == "bf16")
     ref = fused_mp.typed_gather_mix_agg_bwd_plain(
         g, h, table.idx, et, agg, 3.0, argmax=am, out=lse)
@@ -648,9 +655,9 @@ def test_bf16_conv_backward_on_cuda(cuda, ext):
         assert out.dtype == torch.bfloat16
         out.float().sin().sum().backward()
         if dev != "cpu":
-            name = "typed_mp_fwd_ext" if ext else "typed_mp_fwd"
-            assert fused_mp.BF16_COUNTS[name] == 1
-            assert fused_mp.BF16_COUNTS[name.replace("fwd", "bwd")] == 1
+            fwd, bwd = ((fused_mp.EXT_COUNTS, fused_mp.EXT_BWD_COUNTS)
+                        if ext else (fused_mp.COUNTS, fused_mp.BWD_COUNTS))
+            assert fwd["bf16_launches"] == 1 and bwd["bf16_launches"] == 1
         grads.append([t.grad.float().cpu() for t in ts])
     for got, ref in zip(grads[1], grads[0]):
         assert ((got - ref).norm() / ref.norm()).item() <= BF16_REL_L2

@@ -174,8 +174,10 @@ def test_cpu_forward_is_the_plain_version_on_either_route(slab, agg):
                                         ext=True, slab=slab)
     ref = fused_mp.typed_gather_mix_agg_plain(h, table.idx, et, agg, 3.0,
                                               want, ext=True)
-    assert fused_mp.EXT_COUNTS == {"kernel_launches": 0, "plain_calls": 1}
-    assert fused_mp.KEPT_EXT_COUNTS == {"kernel_launches": 0}
+    assert fused_mp.EXT_COUNTS == {"kernel_launches": 0,
+                                   "bf16_launches": 0, "plain_calls": 1}
+    assert fused_mp.KEPT_EXT_COUNTS == {"kernel_launches": 0,
+                                        "bf16_launches": 0}
     for a, b in zip(got if want else (got,), ref if want else (ref,)):
         assert torch.equal(a, b)
 
@@ -183,7 +185,8 @@ def test_cpu_forward_is_the_plain_version_on_either_route(slab, agg):
 def test_reset_counts_clears_the_kept_forward():
     fused_mp.KEPT_EXT_COUNTS["kernel_launches"] = 3
     fused_mp.reset_counts()
-    assert fused_mp.KEPT_EXT_COUNTS == {"kernel_launches": 0}
+    assert fused_mp.KEPT_EXT_COUNTS == {"kernel_launches": 0,
+                                        "bf16_launches": 0}
 
 
 def test_no_extension_has_one_forward_route():

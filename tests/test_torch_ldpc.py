@@ -237,7 +237,8 @@ def test_ldpc_model_reference_dims_eval():
         var, inputs)
     fused_mp.reset_counts()
     logits = t_ldpc.decode_logits(port, batch, "cpu")
-    assert fused_mp.COUNTS == {"kernel_launches": 0, "plain_calls": 16}
+    assert fused_mp.COUNTS == {"kernel_launches": 0,
+                               "bf16_launches": 0, "plain_calls": 16}
     _close(logits, lg)
     with torch.inference_mode():
         _, psb = port(**_port_inputs(port, batch))

@@ -1,0 +1,82 @@
+"""The kink check of ``chip_smoke.py`` syn_train_vs_cpu, on the CPU.
+
+The phase holds each f32 hop train step to an f64 run that flips only the
+ReLU and max decisions the f32 run took otherwise, and requires each of
+those to sit at its kink.  Here the CPU's plain path stands in for the card
+(B=4, 3 warm steps): the sound step passes, and a planted wrong argmax
+where the gap between messages is clear fails the kink check, even with
+the loss check, which catches it first, turned off.
+"""
+
+import contextlib
+import json
+
+import pytest
+import torch
+
+import chip_smoke
+from fgnn_tpu_torch.ops import fused_mp
+
+
+@pytest.fixture
+def small(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "SYN_BATCH", 4)
+    monkeypatch.setattr(chip_smoke, "SYN_WARM_STEPS", 3)
+
+
+def _emitted(capsys):
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("{")]
+    (line,) = [ln for ln in lines if ln["phase"] == "syn_train_vs_cpu"]
+    return line
+
+
+def test_sound_step_passes_with_flips_at_their_kinks(small, capsys):
+    card, cpu, card_vs_cpu, flipped = chip_smoke._syn_train_vs_cpu(
+        torch, "cpu", 21, 22)
+    line = _emitted(capsys)
+    assert line["failed"] == []
+    assert sum(flipped["card"].values()) > 0
+    assert max(line["flipped_kink_distance_worst"].values()) \
+        <= chip_smoke.KINK_TOL
+    assert max(card, cpu, card_vs_cpu) <= chip_smoke.GRAD_REL_L2
+
+
+def test_wrong_argmax_at_a_clear_gap_fails(small, monkeypatch, capsys):
+    real, branches = fused_mp.typed_gather_mix_agg, chip_smoke._branches
+    calls = []
+
+    def wrong(h, nn_idx, etype, aggregator, gamma=3.0, want_argmax=False,
+              ext=False, **kw):
+        res = real(h, nn_idx, etype, aggregator, gamma, want_argmax,
+                   ext=ext, **kw)
+        if aggregator != "max" or not want_argmax:
+            return res
+        _, am = res
+        hx, et = fused_mp._operands(h, etype)
+        msgs = (fused_mp._gathered(hx, nn_idx.long(), ext)
+                * et[..., None]).sum(dim=3)
+        am = am.clone()
+        am[0, 0, 0] = (int(am[0, 0, 0]) + 1) % msgs.shape[2]
+        return msgs.gather(2, am[:, :, None].long()).squeeze(2), am
+
+    @contextlib.contextmanager
+    def planted(torch_, fm, **kw):
+        # the first run of the step stands for the card
+        calls.append(kw)
+        if len(calls) == 1:
+            monkeypatch.setattr(fused_mp, "typed_gather_mix_agg", wrong)
+        try:
+            with branches(torch_, fm, **kw):
+                yield
+        finally:
+            monkeypatch.setattr(fused_mp, "typed_gather_mix_agg", real)
+
+    monkeypatch.setattr(chip_smoke, "_branches", planted)
+    monkeypatch.setattr(chip_smoke, "LOSS_RTOL", 1.0)
+    with pytest.raises(RuntimeError, match="at their kinks"):
+        chip_smoke._syn_train_vs_cpu(torch, "cpu", 21, 22)
+    line = _emitted(capsys)
+    assert line["flipped_kink_distance_worst"]["card"] \
+        > 1e3 * chip_smoke.KINK_TOL
+    assert line["flipped_kink_distance_worst"]["cpu"] <= chip_smoke.KINK_TOL

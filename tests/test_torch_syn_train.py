@@ -110,8 +110,10 @@ def test_three_hop_train_steps_match_jax(jax_setup):
         fused_mp.reset_counts()
         t_m = t_syn.train_step(twl, opt, batch, "cpu")
         assert fused_mp.EXT_COUNTS == {"kernel_launches": 0,
+                                       "bf16_launches": 0,
                                        "plain_calls": 4}
         assert fused_mp.EXT_BWD_COUNTS == {"kernel_launches": 0,
+                                           "bf16_launches": 0,
                                            "plain_calls": 4}
         for k in ("loss", "acc", "lp_acc"):
             np.testing.assert_allclose(float(t_m[k]), float(j_m[k]),

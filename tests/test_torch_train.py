@@ -153,8 +153,10 @@ def test_three_train_steps_match_jax(jax_setup, clean_weight):
         # 4 layers x 2 directions of type-0 convs, plain on the CPU; the
         # last layer's v2f conv feeds no loss, so autograd skips its
         # backward
-        assert fused_mp.COUNTS == {"kernel_launches": 0, "plain_calls": 8}
+        assert fused_mp.COUNTS == {"kernel_launches": 0,
+                                   "bf16_launches": 0, "plain_calls": 8}
         assert fused_mp.BWD_COUNTS == {"kernel_launches": 0,
+                                       "bf16_launches": 0,
                                        "plain_calls": 7}
         _check_metrics(t_m, j_m)
         _check_grads(port, dict(_port({

@@ -177,7 +177,8 @@ def test_cpu_tensors_take_the_plain_version(rng):
     x, nn, et, w, b = _mk(rng, *SHAPES[0])
     fused_mp.reset_counts()
     _port_conv(x, nn, et, w, SHAPES[0][-1], "max", b)
-    assert fused_mp.COUNTS == {"kernel_launches": 0, "plain_calls": 1}
+    assert fused_mp.COUNTS == {"kernel_launches": 0, "bf16_launches": 0,
+                               "plain_calls": 1}
     fused_mp.reset_counts()
 
 
@@ -303,7 +304,8 @@ def test_conv_grads_match_pallas_and_xla(rng, shape, agg):
     C = shape[-1]
     fused_mp.reset_counts()
     got = _port_grads(x, nn, et, w, b, C, agg)
-    assert fused_mp.BWD_COUNTS == {"kernel_launches": 0, "plain_calls": 1}
+    assert fused_mp.BWD_COUNTS == {"kernel_launches": 0,
+                                   "bf16_launches": 0, "plain_calls": 1}
     pallas = _jax_grads(lambda x, nn, et, w, b: j_fused.fused_typed_mp(
         x, nn, et, w, C, aggregator=agg, bias=b, precision="float32"),
         x, nn, et, w, b)
@@ -471,10 +473,13 @@ def test_ext_conv_and_grads_match_xla_and_pallas(rng, shape, ext, agg):
     out = typed_mp_conv(ts[0], nn, ts[1], ts[2], C, extension=t_ext,
                         aggregator=agg, bias=ts[3])
     out.sin().sum().backward()
-    assert fused_mp.EXT_COUNTS == {"kernel_launches": 0, "plain_calls": 1}
+    assert fused_mp.EXT_COUNTS == {"kernel_launches": 0,
+                                   "bf16_launches": 0, "plain_calls": 1}
     assert fused_mp.EXT_BWD_COUNTS == {"kernel_launches": 0,
+                                       "bf16_launches": 0,
                                        "plain_calls": 1}
-    assert fused_mp.COUNTS == {"kernel_launches": 0, "plain_calls": 0}
+    assert fused_mp.COUNTS == {"kernel_launches": 0, "bf16_launches": 0,
+                               "plain_calls": 0}
     np.testing.assert_allclose(out.detach().numpy(), xla, rtol=2e-5,
                                atol=2e-5)
     got = [t.grad.numpy() for t in ts]
