@@ -23,10 +23,24 @@ Phases, one JSON line each:
                    staged, staged, kept), the plain and bound times, and
                    every slab the staged kernel takes there (each checked)
   decode           the LDPC decoder at the reference width (seeded random
-                   weights) decodes a 3840-word eval grid in 15 batches of
-                   256 through ``train.ldpc.evaluate``; every kernel of the
-                   path must have run there, and no plain version
+                   weights) through ``train.ldpc.evaluate`` with the decode
+                   CLI's defaults: it writes the missing 3840-word eval grid
+                   with the sum-product baseline (the host C++ decoder, no
+                   numpy fallback), then decodes it in 15 batches of 256;
+                   every kernel of the path must have run there, and no
+                   plain version; the grid equal, array for array, to the
+                   one the port's writer CLI gives on the CPU, its
+                   sum-product matrix non-zero and printed; the host
+                   decoder's seconds; words/s on the written grid
   decode_vs_cpu    one batch through the same weights on the port's CPU path
+  bp_decode        ``ops.bp.bp_decode_batch`` on the card over the grid's
+                   3840 words, 100 loops, with the posterior, in one call,
+                   against the port's CPU path on the same bias: decisions
+                   and iterations equal on every word both solve, at most
+                   BP_ONE_SIDED of the words solved by one side only (each
+                   printed with its smallest |q1 - 0.5|), two card runs
+                   bit-equal; words/s, ms and kernels per call, and the
+                   card's per-cell BER beside the host decoder's matrix
   train            ``train.ldpc.train`` at the reference width: one epoch of
                    TRAIN_STEPS steps at B=256, seeded random init; every
                    step launches the forward and the staged backward, and
@@ -35,6 +49,15 @@ Phases, one JSON line each:
                    staged batch
   train_vs_cpu     one train step from the same weights and batch on the
                    card and on the port's CPU path: losses and gradients
+  train_bp_features  ``train.ldpc.train`` with ``--bp-features`` (the
+                   50-loop sum-product decode on the card inside each step),
+                   TRAIN_STEPS steps at B=256 from a seeded init, then
+                   ``evaluate --bp-features`` on the decode grid: the same
+                   kernel launches per step as ``train`` and per batch as
+                   ``decode``, no plain version, finite losses, a
+                   checkpoint; the step time beside ``train``'s
+  train_bp_features_vs_cpu  ``train_vs_cpu`` with ``--bp-features``, from the
+                   weights BP_WARM_STEPS card steps leave
   kernel_check_ext both routes of the DIFF/NEIGHBOR forward (the staged
                    kernel with its planned slab, and the kept kernel)
                    against the plain version at the synthetic models'
@@ -64,6 +87,15 @@ Phases, one JSON line each:
                    card's decisions, and their spread
   syn_fixed        ``train_and_eval("fixed", ...)`` (mp_nn), 5 steps at
                    B=32 and one eval batch: the NEIGHBOR mode on a path
+  syn_workers      ``train_and_eval("hop", ...)`` with the default
+                   ``--workers`` (a spawned pool: this process holds CUDA)
+                   and with ``--workers 0``, 20 steps each: the pool's first
+                   3 batches bit-equal to a PoolBatcher built here with the
+                   same seed, ``device_prefetch``'s staged batches bit-equal
+                   to batches staged inline; samples/s of both runs
+  syn_train_path   ``python -m fgnn_tpu_torch.data.generate rpgm`` writes 640
+                   hop samples; 20 steps and a 4-batch eval from them
+                   (``--train-path``, ``--test-path``)
   kernel_check_bf16     the bf16 mode of the NO_EXTENSION forward and of
                    the staged backward against their plain versions at the
                    LDPC and ragged shapes, all four aggregators (out within
@@ -87,8 +119,10 @@ Phases, one JSON line each:
                    dtype-flow test implies (LDPC 15 forward and 14
                    backward, hop 12 and 12), f32 parameters; step times
 
-then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-line.  Any failed check raises and the script exits non-zero; without a
+The phases that train the synthetic workloads without naming
+``--workers`` pass ``--workers 0``: inline synthesis, as they ran before the
+pool was ported.  Then the ``{"kernels": [...]}`` line and, last, the
+``{"ok": true, ...}`` line.  Any failed check raises and the script exits non-zero; without a
 CUDA device, or outside a checkout, it exits non-zero before any phase.
 """
 
@@ -210,6 +244,25 @@ KINK_TOL = 1e-5
 # seeds says how much headroom the 3e-3 limit has
 SYN_VS_CPU_SEEDS = ((3, 2), (11, 12), (21, 22), (31, 32))
 
+# The sum-product decoder on the card (ops/bp.py): the host decoder's 100
+# loops over the decode grid.  The card and the CPU multiply and divide in
+# the same order with IEEE rounding, so the only differences are a library's
+# ulps; a word that one side solves and the other does not sits at a
+# decision boundary (|q1 - 0.5| near 0), and at most BP_ONE_SIDED of the
+# words may.
+BP_LOOPS = 100
+BP_ONE_SIDED = 0.01
+# train_bp_features_vs_cpu compares from the weights this many card steps
+# leave.  At the seeded init the step is ill-conditioned (near ties in max
+# flip under rounding): with the features the card and the CPU each lay
+# 6.4e-3 to 6.7e-3 relative L2 from an f64 run on the CPU, and 4.3e-3 from
+# each other; after 10 steps 4.8e-4 from f64 and 5.5e-5 from each other
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6, PR 7).
+BP_WARM_STEPS = 10
+# syn_train_path: the hop samples the writer CLI writes (20 steps of 32)
+SYN_PATH_SAMPLES = 640
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
 # The bf16 compute policy (--bf16).  Every conv whose x is bf16 runs the
 # kernels' bf16 mode.  Of the 16 type-0 convs of an LDPC forward, 15 get a
 # bf16 x; layer 6's v2f conv (v2f_c64) gets an f32 x, since the skip link
@@ -313,9 +366,16 @@ def phase_device(torch):
 
 
 def phase_build(fused_mp):
+    from fgnn_tpu_torch.data import ldpc_cpp
+
     t0 = time.perf_counter()
     built = fused_mp.build(force=True)
     seconds = time.perf_counter() - t0
+    # the host sum-product decoder (g++), which the decode grid requires
+    t0 = time.perf_counter()
+    ldpc_cpp.get_lib()
+    host = dict(seconds=time.perf_counter() - t0,
+                library=os.path.relpath(ldpc_cpp._SO_PATH))
     require(sorted(built) == sorted(fused_mp.KERNELS), "every kernel built")
     libs = {}
     for name, (secs, log) in built.items():
@@ -331,7 +391,7 @@ def phase_build(fused_mp):
             seconds=secs, library=os.path.relpath(fused_mp.library(name)),
             ptxas=[ln for ln in lines if "registers" in ln or "spill" in ln],
             spilling=spilling)
-    emit("build", seconds=seconds, libraries=libs)
+    emit("build", seconds=seconds, libraries=libs, host_decoder=host)
 
 
 def bound_ms(nbytes, ops):
@@ -565,25 +625,8 @@ def phase_kernel_check_bwd(torch, fused_mp):
     return worst, shapes
 
 
-def phase_decode(torch, fused_mp, dev, tmp):
-    from fgnn_tpu_torch.data import Codes, generate_eval_set
-    from fgnn_tpu_torch.models import LDPCModel, init_weights
-    from fgnn_tpu_torch.train.ldpc import decode_step, evaluate, model_inputs
-
-    path = os.path.join(tmp, "ldpc_eval.npz")
-    t0 = time.perf_counter()
-    generate_eval_set(path, n_per_cell=EVAL_PER_CELL, with_bp_error=False)
-    gen_s = time.perf_counter() - t0
-    model = init_weights(LDPCModel(), seed=0).to(dev).eval()
-    args = Namespace(test_path=path, eval_per_cell=EVAL_PER_CELL,
-                     batch_size=BATCH, aggregator="max", model_path="",
-                     seed=0)
-    first = next(Codes(path).batches(BATCH))
-    n_batches = len(Codes(path)) // BATCH
-
-    # warm-up, then the counted run of the main path
-    decode_step(model, first, dev)
-    torch.cuda.synchronize()
+def _count_decode(torch, fused_mp, evaluate, args, model, dev, n_batches):
+    """``evaluate`` counted: (seconds, launch counts, ber_total, err)."""
     fused_mp.reset_counts()
     t0 = time.perf_counter()
     ber_total, err = evaluate(args, model, device=dev)
@@ -596,20 +639,180 @@ def phase_decode(torch, fused_mp, dev, tmp):
     require(counts["plain_calls"] == 0, "no plain calls on the card")
     require(0.0 <= ber_total <= 1.0 and err.shape == (5, 6),
             "BER in [0, 1], 5 x 6 matrix")
+    return seconds, counts, ber_total, err
 
-    # the model alone, on inputs already on the card
+
+def _cell_error(x, gts, snr, sigma_b):
+    """Info-bit error rate per (snr, sigma_b) cell of hard decisions."""
+    import numpy as np
+
+    err = np.zeros((5, 6))
+    for i in range(5):
+        for j in range(6):
+            sel = (np.abs(snr - i) < 1e-3) & (sigma_b.astype(int) == j)
+            err[i, j] = np.mean(x[sel, :48] != gts[sel, :48])
+    return err
+
+
+def phase_decode(torch, fused_mp, dev, tmp):
+    import numpy as np
+
+    from fgnn_tpu_torch.data import Codes, ContinuousCodesSP, ldpc_datasets
+    from fgnn_tpu_torch.data.ldpc_channel import posteriors
+    from fgnn_tpu_torch.models import LDPCModel, init_weights
+    from fgnn_tpu_torch.train.ldpc import (
+        decode_step,
+        evaluate,
+        model_inputs,
+        parse_args,
+    )
+
+    path = os.path.join(tmp, "ldpc_eval.npz")
+    model = init_weights(LDPCModel(), seed=0).to(dev).eval()
+    # the decode CLI's defaults: --eval-bp-baseline writes the missing grid
+    # with the sum-product matrix
+    args = parse_args(["--test-path", path, "--eval-per-cell",
+                       str(EVAL_PER_CELL), "--batch-size", str(BATCH)])
+    require(args.eval_bp_baseline and not args.bp_features,
+            "the decode CLI's defaults")
+    n_batches = 30 * EVAL_PER_CELL // BATCH
+    words = n_batches * BATCH
+
+    # warm-up, then the counted run of the main path: the grid written,
+    # then decoded
+    decode_step(model, next(ContinuousCodesSP(length=BATCH, seed=9)
+                            .batches(BATCH)), dev)
+    torch.cuda.synchronize()
+    for k in ldpc_datasets.BP_DECODED:
+        ldpc_datasets.BP_DECODED[k] = 0
+    grid_seconds, counts, _, _ = _count_decode(
+        torch, fused_mp, evaluate, args, model, dev, n_batches)
+    require(ldpc_datasets.BP_DECODED == {"cpp": 30 * EVAL_PER_CELL,
+                                         "numpy": 0},
+            f"the host C++ decoder wrote the baseline "
+            f"({ldpc_datasets.BP_DECODED})")
+    with np.load(path) as f:
+        grid = dict(f)
+    bp = grid["bp_err_matrix"]
+    require(bp.shape == (5, 6) and bp.any(), "a non-zero sum-product matrix")
+
+    # the port's writer CLI on the CPU, in a process without the card
+    cli = os.path.join(tmp, "ldpc_cli.npz")
+    subprocess.run(
+        [sys.executable, "-m", "fgnn_tpu_torch.data.generate", "ldpc",
+         "--n-per-cell", str(EVAL_PER_CELL), "--seed", "0", "--out", cli],
+        cwd=ROOT, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+        check=True, capture_output=True, text=True, timeout=600)
+    with np.load(cli) as f:
+        require(sorted(f.files) == sorted(grid), "the CLI grid's arrays")
+        for k in f.files:
+            require(f[k].dtype == grid[k].dtype
+                    and np.array_equal(f[k], grid[k]),
+                    f"grid {k}: the decode path's equals the CPU writer's")
+
+    # the host decoder alone over the grid's stored words (f32; the writer
+    # decoded the f64 words before it stored them, so its matrix may differ
+    # in a few words)
+    bias = np.stack([posteriors(y, s) for y, s in
+                     zip(grid["noisy_sg"], grid["snr_dbs"])])
+    t0 = time.perf_counter()
+    host_x = ldpc_datasets.bp_decisions(bias)
+    host_bp_seconds = time.perf_counter() - t0
+    host_err = _cell_error(host_x, grid["gts"], grid["snr_dbs"],
+                           grid["sigma_b"])
+    print("sum-product baseline (host C++ decoder, 100 loops):")
+    print(np.array_str(bp, precision=4, suppress_small=True), flush=True)
+
+    # words/s on the written grid
+    seconds, again, ber_total, err = _count_decode(
+        torch, fused_mp, evaluate, args, model, dev, n_batches)
+    first = next(Codes(path).batches(BATCH))
     inputs = model_inputs(model, first, dev)
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: model(**inputs), 20, torch)
-    words = n_batches * BATCH
     emit("decode", words=words, batches=n_batches, batch_size=BATCH,
-         eval_set_seconds=gen_s, seconds=seconds,
+         seconds_with_grid=grid_seconds, host_bp_seconds=host_bp_seconds,
+         host_bp_words_per_s=len(bias) / host_bp_seconds,
+         host_bp_stored_words_max_diff=float(np.abs(host_err - bp).max()),
+         bp_err_matrix=bp.tolist(), seconds=seconds,
          words_per_s=words / seconds,
          edges_per_s=words * EDGES_PER_WORD / seconds,
          forward_ms=fwd_ms, forward_words_per_s=BATCH / fwd_ms * 1e3,
          ber_total=float(ber_total), kernel_launches=counts["kernel_launches"],
          plain_calls=counts["plain_calls"])
-    return model, first, counts
+    return model, first, counts, path
+
+
+def phase_bp_decode(torch, dev, path):
+    """The batched sum-product decoder on the card over the grid, against
+    the port's CPU path on the same f32 bias."""
+    import numpy as np
+
+    from fgnn_tpu_torch.data import decode_graph
+    from fgnn_tpu_torch.data.ldpc_channel import posteriors
+    from fgnn_tpu_torch.ops.bp import BPGraphArrays, bp_decode_batch
+    from fgnn_tpu_torch.utils.profiling import kernels_per_call
+
+    with np.load(path) as f:
+        grid = dict(f)
+    bias = np.stack([posteriors(y, s) for y, s in
+                     zip(grid["noisy_sg"], grid["snr_dbs"])]) \
+        .astype(np.float32)
+    words = len(bias)
+    graph = BPGraphArrays.from_ref(decode_graph(), dev)
+    on_card = torch.from_numpy(bias).to(dev)
+
+    def call():
+        return bp_decode_batch(graph, on_card, max_loops=BP_LOOPS,
+                               return_posterior=True)
+
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(first, second)),
+            "two card runs give the same bits")
+    ms = cuda_ms(call, 3, torch)
+    kernels, busy_ms = kernels_per_call(call)
+    t0 = time.perf_counter()
+    cpu = bp_decode_batch(BPGraphArrays.from_ref(decode_graph()),
+                          torch.from_numpy(bias), max_loops=BP_LOOPS,
+                          return_posterior=True)
+    cpu_seconds = time.perf_counter() - t0
+    gx, gok, git, gq = (t.cpu().numpy() for t in first)
+    cx, cok, cit, cq = (t.numpy() for t in cpu)
+    both = gok & cok
+    require(np.array_equal(gx[both], cx[both])
+            and np.array_equal(git[both], cit[both]),
+            "decisions and iterations equal on every word both solve")
+    one = np.flatnonzero(gok != cok)
+    one_sided = [{"word": int(w), "card_solved": bool(gok[w]),
+                  "card_iters": int(git[w]), "cpu_iters": int(cit[w]),
+                  "min_abs_q1_minus_half": float(min(
+                      np.abs(gq[w] - 0.5).min(), np.abs(cq[w] - 0.5).min()))}
+                 for w in one]
+    for w in one_sided:
+        print(f"bp_decode: word {w['word']} solved on the "
+              f"{'card' if w['card_solved'] else 'CPU'} only, smallest "
+              f"|q1 - 0.5| {w['min_abs_q1_minus_half']:.3e}", flush=True)
+    unsolved = ~(gok | cok)
+    card_ber = _cell_error(gx, grid["gts"], grid["snr_dbs"], grid["sigma_b"])
+    print("bp_decode: the card's per-cell BER (f32), then the host "
+          "decoder's (f64):")
+    print(np.array_str(card_ber, precision=4, suppress_small=True))
+    print(np.array_str(grid["bp_err_matrix"], precision=4,
+                       suppress_small=True), flush=True)
+    emit("bp_decode", words=words, max_loops=BP_LOOPS, ms_per_call=ms,
+         words_per_s=words / ms * 1e3, kernels_per_call=kernels,
+         device_busy_ms=busy_ms, cpu_seconds=cpu_seconds,
+         solved_card=int(gok.sum()), solved_cpu=int(cok.sum()),
+         solved_one_side=len(one), one_sided=one_sided,
+         unsolved_x_differ=int((gx != cx).any(-1)[unsolved].sum()),
+         q1_max_abs_diff_both_solved=float(
+             np.abs(gq - cq)[both].max()) if both.any() else 0.0,
+         card_ber=card_ber.tolist(),
+         host_bp_err_matrix=grid["bp_err_matrix"].tolist())
+    require(len(one) <= BP_ONE_SIDED * words,
+            f"{len(one)} words solved by one side only > "
+            f"{BP_ONE_SIDED} of {words}")
 
 
 def phase_decode_vs_cpu(torch, model, batch, dev):
@@ -693,7 +896,76 @@ def phase_train(torch, fused_mp, dev, tmp):
          losses=losses, fwd_launches=fwd["kernel_launches"],
          bwd_launches=bwd["kernel_launches"],
          plain_calls=fwd["plain_calls"] + bwd["plain_calls"])
-    return fwd, bwd
+    return fwd, bwd, step_ms
+
+
+def phase_train_bp_features(torch, fused_mp, dev, tmp, path, train_ms):
+    """``train.ldpc.train --bp-features`` and ``evaluate --bp-features`` at
+    the reference width: the decode of every step and batch runs on the
+    card before the first conv, and the convs launch as without it."""
+    from fgnn_tpu_torch.data import Codes, ContinuousCodesSP
+    from fgnn_tpu_torch.models import LDPCModel, init_weights
+    from fgnn_tpu_torch.train import ldpc
+    from fgnn_tpu_torch.train.common import make_optimizer
+    from fgnn_tpu_torch.utils.logging import MetricsWriter
+
+    args = ldpc.parse_args([
+        "--train", "--bp-features", "--n-epochs", "1", "--steps-per-epoch",
+        str(TRAIN_STEPS), "--batch-size", str(BATCH),
+        "--samples-per-epoch", str(TRAIN_STEPS * BATCH), "--seed", "0"])
+    model = init_weights(ldpc.new_model(args), seed=0).to(dev)
+    require(model.main.node_mapping.conv.weight.shape[1] == 4,
+            "a model of 4 node features")
+    warm = init_weights(LDPCModel(node_feature_dim=4), seed=1).to(dev)
+    warm_batch = next(ContinuousCodesSP(length=BATCH, seed=9).batches(BATCH))
+    ldpc.train_step(warm, make_optimizer(warm.parameters(), ldpc.BASE_LR),
+                    warm_batch, dev, bp_features=True)
+    torch.cuda.synchronize()
+    run_dir = os.path.join(tmp, "train_bp_features")
+    fused_mp.reset_counts()
+    t0 = time.perf_counter()
+    with MetricsWriter(os.path.join(run_dir, "tf_logs")) as writer:
+        ldpc.train(args, model, writer, run_dir, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    fwd, bwd = dict(fused_mp.COUNTS), dict(fused_mp.BWD_COUNTS)
+    require(fwd["kernel_launches"] == FWD_PER_STEP * TRAIN_STEPS
+            and bwd["kernel_launches"] == BWD_PER_STEP * TRAIN_STEPS,
+            f"bp-features train: {fwd['kernel_launches']} forward and "
+            f"{bwd['kernel_launches']} backward launches")
+    require(fwd["plain_calls"] == 0 and bwd["plain_calls"] == 0
+            and fused_mp.KEPT_BWD_COUNTS["kernel_launches"] == 0,
+            "bp-features train: no plain calls, no kept backward")
+    with open(os.path.join(run_dir, "tf_logs", "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    losses = [r["value"] for r in logged if r["tag"] == "syn_train/loss"]
+    require(len(losses) == TRAIN_STEPS // 10 and all(
+        math.isfinite(r["value"]) for r in logged),
+        "bp-features train: finite logged metrics")
+    for ckpt in ("ldpc_latest.ckpt", "ldpc_final.ckpt"):
+        require(os.path.getsize(os.path.join(run_dir, ckpt)) > 0,
+                f"bp-features train: {ckpt} written")
+
+    eargs = ldpc.parse_args(["--test-path", path, "--bp-features",
+                             "--batch-size", str(BATCH)])
+    n_batches = len(Codes(path)) // BATCH
+    seconds_eval, ecounts, ber_total, err = _count_decode(
+        torch, fused_mp, ldpc.evaluate, eargs, model, dev, n_batches)
+
+    opt = make_optimizer(model.parameters(), ldpc.BASE_LR)
+    staged = ldpc.stage_batch(model, warm_batch, dev)
+    step_ms = cuda_ms(lambda: ldpc.train_step(model, opt, staged, dev,
+                                              bp_features=True), 20, torch)
+    emit("train_bp_features", steps=TRAIN_STEPS, batch_size=BATCH,
+         seconds=seconds, steps_per_s=TRAIN_STEPS / seconds,
+         train_step_ms=step_ms, train_step_ms_without=train_ms,
+         losses=losses, fwd_launches=fwd["kernel_launches"],
+         bwd_launches=bwd["kernel_launches"],
+         plain_calls=fwd["plain_calls"] + bwd["plain_calls"],
+         eval_seconds=seconds_eval, eval_words_per_s=n_batches * BATCH
+         / seconds_eval, eval_fwd_launches=ecounts["kernel_launches"],
+         eval_ber_total=float(ber_total))
+    return fwd, bwd, ecounts
 
 
 def _grad_errors(torch, got, ref):
@@ -723,19 +995,31 @@ def _grad_errors(torch, got, ref):
     return rel, err, floor, bad
 
 
-def phase_train_vs_cpu(torch, dev):
+def phase_train_vs_cpu(torch, dev, bp_features=False):
+    """One train step from the same weights and batch on the card and on
+    the port's CPU path.  With ``--bp-features`` (the sum-product decode in
+    the step on each side) from the weights BP_WARM_STEPS card steps
+    leave."""
     from fgnn_tpu_torch.data import ContinuousCodesSP
     from fgnn_tpu_torch.models import LDPCModel, init_weights
     from fgnn_tpu_torch.train.common import make_optimizer
     from fgnn_tpu_torch.train.ldpc import BASE_LR, train_step
 
-    model = init_weights(LDPCModel(), seed=2)
+    model = init_weights(LDPCModel(node_feature_dim=4 if bp_features
+                                   else 2), seed=2)
+    if bp_features:
+        model = model.to(dev)
+        opt = make_optimizer(model.parameters(), BASE_LR)
+        for b in ContinuousCodesSP(length=BP_WARM_STEPS * BATCH,
+                                   seed=40).batches(BATCH):
+            train_step(model, opt, b, dev, bp_features=True)
+        model = model.cpu()
     batch = next(ContinuousCodesSP(length=BATCH, seed=3).batches(BATCH))
     runs = {}
     for where in (dev, "cpu"):
         m = copy.deepcopy(model).to(where)
         metrics = train_step(m, make_optimizer(m.parameters(), BASE_LR),
-                             batch, where)
+                             batch, where, bp_features=bp_features)
         runs[str(where)] = (
             {k: float(v) for k, v in metrics.items()},
             {n: None if p.grad is None else p.grad.cpu()
@@ -750,7 +1034,8 @@ def phase_train_vs_cpu(torch, dev):
              if v > GRAD_REL_L2]
             + [f"{n}: max abs err {v} > {floor}" for n, v in noise.items()
                if v > floor])
-    emit("train_vs_cpu", loss=gm["loss"], loss_cpu=cm["loss"],
+    emit("train_bp_features_vs_cpu" if bp_features else "train_vs_cpu",
+         loss=gm["loss"], loss_cpu=cm["loss"],
          sigma_b_loss=gm["sigma_b_loss"], sigma_b_loss_cpu=cm["sigma_b_loss"],
          acc=gm["acc"], acc_cpu=cm["acc"], tensors_rel_l2=len(rel),
          grad_rel_l2_worst=max(rel.values()),
@@ -958,15 +1243,20 @@ def phase_kernel_check_ext_bwd(torch, fused_mp):
     return worst, rows
 
 
-def _syn_args(workload, tmp, steps, eval_batches):
+def _syn_args(workload, tmp, steps, eval_batches, *extra, name=None):
+    """The CLI's flags for a run of ``steps`` and ``eval_batches``, inline
+    synthesis unless ``extra`` names ``--workers``."""
     from fgnn_tpu_torch.train.synthetic import parse_args
 
+    if "--workers" not in extra:
+        extra = ("--workers", "0") + extra
     return parse_args([
         "--train-epoches", "1",
         "--train-size", str(steps * SYN_BATCH),
         "--test-size", str(eval_batches * SYN_BATCH),
         "--batch-size", str(SYN_BATCH), "--seed", "0",
-        "--work-dir", os.path.join(tmp, workload)], workload)
+        "--work-dir", os.path.join(tmp, name or workload), *extra],
+        workload)
 
 
 def _run_syn(torch, fused_mp, dev, workload, args, steps, eval_batches,
@@ -1261,6 +1551,100 @@ def _syn_train_vs_cpu(torch, dev, data_seed, init_seed):
                      "their kinks")
     return (max(card.values()), max(cpu.values()),
             max(readings["card_vs_cpu"].values()), flipped)
+
+
+def phase_syn_workers(torch, fused_mp, dev, tmp):
+    """The hop trainer with the default ``--workers`` and with
+    ``--workers 0``: the pool's stream, the prefetch thread's staging."""
+    import functools
+
+    import numpy as np
+
+    from fgnn_tpu_torch.data import loader
+    from fgnn_tpu_torch.train import synthetic
+
+    seen, methods = [], []
+
+    class Recording(loader.PoolBatcher):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            methods.append(self.start_method)
+
+        def batches(self, n):
+            for b in super().batches(n):
+                if len(seen) < 3:
+                    seen.append(b)
+                yield b
+
+    default = synthetic.parse_args([], "hop").workers
+    pooled = _syn_args("hop", tmp, SYN_STEPS, SYN_EVAL_BATCHES,
+                       "--workers", str(default), name="hop_workers")
+    synthetic.PoolBatcher = Recording
+    try:
+        res = _run_syn(torch, fused_mp, dev, "hop", pooled, SYN_STEPS,
+                       SYN_EVAL_BATCHES, HOP_PER_STEP)
+    finally:
+        synthetic.PoolBatcher = loader.PoolBatcher
+    require(methods == ["spawn"], f"one pool, spawned ({methods})")
+    inline = _syn_args("hop", tmp, SYN_STEPS, SYN_EVAL_BATCHES,
+                       name="hop_inline")
+    res0 = _run_syn(torch, fused_mp, dev, "hop", inline, SYN_STEPS,
+                    SYN_EVAL_BATCHES, HOP_PER_STEP)
+
+    # the pool's first batches (the init batch and two train batches)
+    # against a pool of the same seed built here, of one worker
+    with loader.PoolBatcher(functools.partial(
+            synthetic.make_syn_dataset, "hop", pooled), SYN_BATCH,
+            n_workers=1, seed=pooled.seed) as pool:
+        want = list(pool.batches(3))
+    require(len(seen) == 3 and all(
+        sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k])
+                                       for k in a)
+        for a, b in zip(seen, want)),
+        "the trainer's pool batches equal a pool of the same seed")
+    # device_prefetch's copies (pinned memory, its own stream) against the
+    # same batches staged inline
+    wl = synthetic.SynWorkload("hop", pooled)
+    n = 0
+    with loader.device_prefetch(iter(want), dev,
+                                put=lambda b: wl.stage(b, dev)) as staged:
+        for got, b in zip(staged, want):
+            ref = wl.stage(b, dev)
+            require(sorted(got) == sorted(ref) and all(
+                torch.equal(got[k], ref[k]) for k in ref),
+                "a prefetched batch equals the batch staged inline")
+            n += 1
+    require(n == 3, "three prefetched batches")
+    emit("syn_workers", workers=default, cpu_count=os.cpu_count(),
+         start_method=methods[0], batch_size=SYN_BATCH,
+         samples_per_s_workers=res["samples_per_s"],
+         samples_per_s_inline=res0["samples_per_s"],
+         eval_samples_per_s_workers=res["eval_samples_per_s"],
+         seconds_workers=res["seconds"], seconds_inline=res0["seconds"],
+         losses_workers=res["losses"], losses_inline=res0["losses"],
+         acc_workers=res["acc"], acc_inline=res0["acc"])
+    return res, res0
+
+
+def phase_syn_train_path(torch, fused_mp, dev, tmp):
+    """The writer CLI's hop samples through --train-path and --test-path."""
+    path = os.path.join(tmp, "hops_train.npz")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "fgnn_tpu_torch.data.generate", "rpgm",
+         "--type", "hops", "--size", str(SYN_PATH_SAMPLES), "--seed", "0",
+         "--out", path], cwd=ROOT, check=True, capture_output=True,
+        text=True, timeout=600)
+    write_s = time.perf_counter() - t0
+    args = _syn_args("hop", tmp, SYN_STEPS, SYN_EVAL_BATCHES, "--train-path",
+                     path, "--test-path", path, name="hop_train_path")
+    res = _run_syn(torch, fused_mp, dev, "hop", args, SYN_STEPS,
+                   SYN_EVAL_BATCHES, HOP_PER_STEP)
+    require(all(math.isfinite(v) for v in res["losses"]),
+            "train-path: finite losses")
+    emit("syn_train_path", samples=SYN_PATH_SAMPLES, write_seconds=write_s,
+         writer=out.stdout.strip(), batch_size=SYN_BATCH, **res)
+    return res
 
 
 def phase_syn_fixed(torch, fused_mp, dev, tmp):
@@ -1793,7 +2177,7 @@ def phase_train_bf16(torch, fused_mp, dev, tmp):
     emit("train_bf16", workload="ldpc", **ldpc_res)
 
     hop_args = synthetic.parse_args([
-        "--bf16", "--train-epoches", "1",
+        "--bf16", "--workers", "0", "--train-epoches", "1",
         "--train-size", str(SYN_STEPS * SYN_BATCH),
         "--test-size", str(SYN_EVAL_BATCHES * SYN_BATCH),
         "--batch-size", str(SYN_BATCH), "--seed", "0",
@@ -1913,15 +2297,22 @@ def main():
     worst_ext_b16, ext_fwd_b16, ext_bwd_b16 = phase_kernel_check_ext_bf16(
         torch, fused_mp)
     with tempfile.TemporaryDirectory() as tmp:
-        model, batch, counts = phase_decode(torch, fused_mp, dev, tmp)
+        model, batch, counts, grid = phase_decode(torch, fused_mp, dev, tmp)
         phase_decode_vs_cpu(torch, model, batch, dev)
+        phase_bp_decode(torch, dev, grid)
         decode_b16 = phase_decode_bf16(torch, fused_mp, dev, model, batch,
-                                       os.path.join(tmp, "ldpc_eval.npz"))
-        fwd_train, bwd_train = phase_train(torch, fused_mp, dev, tmp)
+                                       grid)
+        fwd_train, bwd_train, train_ms = phase_train(torch, fused_mp, dev,
+                                                     tmp)
         phase_train_vs_cpu(torch, dev)
+        fwd_bpf, bwd_bpf, eval_bpf = phase_train_bp_features(
+            torch, fused_mp, dev, tmp, grid, train_ms)
+        phase_train_vs_cpu(torch, dev, bp_features=True)
         syn = phase_syn_train(torch, fused_mp, dev, tmp)
         phase_syn_train_vs_cpu(torch, dev)
         fixed = phase_syn_fixed(torch, fused_mp, dev, tmp)
+        syn_pool, syn_inline = phase_syn_workers(torch, fused_mp, dev, tmp)
+        syn_path = phase_syn_train_path(torch, fused_mp, dev, tmp)
         ldpc_b16, hop_b16 = phase_train_bf16(torch, fused_mp, dev, tmp)
 
     def per_call(rows, key, per):
@@ -2000,9 +2391,14 @@ def main():
         "replaces": "fgnn_tpu/ops/fused_mp.py:243",
         "tpu_kernel": "_fwd_kernel",
         "checked": True,
-        "launches": counts["kernel_launches"] + fwd_train["kernel_launches"],
+        "launches": (counts["kernel_launches"] + fwd_train["kernel_launches"]
+                     + fwd_bpf["kernel_launches"]
+                     + eval_bpf["kernel_launches"]),
         "launches_by_path": {"decode": counts["kernel_launches"],
-                             "train": fwd_train["kernel_launches"]},
+                             "train": fwd_train["kernel_launches"],
+                             "train_bp_features": fwd_bpf["kernel_launches"],
+                             "eval_bp_features":
+                                 eval_bpf["kernel_launches"]},
         "max_abs_err": worst,
         **entry(shapes, "launches_per_forward"),
         "library_ms": None,
@@ -2016,9 +2412,10 @@ def main():
         "replaces": "fgnn_tpu/ops/fused_mp.py:297",
         "tpu_kernel": "_bwd_kernel",
         "checked": True,
-        "launches": bwd_train["kernel_launches"],
+        "launches": bwd_train["kernel_launches"] + bwd_bpf["kernel_launches"],
         "launches_by_path": {"decode": 0,
-                             "train": bwd_train["kernel_launches"]},
+                             "train": bwd_train["kernel_launches"],
+                             "train_bp_features": bwd_bpf["kernel_launches"]},
         "max_abs_err": worst_bwd,
         **entry(shapes_bwd, "launches_per_step"),
         "library_ms": None,
@@ -2029,9 +2426,13 @@ def main():
         "replaces": "fgnn_tpu/ops/fused_mp.py:243",
         "tpu_kernel": "_fwd_kernel, extension mode (fused_mp.py:588-620)",
         "checked": True,
-        "launches": syn["fwd_launches"] + fixed["fwd_launches"],
+        "launches": sum(r["fwd_launches"] for r in (
+            syn, fixed, syn_pool, syn_inline, syn_path)),
         "launches_by_path": {"syn_train": syn["fwd_launches"],
-                             "syn_fixed": fixed["fwd_launches"]},
+                             "syn_fixed": fixed["fwd_launches"],
+                             "syn_workers": syn_pool["fwd_launches"]
+                             + syn_inline["fwd_launches"],
+                             "syn_train_path": syn_path["fwd_launches"]},
         "max_abs_err": worst_ext,
         **entry(shapes_ext, "per_hop_step"),
         "library_ms": None,
@@ -2046,9 +2447,13 @@ def main():
         "replaces": "fgnn_tpu/ops/fused_mp.py:297",
         "tpu_kernel": "_bwd_kernel, extension mode",
         "checked": True,
-        "launches": syn["bwd_launches"] + fixed["bwd_launches"],
+        "launches": sum(r["bwd_launches"] for r in (
+            syn, fixed, syn_pool, syn_inline, syn_path)),
         "launches_by_path": {"syn_train": syn["bwd_launches"],
-                             "syn_fixed": fixed["bwd_launches"]},
+                             "syn_fixed": fixed["bwd_launches"],
+                             "syn_workers": syn_pool["bwd_launches"]
+                             + syn_inline["bwd_launches"],
+                             "syn_train_path": syn_path["bwd_launches"]},
         "max_abs_err": worst_ext_bwd,
         **entry(shapes_ext_bwd, "per_hop_step"),
         "library_ms": None,

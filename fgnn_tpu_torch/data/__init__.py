@@ -1,9 +1,11 @@
 from .alist import AlistMatrix, default_paths, read_alist, read_mod2mat
+from .bp_ref import BPGraph, bp_decode, decode_posteriors
 from .ldpc_channel import channel, encode, posteriors, snr_amplitude
 from .ldpc_datasets import (
     Codes,
     ContinuousCodesSP,
     batch_to_features,
+    decode_graph,
     gen_sample,
     generate_eval_set,
 )
@@ -16,6 +18,7 @@ from .rpgm import (
     RandomPGMPwNoHop,
     batches,
 )
+from .loader import PoolBatcher, Prefetcher, device_prefetch, prefetch
 from .tables import (
     chain_knn_table,
     global_factor_table,
@@ -26,6 +29,8 @@ from .tables import (
 __all__ = [
     "AlistMatrix", "read_alist", "read_mod2mat", "default_paths",
     "encode", "channel", "posteriors", "snr_amplitude",
+    "BPGraph", "bp_decode", "decode_posteriors", "decode_graph",
+    "Prefetcher", "prefetch", "device_prefetch", "PoolBatcher",
     "LDPCStructure", "default_structure",
     "ContinuousCodesSP", "Codes", "batch_to_features", "gen_sample",
     "generate_eval_set",

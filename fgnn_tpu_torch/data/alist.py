@@ -41,6 +41,13 @@ class AlistMatrix:
     def max_row_deg(self) -> int:
         return max(len(r) for r in self.row_items)
 
+    def to_dense(self) -> np.ndarray:
+        """The (M, N) uint8 matrix."""
+        H = np.zeros((self.M, self.N), dtype=np.uint8)
+        for m, cols in enumerate(self.row_items):
+            H[m, cols] = 1
+        return H
+
 
 def read_alist(path: str) -> AlistMatrix:
     with open(path) as f:
@@ -92,4 +99,5 @@ def default_paths():
     return {
         "alist": os.path.join(CODES_DIR, "96.3.963"),
         "G": os.path.join(CODES_DIR, "G"),
+        "A2": os.path.join(CODES_DIR, "A2"),
     }

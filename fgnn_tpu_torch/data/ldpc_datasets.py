@@ -5,36 +5,78 @@ numpy batches (dict of arrays in the (B, N, C) layout).  For one seed the
 batches and eval sets are bit-identical to the JAX package's: the
 ``np.random.RandomState`` calls happen in the same order.
 
-The classical sum-product baseline (``with_bp_error=True``) is not part of
-the port yet; it raises (ROADMAP, port queue item 3).
+The classical sum-product baseline (``with_bp_error=True``) decodes on the
+host with the native decoder (``data/ldpc_cpp``), or with the numpy
+decoder (``data/bp_ref.py``, the same bits) where no C++ compiler is
+found; ``BP_DECODED`` counts the words each one decoded, and the choice is
+logged.
 """
 
 from __future__ import annotations
 
+import functools
+import logging
 import os
 from dataclasses import dataclass
 from typing import Iterator, Optional
 
 import numpy as np
 
-from .ldpc_channel import channel, encode
+from . import ldpc_cpp
+from .alist import default_paths, read_alist
+from .bp_ref import BPGraph, bp_decode
+from .ldpc_channel import channel, encode, posteriors
 from .ldpc_graph import LDPCStructure, default_structure
 
 K_INFO = 48  # information bits per block
 N_CODE = 96  # transmitted bits per block
+BP_MAX_LOOPS = 100
 
-_NO_BP = ("the sum-product baseline (with_bp_error=True) is not ported yet: "
-          "ROADMAP.md, port queue item 3 (ops/bp.py)")
+# words decoded by each host decoder of the sum-product baseline
+BP_DECODED = {"cpp": 0, "numpy": 0}
+
+log = logging.getLogger(__name__)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_graph() -> BPGraph:
+    """BP structure of the [s ; t] parity matrix (the code's A2 file)."""
+    return BPGraph.from_alist(read_alist(default_paths()["A2"]))
+
+
+def bp_decisions(bias: np.ndarray) -> np.ndarray:
+    """Hard decisions (B, 96) of the host sum-product decoder, 100 loops,
+    for a batch of bit posteriors (B, 96): the native decoder where it
+    builds, else the numpy one."""
+    g = decode_graph()
+    if ldpc_cpp.available():
+        which = "cpp"
+        x, _, _ = ldpc_cpp.bp_decode_batch(g, bias, max_loops=BP_MAX_LOOPS)
+    else:
+        which = "numpy"
+        x = np.stack([bp_decode(g, b, max_loops=BP_MAX_LOOPS)[0]
+                      for b in bias])
+    if not any(BP_DECODED.values()):
+        log.info("sum-product baseline: the %s decoder",
+                 "native (C++)" if which == "cpp" else "numpy")
+    BP_DECODED[which] += len(bias)
+    return x
 
 
 def gen_sample(snr_db: float, sigma_b: float, *, burst_prob: float = 0.05,
-               rng: Optional[np.random.RandomState] = None):
-    """One received word: returns (y (96,), codeword (96,) = [s ; t])."""
+               rng: Optional[np.random.RandomState] = None,
+               with_bp_error: bool = False):
+    """One received word: returns (y (96,), codeword (96,) = [s ; t]), and
+    with ``with_bp_error`` also the sum-product decoder's info-bit error
+    rate on it."""
     rng = rng or np.random.RandomState()
     s = rng.randint(0, 2, K_INFO)
     codeword = encode(s, K_INFO, K_INFO)
     y = channel(codeword, snr_db, sigma_b, burst_prob, rng)
-    return y, codeword
+    if not with_bp_error:
+        return y, codeword
+    x = bp_decisions(posteriors(y, snr_db)[None])[0]
+    return y, codeword, float(np.sum(x[:K_INFO] != s) / K_INFO)
 
 
 def batch_to_features(ys: np.ndarray, snr_dbs: np.ndarray,
@@ -90,6 +132,23 @@ class ContinuousCodesSP:
     def __len__(self):
         return self.length
 
+    def sample(self) -> dict:
+        """One sample's features, label, sigma_b and snr_db (the rows of a
+        batch), drawn from ``self.rng``: what ``data.loader.PoolBatcher``
+        stacks."""
+        sigma_b = self.rng.choice(self.sigma_b_choices)
+        snr_db = (self.snr if self.snr is not None
+                  else self.rng.choice(self.snr_choices))
+        y, codeword = gen_sample(snr_db, sigma_b, burst_prob=self.burst_prob,
+                                 rng=self.rng)
+        feats = {k: v[0] for k, v in batch_to_features(
+            y[None], np.asarray([snr_db], np.float32),
+            self.structure).items()}
+        feats["label"] = codeword.astype(np.int32)
+        feats["sigma_b"] = np.float32(sigma_b)
+        feats["snr_db"] = np.float32(snr_db)
+        return feats
+
     def batches(self, batch_size: int) -> Iterator[dict]:
         for _ in range(self.length // batch_size):
             ys, labels, sbs, snrs = [], [], [], []
@@ -116,16 +175,16 @@ class ContinuousCodesSP:
 def generate_eval_set(path: str, n_per_cell: int = 1000,
                       snrs=(0, 1, 2, 3, 4), sigma_bs=(0, 1, 2, 3, 4, 5),
                       burst_prob: float = 0.05, seed: int = 0,
-                      with_bp_error: bool = False):
+                      with_bp_error: bool = True):
     """Write the evaluation grid: n_per_cell words per (snr, sigma_b) cell,
-    stored as one .npz.  ``bp_err_matrix`` is all zeros: the sum-product
-    baseline is not ported yet, and ``with_bp_error=True`` raises."""
-    if with_bp_error:
-        raise NotImplementedError(_NO_BP)
+    stored as one .npz, with the classical sum-product decoder's info-bit
+    error matrix ``bp_err_matrix`` as the baseline (all zeros without
+    ``with_bp_error``).  Returns that matrix."""
     rng = np.random.RandomState(seed)
     ys, gts, snr_arr, sb_arr = [], [], [], []
-    for snr_db in snrs:
-        for sb in sigma_bs:
+    err_mean = np.zeros((len(snrs), len(sigma_bs)))
+    for i, snr_db in enumerate(snrs):
+        for j, sb in enumerate(sigma_bs):
             s = rng.randint(0, 2, (n_per_cell, K_INFO))
             cw = np.stack([encode(sk, K_INFO, K_INFO) for sk in s])
             y = np.stack([
@@ -135,7 +194,11 @@ def generate_eval_set(path: str, n_per_cell: int = 1000,
             gts.append(cw)
             snr_arr.append(np.full(n_per_cell, snr_db, np.float32))
             sb_arr.append(np.full(n_per_cell, sb, np.float32))
-    err_mean = np.zeros((len(snrs), len(sigma_bs)))
+            if with_bp_error:
+                bias = np.stack([posteriors(y[k], snr_db)
+                                 for k in range(n_per_cell)])
+                x = bp_decisions(bias)
+                err_mean[i, j] = np.mean(x[:, :K_INFO] != s)
     data = {
         "noisy_sg": np.concatenate(ys).astype(np.float32),
         "gts": np.concatenate(gts).astype(np.int32),

@@ -1,7 +1,13 @@
 from .norm import BatchNorm, Dense, init_weights, instance_norm, leaky_relu
 from .base import IIDMap, IIDMapBN, IIDMapIN, MLP
 from .mp_conv import MPConv, MPConvResidual
-from .containers import IIDBlock, MPSequential
+from .containers import (
+    GlobalPooling,
+    IIDBlock,
+    MPEnsemble,
+    MPSequential,
+    ParallelNet,
+)
 from .factor_nn import FactorNN
 from .factor_mpnn import FactorMPNN
 from .ldpc_model import LDPCModel, SigmaBRegressor
@@ -12,6 +18,7 @@ __all__ = [
     "BatchNorm", "Dense", "init_weights", "instance_norm", "leaky_relu",
     "IIDMap", "IIDMapBN", "IIDMapIN", "MLP", "MPConv", "MPConvResidual",
     "FactorNN", "LDPCModel", "SigmaBRegressor", "load_flax_variables",
-    "IIDBlock", "MPSequential", "FactorMPNN", "SynFixedModel",
+    "IIDBlock", "MPSequential", "ParallelNet", "MPEnsemble",
+    "GlobalPooling", "FactorMPNN", "SynFixedModel",
     "SynPwFactorModel", "SynHopFactorModel",
 ]

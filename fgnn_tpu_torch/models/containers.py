@@ -3,14 +3,22 @@
 * ``MPSequential``: pass (x, table, etype) to message-passing children, x
   alone to per-node ones.
 * ``IIDBlock``: Dense + BatchNorm + ReLU.
+* ``ParallelNet``: fan x through several modules and sum the outputs (or
+  aggregate them with a given function).
+* ``MPEnsemble``: model1(x, graph) and model2(x, *extra), channels
+  concatenated, through model3.
+* ``GlobalPooling``: max-pool over the nodes, map, broadcast back and
+  concatenate onto the (mapped) node features.
 
-``ParallelNet``, ``MPEnsemble`` and ``GlobalPooling`` are on no ported path
-yet (ROADMAP.md, port queue item 8).
+The children carry the flax attribute names (``branches_{i}``, ``model1``
+to ``model3``, ``orig_mapper``, ``gfeature_mapper``), so that
+``load_flax_variables`` fills them from a flax tree.  No model of the
+repository uses the last three.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
@@ -61,3 +69,73 @@ class MPSequential(nn.Module):
             else:
                 x = mod(x)
         return x
+
+
+def _apply(mod: nn.Module, x, table, etype):
+    """A message-passing child gets the graph, any other x alone."""
+    if isinstance(mod, (MPConv, MPConvResidual)) or getattr(
+            mod, "takes_graph", False):
+        return mod(x, table, etype)
+    return mod(x)
+
+
+class ParallelNet(nn.Module):
+    """Fan x through ``branches`` and sum their outputs, or pass them to
+    ``aggregator``."""
+
+    def __init__(self, branches: Sequence[nn.Module],
+                 aggregator: Optional[Callable] = None):
+        super().__init__()
+        self.n_branches = len(branches)
+        for i, mod in enumerate(branches):
+            self.add_module(f"branches_{i}", mod)
+        self.aggregator = aggregator
+
+    def forward(self, x: torch.Tensor, table: GatherTable = None,
+                etype: torch.Tensor = None) -> torch.Tensor:
+        outs = [_apply(getattr(self, f"branches_{i}"), x, table, etype)
+                for i in range(self.n_branches)]
+        if self.aggregator is not None:
+            return self.aggregator(*outs)
+        res = outs[0]
+        for o in outs[1:]:
+            res = res + o
+        return res
+
+
+class MPEnsemble(nn.Module):
+    """model3(concat(model1(x, table, etype), model2(x, *extra)))."""
+
+    def __init__(self, model1: nn.Module, model2: nn.Module,
+                 model3: nn.Module):
+        super().__init__()
+        self.model1, self.model2, self.model3 = model1, model2, model3
+
+    def forward(self, x: torch.Tensor, table: GatherTable,
+                etype: torch.Tensor, *extra) -> torch.Tensor:
+        x1 = self.model1(x, table, etype)
+        x2 = self.model2(x, *extra)
+        return self.model3(torch.cat([x1, x2], dim=-1))
+
+
+class GlobalPooling(nn.Module):
+    """Concatenate onto the node features (mapped by ``orig_mapper``) their
+    max over the nodes (mapped by ``gfeature_mapper``), broadcast to every
+    node."""
+
+    def __init__(self, orig_mapper: Optional[nn.Module] = None,
+                 gfeature_mapper: Optional[nn.Module] = None):
+        super().__init__()
+        self.orig_mapper = orig_mapper
+        self.gfeature_mapper = gfeature_mapper
+
+    def forward(self, x: torch.Tensor, table: GatherTable = None,
+                etype: torch.Tensor = None) -> torch.Tensor:
+        n = x.shape[-2]
+        g = x.amax(dim=-2, keepdim=True)
+        if self.orig_mapper is not None:
+            x = _apply(self.orig_mapper, x, table, etype)
+        if self.gfeature_mapper is not None:
+            g = self.gfeature_mapper(g)
+        g = g.expand(*x.shape[:-2], n, g.shape[-1])
+        return torch.cat([x, g], dim=-1)

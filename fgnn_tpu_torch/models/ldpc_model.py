@@ -28,6 +28,7 @@ from .norm import BatchNorm, Dense
 REFERENCE_DIMS = (64, 64, 64, 128, 256, 256, 128, 64, 64)
 REFERENCE_SKIP = {4: 3, 5: 2, 7: 0}
 NODE_FEATURE_DIM = 2  # [received signal, snr_db]
+BP_FEATURE_DIM = 2    # --bp-features: [2 q1 - 1, converged]
 HOP_ORDER = 6         # a check's feature: the signals of its 6 variables
 EFEATURE_DIM = 7      # the 6 signals of a check + the variable's own
 NEDGE_TYPES = 4
@@ -57,11 +58,14 @@ class LDPCModel(nn.Module):
     (logits over the 48 info bits (B, 48), sigma_b_pred (B, 1)).
 
     ``dim_mapping_list`` and ``skip_link`` default to the reference
-    configuration; the tests shrink them."""
+    configuration; the tests shrink them.  ``node_feature_dim`` is the
+    width of node_feature: 2, or 4 with the sum-product features of
+    ``--bp-features`` appended."""
 
     def __init__(self, *, aggregator: str = "max",
                  dim_mapping_list: Sequence[int] = REFERENCE_DIMS,
-                 skip_link: Optional[Dict[int, int]] = None):
+                 skip_link: Optional[Dict[int, int]] = None,
+                 node_feature_dim: int = NODE_FEATURE_DIM):
         super().__init__()
         st = default_structure()
         self.structure = st
@@ -72,7 +76,7 @@ class LDPCModel(nn.Module):
         self.emodel_f2v = MLP(EFEATURE_DIM, [64, NEDGE_TYPES])
         self.emodel_v2f = MLP(EFEATURE_DIM, [64, NEDGE_TYPES])
         self.main = FactorNN(
-            NODE_FEATURE_DIM, (HOP_ORDER, N), dims, (NEDGE_TYPES, 1),
+            node_feature_dim, (HOP_ORDER, N), dims, (NEDGE_TYPES, 1),
             skip_link=skip, aggregator=aggregator)
         self.nhop_regressor = SigmaBRegressor(dims[-1])
 

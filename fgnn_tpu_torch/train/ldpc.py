@@ -20,14 +20,27 @@ For decoding it is a port checkpoint: a trainer checkpoint, or a
 random init.  ``--bf16`` runs decoding or training under the bf16 compute
 policy (``models/policy.py``: bf16 activations and typed-mp kernels, f32
 parameters, optimizer state and normalisation statistics), as the JAX
-trainer's flag.  ``--bp-features``, ``--mesh`` and ``--workers`` are not
-ported yet (ROADMAP.md, port queue).
+trainer's flag.
+
+Also as the JAX trainer: a missing eval grid is written with the
+classical sum-product decoder's error matrix (``--eval-bp-baseline``, on
+by default; ``--eval-bp-baseline 0`` writes zeros), which the decoder
+prints beside its own.  ``--bp-features`` decodes each batch with the
+batched sum-product decoder on the device (``ops/bp.py``, 50 loops) inside
+the train and decode steps and appends its centred posterior and
+convergence flag to the node features (a model of node-feature width 4).
+``--workers N`` synthesises the training samples in N worker processes
+(``data.loader.PoolBatcher``, default 0: inline); the train loop stages
+batches on the device from a prefetch thread (``device_prefetch``) and
+the decoder synthesises its batches in one (``prefetch``).  ``--mesh`` is
+not ported yet (ROADMAP.md, port queue item 6).
 """
 
 from __future__ import annotations
 
 import argparse
 import datetime
+import functools
 import logging
 import os
 import time
@@ -38,9 +51,20 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
-from ..data import Codes, ContinuousCodesSP, generate_eval_set
+from ..data import (
+    Codes,
+    ContinuousCodesSP,
+    PoolBatcher,
+    decode_graph,
+    device_prefetch,
+    generate_eval_set,
+    prefetch,
+)
+from ..data.loader import to_device
 from ..models import LDPCModel, init_weights
+from ..models.ldpc_model import BP_FEATURE_DIM, NODE_FEATURE_DIM
 from ..models.policy import bf16_policy
+from ..ops.bp import BPGraphArrays, bp_decode_batch
 from ..utils.logging import MetricsWriter, init_logger
 from .common import (
     Schedules,
@@ -57,6 +81,7 @@ BASE_LR = 1e-2
 SNRS = (0, 1, 2, 3, 4)
 SIGMA_BS = (0, 1, 2, 3, 4, 5)
 _INPUTS = ("node_feature", "hop_feature", "efeature_f2v", "efeature_v2f")
+BP_FEATURE_LOOPS = 50
 
 log = logging.getLogger(__name__)
 
@@ -75,25 +100,74 @@ def check_tables(model: LDPCModel, batch: dict) -> None:
                              f"{ref.shape} table of its code structure")
 
 
-def model_inputs(model: LDPCModel, batch: dict, device) -> dict:
-    """Check the tables on the host, then copy the features to ``device``."""
+@functools.lru_cache(maxsize=None)
+def bp_arrays(device) -> BPGraphArrays:
+    """The [s ; t] code's sum-product index tensors on ``device``, built
+    once per device."""
+    return BPGraphArrays.from_ref(decode_graph(), device)
+
+
+def bp_bias(node_feature: torch.Tensor) -> torch.Tensor:
+    """The nominal channel's bit posteriors P(1) = 1 / (1 + exp(-2 gcx y)),
+    gcx = 10^(snr_db/20), of node features (B, 96, 2+), as f32.
+
+    Computed in f64 and rounded once: f32 exp differs by an ulp between
+    libraries (the card's, the CPU's, XLA's), and 50 loops of a decode that
+    does not converge grow an ulp of its bias to 1e-2 in its posterior.
+    Rounded from f64, the bias has the same bits on every device but where
+    f64 lands within an f64 ulp of a rounding boundary of f32."""
+    y = node_feature[..., 0].double()
+    gcx = torch.pow(10.0, node_feature[..., 1].double() / 20.0)
+    return (1.0 / (1.0 + torch.exp(-2.0 * gcx * y))).float()
+
+
+def augment_bp_features(node_feature: torch.Tensor,
+                        max_loops: int = BP_FEATURE_LOOPS) -> torch.Tensor:
+    """``--bp-features``: append the sum-product decoder's view of each
+    bit to the node features (B, 96, 2) -> (B, 96, 4), on their device.
+
+    The batched decoder (``ops/bp.py``) runs ``max_loops`` iterations from
+    ``bp_bias``, and its centred posterior 2 q1 - 1 and its convergence
+    flag become two more channels, in node_feature's dtype.  No gradient
+    flows through."""
+    with torch.no_grad():
+        _, ok, _, q1 = bp_decode_batch(bp_arrays(node_feature.device),
+                                       bp_bias(node_feature),
+                                       max_loops=max_loops,
+                                       return_posterior=True)
+        extra = torch.stack([2.0 * q1 - 1.0,
+                             ok[:, None].float().expand_as(q1)], dim=-1)
+        return torch.cat([node_feature, extra.to(node_feature.dtype)], -1)
+
+
+def model_inputs(model: LDPCModel, batch: dict, device,
+                 bp_features: bool = False) -> dict:
+    """Check the tables on the host, copy the features to ``device`` and,
+    with ``bp_features``, append the sum-product features there."""
     check_tables(model, batch)
-    return {k: torch.as_tensor(batch[k]).to(device) for k in _INPUTS}
+    inputs = to_device({k: batch[k] for k in _INPUTS}, device,
+                       non_blocking=True)
+    if bp_features:
+        inputs["node_feature"] = augment_bp_features(inputs["node_feature"])
+    return inputs
 
 
-def decode_logits(model: LDPCModel, batch: dict, device) -> torch.Tensor:
+def decode_logits(model: LDPCModel, batch: dict, device,
+                  bp_features: bool = False) -> torch.Tensor:
     """Info-bit logits (B, 48) of one numpy batch, left on ``device``."""
     if model.training:
         raise ValueError("decoding uses the running statistics: call "
                          "model.eval() first")
     with torch.inference_mode():
-        logits, _ = model(**model_inputs(model, batch, device))
+        logits, _ = model(**model_inputs(model, batch, device, bp_features))
     return logits
 
 
-def decode_step(model: LDPCModel, batch: dict, device) -> torch.Tensor:
+def decode_step(model: LDPCModel, batch: dict, device,
+                bp_features: bool = False) -> torch.Tensor:
     """Hard decisions (B, 48) int32: bit 1 where the logit is >= 0."""
-    return (decode_logits(model, batch, device) >= 0).to(torch.int32)
+    return (decode_logits(model, batch, device, bp_features) >= 0).to(
+        torch.int32)
 
 
 def load_checkpoint(path: str, model: LDPCModel) -> LDPCModel:
@@ -105,8 +179,15 @@ def load_checkpoint(path: str, model: LDPCModel) -> LDPCModel:
     return model
 
 
+def new_model(args) -> LDPCModel:
+    """The decoder the flags describe, its weights not yet set."""
+    width = NODE_FEATURE_DIM + (BP_FEATURE_DIM if getattr(
+        args, "bp_features", False) else 0)
+    return LDPCModel(aggregator=args.aggregator, node_feature_dim=width)
+
+
 def build_model(args) -> LDPCModel:
-    model = LDPCModel(aggregator=args.aggregator)
+    model = new_model(args)
     if args.model_path:
         return load_checkpoint(args.model_path, model)
     log.warning("no --model-path: decoding with random weights (seed %d)",
@@ -115,9 +196,11 @@ def build_model(args) -> LDPCModel:
 
 
 def evaluate(args, model: LDPCModel = None, *, device=None):
-    """The BER matrix over ``args.test_path`` (generated there, without
-    the sum-product baseline, when missing), under the bf16 compute policy
-    when ``args.bf16``.  Returns (ber_total, err)."""
+    """The BER matrix over ``args.test_path`` (generated there when
+    missing, with the sum-product baseline unless
+    ``args.eval_bp_baseline`` is false), with the sum-product features
+    when ``args.bp_features``, under the bf16 compute policy when
+    ``args.bf16``.  Returns (ber_total, err)."""
     with bf16_policy(getattr(args, "bf16", False)):
         return _evaluate(args, model, resolve_device(device))
 
@@ -126,17 +209,22 @@ def _evaluate(args, model, dev):
     if not os.path.exists(args.test_path):
         log.info("generating eval set at %s", args.test_path)
         generate_eval_set(args.test_path, n_per_cell=args.eval_per_cell,
-                          with_bp_error=False)
+                          with_bp_error=getattr(args, "eval_bp_baseline",
+                                                True))
     ds = Codes(args.test_path)
+    bp_feats = getattr(args, "bp_features", False)
     if model is None:
         model = build_model(args)
     model = model.to(dev).eval()
 
-    # every batch is queued on the device first; one copy back at the end
+    # every batch is queued on the device first, synthesised in a
+    # prefetch thread; one copy back at the end
     preds, hosts = [], []
-    for batch in ds.batches(args.batch_size):
-        preds.append(decode_step(model, batch, dev))
-        hosts.append({k: batch[k] for k in ("label", "snr_db", "sigma_b")})
+    with prefetch(ds.batches(args.batch_size)) as source:
+        for batch in source:
+            preds.append(decode_step(model, batch, dev, bp_feats))
+            hosts.append({k: batch[k]
+                          for k in ("label", "snr_db", "sigma_b")})
     preds = torch.stack(preds).cpu().numpy() if preds else []
 
     acc_cnt = np.zeros((len(SNRS), len(SIGMA_BS)))
@@ -165,25 +253,33 @@ def _evaluate(args, model, dev):
 
 
 def stage_batch(model: LDPCModel, batch: dict, device) -> dict:
-    """``model_inputs`` plus the info-bit labels and sigma_b, on ``device``."""
-    staged = model_inputs(model, batch, device)
-    staged["label"] = torch.as_tensor(batch["label"][:, :N_INFO]).to(device)
-    staged["sigma_b"] = torch.as_tensor(batch["sigma_b"]).to(device)
-    return staged
+    """``model_inputs`` (without the sum-product features) plus the
+    info-bit labels and sigma_b, on ``device``."""
+    check_tables(model, batch)
+    keep = {k: batch[k] for k in _INPUTS}
+    keep["label"] = batch["label"][:, :N_INFO]
+    keep["sigma_b"] = batch["sigma_b"]
+    return to_device(keep, device, non_blocking=True)
 
 
 def train_step(model: LDPCModel, optimizer: torch.optim.Optimizer,
-               batch: dict, device, clean_weight: float = 0.0) -> dict:
+               batch: dict, device, clean_weight: float = 0.0,
+               bp_features: bool = False) -> dict:
     """One Adam step on one batch: a numpy batch, or one that
-    ``stage_batch`` already put on ``device``.  Returns the JAX trainer's
-    metrics as device scalars, {loss (the BCE), sigma_b_loss, acc}, and
-    leaves the step's gradients in the parameters' ``.grad``."""
+    ``stage_batch`` already put on ``device``; with ``bp_features`` the
+    sum-product features are appended on the device first.  Returns the
+    JAX trainer's metrics as device scalars, {loss (the BCE),
+    sigma_b_loss, acc}, and leaves the step's gradients in the
+    parameters' ``.grad``."""
     if not isinstance(batch["label"], torch.Tensor):
         batch = stage_batch(model, batch, device)
     model.train()
     label = batch["label"].float()
     sigma_b = batch["sigma_b"].float().reshape(-1)
-    logits, sb_pred = model(**{k: batch[k] for k in _INPUTS})
+    inputs = {k: batch[k] for k in _INPUTS}
+    if bp_features:
+        inputs["node_feature"] = augment_bp_features(inputs["node_feature"])
+    logits, sb_pred = model(**inputs)
     per_bit = F.binary_cross_entropy_with_logits(
         logits.reshape(label.shape), label, reduction="none")
     if clean_weight:
@@ -207,22 +303,39 @@ def train_step(model: LDPCModel, optimizer: torch.optim.Optimizer,
 def train(args, model: LDPCModel, writer: MetricsWriter, model_dir: str, *,
           device=None) -> LDPCModel:
     """Train ``model`` (already initialised) for ``args.n_epochs`` epochs,
-    resuming from ``args.model_path`` when that checkpoint exists, under
-    the bf16 compute policy when ``args.bf16``.  Saves
-    ``ldpc_latest.ckpt`` after each epoch and ``ldpc_final.ckpt`` at the
-    end, in ``model_dir``."""
-    with bf16_policy(getattr(args, "bf16", False)):
-        return _train(args, model, writer, model_dir, resolve_device(device))
+    resuming from ``args.model_path`` when that checkpoint exists, with
+    the sum-product features when ``args.bp_features``, the samples
+    synthesised by ``args.workers`` processes (0: inline), under the bf16
+    compute policy when ``args.bf16``.  Saves ``ldpc_latest.ckpt`` after
+    each epoch and ``ldpc_final.ckpt`` at the end, in ``model_dir``."""
+    dev = resolve_device(device)
+    # The pool forks before this process's first CUDA call, as the JAX
+    # trainer forks before its backend starts (data.loader.PoolBatcher).
+    pool = None
+    if getattr(args, "workers", 0):
+        pool = PoolBatcher(
+            functools.partial(ContinuousCodesSP,
+                              length=args.samples_per_epoch, snr=args.snr,
+                              seed=args.seed),
+            args.batch_size, n_workers=args.workers, seed=args.seed)
+    try:
+        with bf16_policy(getattr(args, "bf16", False)):
+            return _train(args, model, writer, model_dir, dev, pool)
+    finally:
+        if pool is not None:
+            pool.close()
 
 
-def _train(args, model, writer, model_dir, dev):
+def _train(args, model, writer, model_dir, dev, pool):
     model = model.to(dev)
     dataset = ContinuousCodesSP(length=args.samples_per_epoch, snr=args.snr,
                                 seed=args.seed)
     # The JAX trainer draws one batch for its parameter init before it
-    # trains (fgnn_tpu/train/ldpc.py:236); drawing and dropping it here
-    # gives both trainers the same batches for one seed.
+    # trains (fgnn_tpu/train/ldpc.py:236), from the inline generator also
+    # when a pool synthesises the training batches; drawing and dropping
+    # it here gives both trainers the same batches for one seed.
     next(dataset.batches(args.batch_size))
+    bp_feats = getattr(args, "bp_features", False)
     optimizer = make_optimizer(model.parameters(), BASE_LR)
     sched = Schedules.ldpc()
 
@@ -238,21 +351,27 @@ def _train(args, model, writer, model_dir, dev):
     for epoch in range(start_epoch, args.n_epochs):
         set_lr(optimizer, BASE_LR * sched(epoch))
         t0 = time.time()
-        # metrics stay on the device until the logging boundary
+        # batches staged on the device from a prefetch thread; metrics
+        # stay there until the logging boundary.  The source is capped
+        # with islice, so that the thread ends with the epoch.
+        source = (pool.batches(steps_per_epoch) if pool is not None
+                  else islice(dataset.batches(args.batch_size),
+                              steps_per_epoch))
         pending = []
-        for bcnt, batch in enumerate(islice(
-                dataset.batches(args.batch_size), steps_per_epoch)):
-            pending.append(train_step(model, optimizer, batch, dev,
-                                      args.clean_weight))
-            gcnt += 1
-            if gcnt % 10 == 0:
-                mm = {k: float(torch.stack([m[k] for m in pending])
-                               .double().mean()) for k in pending[0]}
-                pending = []
-                for k in ("loss", "sigma_b_loss", "acc"):
-                    writer.add_scalar(f"syn_train/{k}", mm[k], gcnt)
-                log.info("epoch=%d bcnt=%d loss=%.4f acc=%.4f", epoch, bcnt,
-                         mm["loss"], mm["acc"])
+        with device_prefetch(source, dev, put=lambda b: stage_batch(
+                model, b, dev)) as staged:
+            for bcnt, batch in enumerate(staged):
+                pending.append(train_step(model, optimizer, batch, dev,
+                                          args.clean_weight, bp_feats))
+                gcnt += 1
+                if gcnt % 10 == 0:
+                    mm = {k: float(torch.stack([m[k] for m in pending])
+                                   .double().mean()) for k in pending[0]}
+                    pending = []
+                    for k in ("loss", "sigma_b_loss", "acc"):
+                        writer.add_scalar(f"syn_train/{k}", mm[k], gcnt)
+                    log.info("epoch=%d bcnt=%d loss=%.4f acc=%.4f", epoch,
+                             bcnt, mm["loss"], mm["acc"])
         log.info("epoch %d done in %.1fs", epoch, time.time() - t0)
         save_checkpoint(ckpt_path, model, optimizer, epoch + 1, gcnt)
     save_checkpoint(os.path.join(model_dir, "ldpc_final.ckpt"), model,
@@ -280,11 +399,21 @@ def parse_args(argv=None):
     p.add_argument("--steps-per-epoch", type=int, default=None,
                    help="override for smoke tests")
     p.add_argument("--eval-per-cell", type=int, default=1000)
+    p.add_argument("--eval-bp-baseline", type=lambda s: s != "0",
+                   default=True,
+                   help="write a missing eval grid with the sum-product "
+                        "decoder's error matrix (0: zeros)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--work-dir", type=str, default="runs")
+    p.add_argument("--workers", type=int, default=0,
+                   help="multiprocess sample-synthesis workers (0 = inline)")
     p.add_argument("--clean-weight", "--clean_weight", type=float,
                    default=0.0,
                    help="extra loss weight on sigma_b<=1 samples; 0=off")
+    p.add_argument("--bp-features", "--bp_features", action="store_true",
+                   default=False,
+                   help="append on-device sum-product posteriors and the "
+                        "BP convergence flag to the node features")
     p.add_argument("--bf16", action="store_true", default=False,
                    help="bfloat16 compute policy (f32 params/stats)")
     p.add_argument("--device", type=str, default="cuda")
@@ -305,7 +434,7 @@ def main(argv=None):
                         f"ldpc_{args.model_name}_snr_{args.snr}_at_{stamp}")
     init_logger(os.path.join(work, "logs"), "train", print_log=True)
     log.info("%s", args)
-    model = init_weights(LDPCModel(aggregator=args.aggregator), args.seed)
+    model = init_weights(new_model(args), args.seed)
     with MetricsWriter(os.path.join(work, "tf_logs")) as writer:
         train(args, model, writer, work, device=dev)
 

@@ -10,10 +10,23 @@ The JAX trainer's recipe: Adam (no weight decay) at lr 3e-3 times 0.98 per
 epoch, gradients clipped to global norm 1.0 (optax's rule,
 ``train.common.clip_grad_norm``), cross-entropy over 2 classes, batch 32;
 accuracy against the exact MAP labels, with the LP relaxation's accuracy
-as the baseline.  Samples are synthesised inline with their oracle labels
-(``data.rpgm``), in the JAX trainer's order for one seed: one batch drawn
-for the parameter init, the epochs' batches, then the eval batches from
-the same generator.  Besides the JAX trainer's scalars (``syn_train/loss``,
+as the baseline.  Samples come with their oracle labels (``data.rpgm``),
+in the JAX trainer's order for one seed, from one of three sources:
+
+* ``--train-path``: a written dataset (``data.generate``), every epoch in
+  a new shuffled order (seed + 1 for the init batch, then seed + 2, ...);
+* ``--workers N`` (default ``max(1, min(8, cpus - 1))``, the JAX
+  trainer's): N worker processes (``data.loader.PoolBatcher``), each
+  sample seeded by (seed, index): one batch for the parameter init, then
+  the epochs' batches;
+* ``--workers 0``: inline, from one generator: one batch for the init,
+  the epochs' batches, then the eval batches.
+
+The eval batches come from ``--test-path`` in file order, or else inline
+from a generator of the seed (after the training batches when those were
+inline too).  The train loop stages each batch on the device from a
+prefetch thread (``data.loader.device_prefetch``).  Besides the JAX
+trainer's scalars (``syn_train/loss``,
 ``acc``, ``lp_acc`` every 10 steps, ``syn_test/acc``, ``lp_acc``) the run's
 ``tf_logs/metrics.jsonl`` has ``syn_train/samples_per_s`` per epoch and
 ``syn_test/samples_per_s``, host synthesis included.
@@ -25,17 +38,20 @@ the same generator.  Besides the JAX trainer's scalars (``syn_train/loss``,
 Runs on ``cuda`` unless ``--device cpu`` is given.  ``--bf16`` trains and
 tests under the bf16 compute policy (``models/policy.py``), as the JAX
 trainer's flag.  ``--model-path`` names a trainer checkpoint
-(``latest.ckpt``, a ``torch.save``) to resume from when it exists.  The flags of the JAX trainer that the port does not carry
-yet raise (``UNPORTED``).
+(``latest.ckpt``, a ``torch.save``) to resume from when it exists.  The
+flags of the JAX trainer that the port does not carry yet raise
+(``UNPORTED``).
 """
 
 from __future__ import annotations
 
 import argparse
 import datetime
+import functools
 import logging
 import os
 import time
+from itertools import islice
 
 import numpy as np
 import torch
@@ -43,11 +59,13 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..data import (
+    PoolBatcher,
     RandomPGM,
     RandomPGMHop,
     RandomPGMPw,
     batches,
     chain_knn_table,
+    device_prefetch,
     global_factor_table,
     high_factor_table,
     pw_factor_table,
@@ -58,6 +76,8 @@ from ..models import (
     SynPwFactorModel,
     init_weights,
 )
+from ..data.generate import NpzRPGMData
+from ..data.loader import to_device
 from ..models.policy import bf16_policy
 from ..ops.typed_mp import GatherTable
 from ..utils.logging import MetricsWriter, init_logger
@@ -76,9 +96,6 @@ LR_DECAY = 0.98
 
 # flag -> (its value when unused, the ROADMAP.md port-queue item it waits for)
 UNPORTED = {
-    "workers": (0, "item 8 (multiprocess synthesis)"),
-    "train_path": ("", "item 8 (pre-generated datasets)"),
-    "test_path": ("", "item 8 (pre-generated datasets)"),
     "mesh": ("", "item 6 (parallel/)"),
     "coo": (False, "item 5 (COO IR)"),
     "mixed_lengths": ("", "item 5 (COO IR)"),
@@ -160,11 +177,10 @@ class SynWorkload:
     def stage(self, batch: dict, device) -> dict:
         """The model's arguments and the labels of a numpy batch, on
         ``device``."""
-        staged = {arg: torch.as_tensor(batch[key]).to(device)
-                  for arg, key in self.batch_keys.items()}
+        keep = {arg: batch[key] for arg, key in self.batch_keys.items()}
         for key in ("label", "lp_label"):
-            staged[key] = torch.as_tensor(batch[key]).to(device)
-        return staged
+            keep[key] = batch[key]
+        return to_device(keep, device, non_blocking=True)
 
     def logits(self, staged: dict) -> torch.Tensor:
         """(B, L, 2) logits of a staged batch."""
@@ -204,16 +220,48 @@ def eval_step(wl: SynWorkload, batch: dict, device) -> torch.Tensor:
 
 def train_and_eval(workload: str, args, *, device=None):
     """Train ``workload`` for ``args.train_epoches`` epochs of
-    ``train_size // batch_size`` steps (resuming from ``args.model_path``
-    when it exists), saving ``latest.ckpt`` after each epoch, then test on
-    ``max(test_size // batch_size, 1)`` fresh batches, all under the bf16
-    compute policy when ``args.bf16``.  Returns (acc, lp_acc) against the
-    exact MAP labels."""
+    ``train_size // batch_size`` steps (fewer where ``args.train_path``
+    holds fewer samples; resuming from ``args.model_path`` when it
+    exists), saving ``latest.ckpt`` after each epoch, then test on
+    ``max(test_size // batch_size, 1)`` batches (of ``args.test_path``, or
+    fresh), all under the bf16 compute policy when ``args.bf16``.  Returns
+    (acc, lp_acc) against the exact MAP labels."""
     check_ported(args)
     dev = resolve_device(device if device is not None
                          else getattr(args, "device", None))
     with bf16_policy(getattr(args, "bf16", False)):
         return _train_and_eval(workload, args, dev)
+
+
+def _npz_source(args):
+    """(batch source, steps per epoch) of ``--train-path``: every call
+    shuffles the file anew, by seed + 1, seed + 2, ..."""
+    npz = NpzRPGMData(args.train_path, size=args.train_size)
+    draws = [0]
+
+    def source(n):
+        draws[0] += 1
+        return npz.batches(args.batch_size, shuffle=True,
+                           seed=args.seed + draws[0])
+
+    return source, min(args.train_size // args.batch_size,
+                       len(npz) // args.batch_size)
+
+
+def _eval_source(args, wl):
+    """(batches, count) of the test: ``--test-path`` in file order, or
+    fresh batches from the workload's generator."""
+    n = max(args.test_size // args.batch_size, 1)
+    if not getattr(args, "test_path", ""):
+        return batches(wl.dataset, args.batch_size, n), n
+    npz = NpzRPGMData(args.test_path, size=args.test_size)
+    n = min(n, len(npz) // args.batch_size)
+    if n < 1:
+        raise ValueError(
+            f"test set {args.test_path!r} has {len(npz)} samples, fewer "
+            f"than one batch of {args.batch_size}: lower --batch-size or "
+            "use a larger test set")
+    return islice(npz.batches(args.batch_size, shuffle=False), n), n
 
 
 def _train_and_eval(workload: str, args, dev):
@@ -223,17 +271,43 @@ def _train_and_eval(workload: str, args, dev):
     init_logger(os.path.join(work, "logs"), "train", print_log=True)
     log.info("%s", args)
 
-    wl = SynWorkload(workload, args)
+    # The training batches' source, as the JAX trainer chooses it: a
+    # written dataset, else a worker pool, else inline synthesis.  The
+    # pool forks before this process's first CUDA call (wl.to below), as
+    # the JAX trainer forks before its backend starts
+    # (data.loader.PoolBatcher).
+    steps_per_epoch = args.train_size // args.batch_size
+    pool = batch_source = None
+    if getattr(args, "train_path", ""):
+        batch_source, steps_per_epoch = _npz_source(args)
+    elif getattr(args, "workers", 0):
+        pool = PoolBatcher(functools.partial(make_syn_dataset, workload,
+                                             args),
+                           args.batch_size, n_workers=args.workers,
+                           seed=args.seed)
+        batch_source = pool.batches
+    try:
+        wl = SynWorkload(workload, args)
+        if batch_source is None:
+            def batch_source(n):
+                return batches(wl.dataset, args.batch_size, n)
+        return _run(wl, workload, args, dev, work, batch_source,
+                    steps_per_epoch)
+    finally:
+        if pool is not None:
+            pool.close()
+
+
+def _run(wl, workload, args, dev, work, batch_source, steps_per_epoch):
     init_weights(wl.model, args.seed)
     wl.to(dev)
-    # The JAX trainer draws one batch for its parameter init before it
-    # trains (fgnn_tpu/train/synthetic.py:300); drawing and dropping it
-    # gives both trainers the same batches for one seed.
-    next(batches(wl.dataset, args.batch_size, 1))
+    # The JAX trainer draws one batch of its source for its parameter
+    # init before it trains (fgnn_tpu/train/synthetic.py:300); drawing and
+    # dropping it gives both trainers the same batches for one seed.
+    next(batch_source(1))
     optimizer = make_optimizer(wl.model.parameters(), BASE_LR,
                                weight_decay=0.0)
     sched = Schedules.exp_decay(LR_DECAY)
-    steps_per_epoch = args.train_size // args.batch_size
 
     start_epoch, gcnt = 0, 0
     if args.model_path and os.path.exists(args.model_path):
@@ -245,20 +319,23 @@ def _train_and_eval(workload: str, args, dev):
         for epoch in range(start_epoch, args.train_epoches):
             set_lr(optimizer, BASE_LR * sched(epoch))
             t0 = time.time()
-            # metrics stay on the device until the logging boundary
+            # batches staged on the device from a prefetch thread; metrics
+            # stay there until the logging boundary
             pending = []
-            for bcnt, batch in enumerate(batches(
-                    wl.dataset, args.batch_size, steps_per_epoch)):
-                pending.append(train_step(wl, optimizer, batch, dev))
-                gcnt += 1
-                if gcnt % 10 == 0:
-                    mm = {k: float(torch.stack([m[k] for m in pending])
-                                   .double().mean()) for k in pending[0]}
-                    pending = []
-                    for k, v in mm.items():
-                        writer.add_scalar(f"syn_train/{k}", v, gcnt)
-                    log.info("epoch=%d bcnt=%d %s", epoch, bcnt,
-                             {k: round(v, 4) for k, v in mm.items()})
+            with device_prefetch(batch_source(steps_per_epoch), dev,
+                                 put=lambda b: wl.stage(b, dev)) as staged:
+                for bcnt, batch in enumerate(staged):
+                    pending.append(train_step(wl, optimizer, batch, dev))
+                    gcnt += 1
+                    if gcnt % 10 == 0:
+                        mm = {k: float(torch.stack([m[k] for m in pending])
+                                       .double().mean())
+                              for k in pending[0]}
+                        pending = []
+                        for k, v in mm.items():
+                            writer.add_scalar(f"syn_train/{k}", v, gcnt)
+                        log.info("epoch=%d bcnt=%d %s", epoch, bcnt,
+                                 {k: round(v, 4) for k, v in mm.items()})
             save_checkpoint(os.path.join(work, "latest.ckpt"), wl.model,
                             optimizer, epoch + 1, gcnt)
             # the checkpoint copied the weights to the host: the device is
@@ -269,11 +346,11 @@ def _train_and_eval(workload: str, args, dev):
                               gcnt)
             log.info("epoch %d done in %.1fs", epoch, seconds)
 
-        # ---- test: fresh oracle-labelled batches from the same generator
+        # ---- test: the test set, or fresh oracle-labelled batches
         t0 = time.time()
-        eval_batches = max(args.test_size // args.batch_size, 1)
+        eval_source, eval_batches = _eval_source(args, wl)
         preds, hosts = [], []
-        for batch in batches(wl.dataset, args.batch_size, eval_batches):
+        for batch in eval_source:
             preds.append(eval_step(wl, batch, dev))
             hosts.append(batch)
         accs, lp_accs = [], []
@@ -291,8 +368,7 @@ def _train_and_eval(workload: str, args, dev):
 
 
 def parse_args(argv=None, workload: str = "fixed"):
-    """The JAX trainer's flags and defaults, plus ``--device``; the default
-    of ``--workers`` is 0 (inline synthesis, the only mode ported)."""
+    """The JAX trainer's flags and defaults, plus ``--device``."""
     p = argparse.ArgumentParser(
         description=f"fgnn_tpu_torch synthetic trainer ({workload})")
     p.add_argument("--chain-length", "--chain_length", type=int, default=30)
@@ -309,13 +385,17 @@ def parse_args(argv=None, workload: str = "fixed"):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--work-dir", type=str, default="runs")
     p.add_argument("--device", type=str, default="cuda")
-    p.add_argument("--workers", type=int, default=0,
-                   help="multiprocess sample-synthesis workers: not ported "
-                        "yet, only 0 (inline) runs")
+    p.add_argument("--workers", type=int,
+                   default=max(1, min(8, (os.cpu_count() or 2) - 1)),
+                   help="multiprocess sample-synthesis workers, each "
+                        "sample seeded by (seed, index); 0 = inline "
+                        "synthesis from one generator")
     p.add_argument("--train-path", "--train_path", type=str, default="",
-                   help="pre-generated .npz dataset: not ported yet")
+                   help="pre-generated .npz dataset "
+                        "(python -m fgnn_tpu_torch.data.generate rpgm)")
     p.add_argument("--test-path", "--test_path", type=str, default="",
-                   help="pre-generated .npz eval dataset: not ported yet")
+                   help="pre-generated .npz eval dataset; empty = fresh "
+                        "oracle-labelled samples synthesised inline")
     p.add_argument("--bf16", action="store_true", default=False,
                    help="bfloat16 compute policy (f32 params/stats)")
     p.add_argument("--mesh", type=str, default="",

@@ -4,6 +4,7 @@
     python -m fgnn_tpu_torch.utils.profiling --train [--batch-size 256]
     python -m fgnn_tpu_torch.utils.profiling --syn hop [--batch-size 32]
     python -m fgnn_tpu_torch.utils.profiling --train --bf16
+    python -m fgnn_tpu_torch.utils.profiling --train --bp-features
 
 Runs the LDPC decoder forward (or, with ``--train``, one Adam train step of
 ``train.ldpc.train_step``; with ``--syn``, one train step of a synthetic
@@ -30,7 +31,10 @@ JSON object:
   functions, and the kernels with the most device time.
 
 ``--bf16`` runs any of them under the bf16 compute policy
-(``models/policy.py``), as the trainers' flag.
+(``models/policy.py``), as the trainers' flag.  ``--bp-features`` runs the
+LDPC forward or step with the sum-product features (the 50-loop batched
+decode on the card, ``ops/bp.py``, inside each one), as ``train.ldpc``'s
+flag.
 
 Needs a CUDA device; it does not run on the CPU.
 """
@@ -79,6 +83,28 @@ def _host_ms(fn, steps: int) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / steps * 1e3
+
+
+def kernels_per_call(fn, steps: int = 1) -> tuple:
+    """(kernels launched, device busy ms) per call of ``fn``, from a
+    ``torch.profiler`` trace of ``steps`` calls after one untraced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        kernels = _kernel_events(path)
+    if not kernels:
+        raise RuntimeError("the profiler recorded no kernel on the device")
+    busy_us = _union_us((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+    return len(kernels) / steps, busy_us / steps / 1e3
 
 
 def _trace(fn, steps: int, wall_ms: float, per: str, top: int) -> dict:
@@ -149,28 +175,33 @@ def _device() -> torch.device:
     return torch.device("cuda", 0)
 
 
-def _setup(batch_size: int, seed: int, train: bool):
+def _setup(batch_size: int, seed: int, train: bool, bp_features: bool):
     from ..data import ContinuousCodesSP
     from ..models import LDPCModel, init_weights
 
     dev = _device()
-    model = init_weights(LDPCModel(), seed).to(dev).train(train)
+    model = init_weights(LDPCModel(node_feature_dim=4 if bp_features
+                                   else 2), seed).to(dev).train(train)
     batch = next(ContinuousCodesSP(length=batch_size, seed=seed)
                  .batches(batch_size))
     return dev, model, batch
 
 
 def profile_decode(batch_size: int = 256, steps: int = 10, seed: int = 0,
-                   top: int = 12) -> dict:
+                   top: int = 12, bp_features: bool = False) -> dict:
     from ..data import batch_to_features
-    from ..train.ldpc import model_inputs
+    from ..train.ldpc import augment_bp_features, model_inputs
 
-    dev, model, batch = _setup(batch_size, seed, train=False)
+    dev, model, batch = _setup(batch_size, seed, False, bp_features)
     inputs = model_inputs(model, batch, dev)
 
     def forward():
         with torch.inference_mode():
-            model(**inputs)
+            if bp_features:
+                model(**{**inputs, "node_feature": augment_bp_features(
+                    inputs["node_feature"])})
+            else:
+                model(**inputs)
 
     ys = batch["node_feature"][..., 0]
     batch_build_ms = _host_ms(
@@ -187,19 +218,19 @@ def profile_decode(batch_size: int = 256, steps: int = 10, seed: int = 0,
 
 
 def profile_train(batch_size: int = 256, steps: int = 10, seed: int = 0,
-                  top: int = 12) -> dict:
+                  top: int = 12, bp_features: bool = False) -> dict:
     """One Adam step of ``train.ldpc.train_step`` on a batch staged on the
     card (``stage_batch``), under the caller's compute policy, TF32 off."""
     from ..train.common import make_optimizer
     from ..train.ldpc import BASE_LR, stage_batch, train_step
 
-    dev, model, batch = _setup(batch_size, seed, train=True)
+    dev, model, batch = _setup(batch_size, seed, True, bp_features)
     opt = make_optimizer(model.parameters(), BASE_LR)
     staged = stage_batch(model, batch, dev)
     inputs_ms = _host_ms(lambda: stage_batch(model, batch, dev), steps)
 
     def step():
-        train_step(model, opt, staged, dev)
+        train_step(model, opt, staged, dev, bp_features=bp_features)
 
     wall_ms = _host_ms(step, steps)
     return {
@@ -258,6 +289,9 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bf16", action="store_true",
                    help="the bf16 compute policy, as the trainers' flag")
+    p.add_argument("--bp-features", action="store_true",
+                   help="(LDPC) the sum-product features, as train.ldpc's "
+                        "flag")
     args = p.parse_args(argv)
     from ..models.policy import bf16_policy
 
@@ -267,8 +301,10 @@ def main(argv=None):
                               args.seed)
         else:
             fn = profile_train if args.train else profile_decode
-            out = fn(args.batch_size or 256, args.steps, args.seed)
-    print(json.dumps({"bf16": args.bf16, **out}))
+            out = fn(args.batch_size or 256, args.steps, args.seed,
+                     bp_features=args.bp_features)
+    print(json.dumps({"bf16": args.bf16, "bp_features": args.bp_features,
+                      **out}))
 
 
 if __name__ == "__main__":

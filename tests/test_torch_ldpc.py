@@ -294,6 +294,35 @@ def test_evaluate_matches_jax(tmp_path):
     np.testing.assert_array_equal(t_err, j_err)
 
 
+def test_decode_cli_writes_and_prints_the_sum_product_baseline(tmp_path,
+                                                               capsys):
+    """The decoder's default, as the JAX CLI's: a missing grid is written
+    with the sum-product matrix (the JAX writer's for the seed and size),
+    which the decoder prints after its own; ``--eval-bp-baseline 0``
+    writes zeros."""
+    ckpt = str(tmp_path / "model.pt")
+    torch.save(tm.init_weights(tm.LDPCModel(), 1).state_dict(), ckpt)
+    path = str(tmp_path / "grid.npz")
+    t_ldpc.main(["--device", "cpu", "--model-path", ckpt, "--test-path",
+                 path, "--eval-per-cell", "2", "--batch-size", "60"])
+    out = capsys.readouterr().out
+    jpath = str(tmp_path / "jax.npz")
+    want = j_ldpc.generate_eval_set(jpath, n_per_cell=2)
+    with np.load(path) as f:
+        np.testing.assert_array_equal(f["bp_err_matrix"], want)
+    assert want.any()
+    assert out.index("sum-product baseline:") > 0
+    assert np.array_str(want, precision=4, suppress_small=True) in out
+
+    zeros = str(tmp_path / "zeros.npz")
+    t_ldpc.main(["--device", "cpu", "--model-path", ckpt, "--test-path",
+                 zeros, "--eval-per-cell", "1", "--batch-size", "30",
+                 "--eval-bp-baseline", "0"])
+    assert "sum-product baseline" not in capsys.readouterr().out
+    with np.load(zeros) as f:
+        assert not f["bp_err_matrix"].any()
+
+
 def test_evaluate_without_device_needs_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")
@@ -370,15 +399,25 @@ def test_port_sources_import_no_jax():
 
 
 def test_import_leaves_no_jax_module():
-    code = ("import sys, fgnn_tpu_torch.train.ldpc\n"
+    code = ("import sys, fgnn_tpu_torch.train.ldpc, "
+            "fgnn_tpu_torch.train.syn_hop_factor, "
+            "fgnn_tpu_torch.data.generate, fgnn_tpu_torch.data.reference_io"
+            "\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax') or m == 'fgnn_tpu' "
             "or m.startswith('fgnn_tpu.')]\n"
             "print(len([m for m in sys.modules "
-            "if m.startswith('fgnn_tpu_torch')]), bad)\n")
+            "if m.startswith('fgnn_tpu_torch')]), bad)\n"
+            "print(sorted(m for m in sys.modules "
+            "if m.startswith('fgnn_tpu_torch.')))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, check=True)
-    count, bad = out.stdout.strip().split(" ", 1)
+    first, loaded = out.stdout.strip().split("\n")
+    count, bad = first.split(" ", 1)
     assert int(count) > 5
     assert bad == "[]"
+    for mod in ("data.bp_ref", "data.ldpc_cpp", "data.loader",
+                "data.generate", "data.reference_io", "ops.bp",
+                "models.containers", "train.synthetic"):
+        assert f"'fgnn_tpu_torch.{mod}'" in loaded, mod

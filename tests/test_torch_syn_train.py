@@ -33,9 +33,12 @@ import torch
 
 from fgnn_tpu.data import RandomPGMHop
 from fgnn_tpu.data import batches as j_batches
+from fgnn_tpu.data.generate import NpzRPGMData as JNpzRPGMData
+from fgnn_tpu.data.loader import PoolBatcher
 from fgnn_tpu.train import common as j_common
 from fgnn_tpu.train import synthetic as j_syn
 from fgnn_tpu_torch import models as tm
+from fgnn_tpu_torch.data import generate as t_generate
 from fgnn_tpu_torch.ops import fused_mp
 from fgnn_tpu_torch.train import common as t_common
 from fgnn_tpu_torch.train import synthetic as t_syn
@@ -253,32 +256,94 @@ def _record(monkeypatch):
     return seen
 
 
-def test_trainer_batch_order_matches_jax(monkeypatch, tmp_path):
-    """With inline synthesis the JAX trainer draws one batch for its
-    init, then each epoch's batches, then the eval batches, all from one
-    generator; the port draws the same batches in the same order."""
+def _recorded_run(monkeypatch, tmp_path, *extra):
+    """(train batches, eval batches) that a hop run of 2 epochs x 3 steps
+    and 2 eval batches hands its steps, seed 7."""
     seen = _record(monkeypatch)
     args = t_syn.parse_args(["--chain-length", "12", "--hop-order", "5",
                              "--train-size", str(3 * B),
                              "--test-size", str(2 * B),
                              "--batch-size", str(B), "--train-epoches", "2",
-                             "--seed", "7", "--work-dir", str(tmp_path)],
-                            "hop")
+                             "--seed", "7", "--work-dir", str(tmp_path),
+                             *extra], "hop")
     args.dims = (8, 8, 72, 8, 2)
     t_syn.train_and_eval("hop", args, device="cpu")
-    ds = RandomPGMHop(12, hop_order=5, ret_efeature_pw=False, seed=7)
-    want = list(j_batches(ds, B, 1 + 2 * 3 + 2))[1:]
-    got = seen["train"] + seen["eval"]
     assert (len(seen["train"]), len(seen["eval"])) == (6, 2)
+    return seen["train"], seen["eval"]
+
+
+def _check_staged(got, want):
+    """Train batches arrive staged (the model's argument names, tensors on
+    the device): each holds the host batch's arrays."""
+    keys = {"node_feature": "node_feature", "pws": "pws",
+            "hops": "efeature_hop", "label": "label", "lp_label": "lp_label"}
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert sorted(a) == sorted(keys)
+        for k, key in keys.items():
+            assert isinstance(a[k], torch.Tensor), k
+            np.testing.assert_array_equal(a[k].numpy(), b[key], err_msg=k)
+
+
+def _check_host(got, want):
+    assert len(got) == len(want)
     for a, b in zip(got, want):
         assert sorted(a) == sorted(b)
         for k in a:
             np.testing.assert_array_equal(a[k], b[k])
 
 
+def test_trainer_batch_order_matches_jax(monkeypatch, tmp_path):
+    """With inline synthesis the JAX trainer draws one batch for its
+    init, then each epoch's batches, then the eval batches, all from one
+    generator; the port draws the same batches in the same order (the
+    train batches staged by the prefetch thread)."""
+    train, evals = _recorded_run(monkeypatch, tmp_path, "--workers", "0")
+    ds = RandomPGMHop(12, hop_order=5, ret_efeature_pw=False, seed=7)
+    want = list(j_batches(ds, B, 1 + 2 * 3 + 2))[1:]
+    _check_staged(train, want[:6])
+    _check_host(evals, want[6:])
+
+
+@pytest.mark.parametrize("workers", [1, 3])
+def test_worker_pool_batches_match_jax(monkeypatch, tmp_path, workers):
+    """--workers N: the port's train batches are the JAX trainer's pool
+    stream (its first batch drawn for the init), whatever N; the eval
+    batches come inline from a fresh generator of the seed, as there."""
+    train, evals = _recorded_run(monkeypatch, tmp_path, "--workers",
+                                 str(workers))
+    args = _args(chain_length=12, hop_order=5, seed=7)
+    with PoolBatcher(lambda d=j_syn.make_syn_dataset("hop", args): d, B,
+                     n_workers=workers, seed=7) as pool:
+        want = list(pool.batches(1 + 2 * 3))[1:]
+    _check_staged(train, want)
+    ds = RandomPGMHop(12, hop_order=5, ret_efeature_pw=False, seed=7)
+    _check_host(evals, list(j_batches(ds, B, 2)))
+
+
+def test_written_datasets_match_jax_order(monkeypatch, tmp_path):
+    """--train-path: one shuffled batch drawn for the init (seed + 1),
+    then each epoch in the order of seed + 2, seed + 3; --test-path: the
+    first batches in file order.  As NpzRPGMData of the JAX package
+    reads the same file."""
+    path = str(tmp_path / "hops.npz")
+    t_generate.main(["rpgm", "--type", "hops", "--size", str(5 * B),
+                     "--chain-length", "12", "--hop-order", "5",
+                     "--workers", "2", "--seed", "4", "--out", path])
+    train, evals = _recorded_run(monkeypatch, tmp_path / "runs",
+                                 "--train-path", path, "--test-path", path)
+    npz = JNpzRPGMData(path, size=3 * B)
+    want = [b for e in (2, 3)
+            for b in npz.batches(B, shuffle=True, seed=7 + e)]
+    _check_staged(train, want)
+    _check_host(evals, list(JNpzRPGMData(path, size=2 * B).batches(
+        B, shuffle=False)))
+
+
 def _cli(work, *extra, workload="hop"):
     t_syn.main(workload, [
-        "--device", "cpu", "--chain-length", "12", "--hop-order", "5",
+        "--device", "cpu", "--workers", "0",
+        "--chain-length", "12", "--hop-order", "5",
         "--train-size", "40", "--test-size", "8", "--batch-size", "4",
         "--seed", "1", "--work-dir", work, *extra])
     (run,) = os.listdir(work)
@@ -323,20 +388,18 @@ def test_cli_without_device_needs_cuda(tmp_path):
         pytest.skip("a CUDA card is present: the default device works")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         t_syn.main("hop", ["--train-size", "4", "--batch-size", "4",
-                           "--work-dir", str(tmp_path)])
+                           "--workers", "0", "--work-dir", str(tmp_path)])
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--workers", "2"], "item 8"), (["--train-path", "x.npz"], "item 8"),
-    (["--test-path", "x.npz"], "item 8"),
     (["--mesh", "8x1"], "item 6"), (["--coo"], "item 5"),
     (["--mixed-lengths", "24,30"], "item 5"),
     (["--length-dist", "0.5,0.5"], "item 5")])
 def test_unported_flags_raise(tmp_path, flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, port queue "
                                                   f"{item}"):
-        t_syn.main("hop", ["--device", "cpu", "--work-dir", str(tmp_path),
-                           *flag])
+        t_syn.main("hop", ["--device", "cpu", "--workers", "0",
+                           "--work-dir", str(tmp_path), *flag])
     assert not os.listdir(tmp_path)
 
 
@@ -345,9 +408,9 @@ def test_parse_args_keeps_the_jax_defaults():
     j = vars(j_syn.parse_args([], "hop"))
     assert set(t) == set(j) | {"device"}
     for k, v in j.items():
-        if k != "workers":  # the port synthesises inline only
-            assert t[k] == v, k
-    assert t["workers"] == 0 and t["device"] == "cuda"
+        assert t[k] == v, k
+    assert t["workers"] == max(1, min(8, (os.cpu_count() or 2) - 1))
+    assert t["device"] == "cuda"
     assert t_syn.parse_args([], "fixed").model_name == "mp_nn"
 
 

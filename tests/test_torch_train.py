@@ -60,6 +60,10 @@ GRAD_REL_L2 = 1e-3
 NOISE_REL = 1e-5     # the noise floor, against the largest gradient
 METRIC_TOL = dict(rtol=1e-5, atol=1e-6)
 STATS_TOL = dict(rtol=1e-4, atol=1e-5)
+# the port's f64-rounded bias against XLA's f32 chain: f32 rounds pow, two
+# products, exp, a sum and a division, each to a relative 2^-24 (the
+# exponent's rounding amplified by its size)
+BIAS_ULPS = 8
 
 
 def _np_tree(tree):
@@ -176,6 +180,172 @@ def test_three_train_steps_match_jax(jax_setup, clean_weight):
         assert n > 20
 
 
+@pytest.fixture(scope="module")
+def jax_bp_setup():
+    """The 3-step test's init and batches (seeds 0 and 1), for the model
+    of 4 node features.  At the flax init a step is ill-conditioned (near
+    ties in max): against an f64 run of the port, at other seed pairs one
+    package's f32 step or the other's lies up to 1.4e-2 relative L2 away
+    on a few tensors (the JAX package's 2.2e-3 at (1, 5) without the
+    features, the port's 1.4e-2 there with them); at (0, 1) both lie
+    within 1e-4, with and without."""
+    batches = list(ContinuousCodesSP(length=4 * B, seed=1).batches(B))
+    model = jm.LDPCModel(**SMALL)
+    state, tx = j_ldpc.create_state(model, batches[0], seed=0, base_lr=LR,
+                                    bp_features=True)
+    return batches, model, state, tx
+
+
+def _jax_bias(node_feature):
+    """The JAX trainer's f32 bias (fgnn_tpu/train/ldpc.py:90-92)."""
+    nf = jnp.asarray(node_feature)
+    gcx = jnp.power(10.0, nf[..., 1] / 20.0)
+    return np.asarray(1.0 / (1.0 + jnp.exp(-2.0 * gcx * nf[..., 0])))
+
+
+def test_bp_features_train_and_eval_step_match_jax(jax_bp_setup,
+                                                   monkeypatch):
+    """--bp-features: one train step against make_train_step(bp_features=
+    True), under the 3-step test's tolerances, then one eval step against
+    make_eval_step(bp_features=True).  The flax tree of the 4-feature
+    model loads strictly into LDPCModel(node_feature_dim=4).
+
+    The port's decoder runs inside its step on the JAX trainer's f32 bias:
+    the port rounds its bias from f64 (``bp_bias``), an ulp or so from
+    XLA's f32 exp, and the words the decode does not solve in 50 loops
+    grow such an ulp to 1e-2 in their posterior (test_bp_features_match_
+    jax holds the bias and the decode apart)."""
+    monkeypatch.setattr(t_ldpc, "bp_bias", lambda nf: torch.from_numpy(
+        _jax_bias(nf.numpy())))
+    batches, model, state, tx = jax_bp_setup
+    tap = optax.GradientTransformation(
+        lambda p: jax.tree.map(jnp.zeros_like, p),
+        lambda g, s, p=None: (g, g))
+    tx_tap = optax.chain(tap, tx)
+    step = j_ldpc.make_train_step(model, tx_tap, bp_features=True)
+    j_state = _copy(state).replace(opt_state=tx_tap.init(state.params))
+    variables = {"params": _np_tree(state.params),
+                 "batch_stats": _np_tree(state.batch_stats)}
+
+    def port_of(v):
+        return tm.load_flax_variables(
+            tm.LDPCModel(**SMALL, node_feature_dim=4), v)
+
+    port = port_of(variables)
+    assert port.main.node_mapping.conv.weight.shape[1] == 4
+    opt = t_common.make_optimizer(port.parameters(), LR)
+    j_state, j_m = step(j_state, batches[1])
+    t_m = t_ldpc.train_step(port, opt, batches[1], "cpu", bp_features=True)
+    _check_metrics(t_m, j_m)
+    _check_grads(port, dict(port_of({
+        "params": _np_tree(j_state.opt_state[0]),
+        "batch_stats": variables["batch_stats"]}).named_parameters()))
+    want_sd = port_of({"params": _np_tree(j_state.params),
+                       "batch_stats": _np_tree(j_state.batch_stats)}
+                      ).state_dict()
+    for k, v in port.state_dict().items():
+        if "running_" in k:
+            np.testing.assert_allclose(v.numpy(), want_sd[k].numpy(),
+                                       **STATS_TOL, err_msg=k)
+
+    # one eval step from the weights the train step left
+    tm.load_flax_variables(port, {
+        "params": _np_tree(j_state.params),
+        "batch_stats": _np_tree(j_state.batch_stats)})
+    port.eval()
+    j_pred = np.asarray(j_ldpc.make_eval_step(model, bp_features=True)(
+        j_state, batches[2]))
+    j_logits, _ = model.apply(
+        {"params": j_state.params, "batch_stats": j_state.batch_stats},
+        **j_ldpc._model_inputs(batches[2], bp_features=True), train=False)
+    t_logits = t_ldpc.decode_logits(port, batches[2], "cpu",
+                                    bp_features=True)
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
+                               rtol=1e-4, atol=1e-4)
+    t_pred = t_ldpc.decode_step(port, batches[2], "cpu",
+                                bp_features=True).numpy()
+    clear = np.abs(np.asarray(j_logits)) > 1e-4
+    np.testing.assert_array_equal(t_pred[clear], j_pred[:, :48][clear])
+
+
+def test_bp_features_match_jax(monkeypatch):
+    """The appended channels (2 q1 - 1 and the convergence flag of the
+    50-loop decode) from the features' own (y, snr_db): the port's bias
+    within BIAS_ULPS roundings of the JAX trainer's f32 bias, and from the
+    same bias
+    the port's channels within 1e-6 of the JAX trainer's on every word."""
+    batch = next(ContinuousCodesSP(length=64, seed=6).batches(64))
+    nf = batch["node_feature"]
+    bias = t_ldpc.bp_bias(torch.from_numpy(nf)).numpy()
+    assert bias.dtype == np.float32
+    # f32 rounds the exponent a = -2 gcx y to a relative 2^-24, which
+    # exp turns into an absolute 2^-24 |a| in its result's relative error
+    arg = 2.0 * np.power(10.0, nf[..., 1] / 20.0) * np.abs(nf[..., 0])
+    want_bias = _jax_bias(nf)
+    err = np.abs(bias - want_bias) / want_bias
+    assert (err <= BIAS_ULPS * 2.0 ** -24 * (1.0 + arg)).all(), err.max()
+    want = np.asarray(j_ldpc._augment_bp_features(jnp.asarray(nf)))
+    monkeypatch.setattr(t_ldpc, "bp_bias", lambda x: torch.from_numpy(
+        _jax_bias(x.numpy())))
+    got = t_ldpc.augment_bp_features(torch.from_numpy(nf)).numpy()
+    assert got.shape == want.shape == (64, 96, 4)
+    np.testing.assert_array_equal(got[..., :2], nf)
+    np.testing.assert_array_equal(got[..., 3], want[..., 3])
+    assert 0 < got[:, 0, 3].sum() < 64  # words of both kinds
+    np.testing.assert_allclose(got[..., 2], want[..., 2], rtol=0,
+                               atol=1e-6)
+
+
+def test_cli_defaults_match_jax():
+    """Every default of the JAX LDPC CLI, and --eval-bp-baseline (on; "0"
+    turns it off), --workers and --bp-features as the JAX parser reads
+    them."""
+    t, j = vars(t_ldpc.parse_args([])), vars(j_ldpc.parse_args([]))
+    # every flag of the JAX CLI but --mesh (port queue item 6), and the
+    # port's --device
+    assert set(t) == set(j) - {"mesh"} | {"device"}
+    for k in set(t) - {"device"}:
+        assert t[k] == j[k], k
+    for argv in (["--eval-bp-baseline", "0"], ["--eval-bp-baseline", "1"],
+                 ["--workers", "3", "--bp-features"]):
+        t, j = vars(t_ldpc.parse_args(argv)), vars(j_ldpc.parse_args(argv))
+        for k in ("eval_bp_baseline", "workers", "bp_features"):
+            assert t[k] == j[k], (argv, k)
+
+
+def test_worker_pool_trains_on_the_jax_pool_stream(monkeypatch, tmp_path):
+    """--workers 2: the batches are the JAX trainer's PoolBatcher stream
+    over ContinuousCodesSP for the seed."""
+    from functools import partial
+
+    from fgnn_tpu.data.loader import PoolBatcher
+
+    seen = []
+
+    def record(model, optimizer, batch, device, clean_weight=0.0,
+               bp_features=False):
+        seen.append(batch)
+        return {k: torch.zeros(()) for k in ("loss", "sigma_b_loss", "acc")}
+
+    monkeypatch.setattr(t_ldpc, "train_step", record)
+    args = Namespace(samples_per_epoch=40, snr=None, seed=4, batch_size=B,
+                     n_epochs=2, steps_per_epoch=3, model_path="",
+                     clean_weight=0.0, workers=2)
+    with t_ldpc.MetricsWriter(str(tmp_path / "logs")) as writer:
+        t_ldpc.train(args, tm.LDPCModel(**SMALL), writer, str(tmp_path),
+                     device="cpu")
+    with PoolBatcher(partial(ContinuousCodesSP, length=40, snr=None, seed=4),
+                     B, n_workers=2, seed=4) as pool:
+        want = list(pool.batches(6))
+    assert len(seen) == 6
+    for got, ref in zip(seen, want):
+        for k in ("node_feature", "hop_feature", "efeature_f2v",
+                  "efeature_v2f", "sigma_b"):
+            np.testing.assert_array_equal(got[k].numpy(), ref[k], err_msg=k)
+        np.testing.assert_array_equal(got["label"].numpy(),
+                                      ref["label"][:, :48])
+
+
 def test_optimizer_matches_optax():
     """The same gradients through optax (add_decayed_weights + adam, the
     JAX package's make_optimizer) and torch Adam, with an LR change as the
@@ -213,10 +383,13 @@ def test_ldpc_schedule_matches_jax():
 
 def test_trainer_sees_the_jax_batches(monkeypatch, tmp_path):
     """The JAX trainer draws one batch before training; the port draws and
-    drops it, so that both train on the same batches for one seed."""
+    drops it, so that both train on the same batches for one seed.  The
+    batches arrive staged by the prefetch thread (``stage_batch``: the
+    info-bit labels, tensors on the device)."""
     seen = []
 
-    def record(model, optimizer, batch, device, clean_weight=0.0):
+    def record(model, optimizer, batch, device, clean_weight=0.0,
+               bp_features=False):
         seen.append(batch)
         return {k: torch.zeros(()) for k in ("loss", "sigma_b_loss", "acc")}
 
@@ -232,8 +405,10 @@ def test_trainer_sees_the_jax_batches(monkeypatch, tmp_path):
     want = [b for _ in range(2) for b in islice(ds.batches(B), 3)]
     assert len(seen) == len(want) == 6
     for got, ref in zip(seen, want):
-        for k in ("node_feature", "label", "sigma_b"):
-            np.testing.assert_array_equal(got[k], ref[k])
+        for k in ("node_feature", "sigma_b"):
+            np.testing.assert_array_equal(got[k].numpy(), ref[k])
+        np.testing.assert_array_equal(got["label"].numpy(),
+                                      ref["label"][:, :48])
 
 
 def _ckpts(work_dir):
