@@ -4,6 +4,7 @@
     python3 chip_smoke.py        # from the root of a checkout, one H100
     python3 chip_smoke.py --unrounded   # the bf16 checks' readings, then
                                  # those of kernels without the bf16 roundings
+                                 # (rnd<TH> and the packed mul_rnd2)
 
 Phases, one JSON line each:
 
@@ -96,28 +97,44 @@ Phases, one JSON line each:
   syn_train_path   ``python -m fgnn_tpu_torch.data.generate rpgm`` writes 640
                    hop samples; 20 steps and a 4-batch eval from them
                    (``--train-path``, ``--test-path``)
-  kernel_check_bf16     the bf16 mode of the NO_EXTENSION forward and of
-                   the staged backward against their plain versions at the
+  kernel_check_bf16     the bf16 mode of the NO_EXTENSION forward (the
+                   sample route and the kept kernel, slab=0) and of the
+                   staged backward (packed products and the kept scalar
+                   ones, packed=False) against their plain versions at the
                    LDPC and ragged shapes, all four aggregators (out within
                    one bf16 ulp, out, dh and d_etype within
-                   BF16_KERNEL_REL_L2, the readings emitted), two
-                   launches bit-equal, an all-ties case; at each LDPC shape
-                   the f32 and bf16 instantiations timed in turns (f32,
-                   bf16, bf16, f32), the bf16 plain and bound times, and
-                   every bf16 slab of the backward (each checked)
+                   BF16_KERNEL_REL_L2, the readings emitted), each new
+                   route bit-equal to its kept route wherever the plan
+                   takes it (the forward's sample route at the LDPC
+                   shapes; the packed products for max, sum and mean at
+                   C % 4 == 0), each launch counted under the route that
+                   ran, two launches bit-equal, an all-ties case; at each
+                   LDPC shape the f32 instantiation and both bf16 routes
+                   timed in turns (f32, kept, new, new, kept, f32), the
+                   bf16 plain and bound times and GB/s, and every bf16
+                   slab of the backward (each checked); the sums per bf16
+                   forward and per bf16 LDPC step; both new routes against
+                   the kept ones at the smaller batches of BATCH_SWEEP
   kernel_check_ext_bf16 the same for both routes of the DIFF/NEIGHBOR
                    forward (max bit-equal between them) and the staged
-                   backward, with every bf16 slab of both staged kernels
+                   backward (packed dh products bit-equal to the kept
+                   scalar ones where they run), with every bf16 slab of
+                   both staged kernels
   decode_bf16      ``evaluate`` with ``--bf16`` on the decode phase's
                    weights and grid: 15 of the 16 launches per batch in the
-                   bf16 mode (layer 6's v2f conv gets an f32 x), no plain
+                   bf16 mode (layer 6's v2f conv gets an f32 x), all on the
+                   sample route, none on the kept kernel, no plain
                    version; words/s; the bf16 logits within
                    DECODE_BF16_REL_L2 of the f32 logits
   train_bf16       20 LDPC steps (``train.ldpc.train``) and 20 hop steps
                    with 4 eval batches (``train_and_eval``) with ``--bf16``:
                    finite losses, the bf16 launches per step the CPU
                    dtype-flow test implies (LDPC 15 forward and 14
-                   backward, hop 12 and 12), f32 parameters; step times
+                   backward, hop 12 and 12), the LDPC ones all on the new
+                   routes and none on the kept ones, the hop backward's 10
+                   max convs with the packed products and its 2 softmax
+                   convs with the scalar ones, f32 parameters; step
+                   times
 
 The phases that train the synthetic workloads without naming
 ``--workers`` pass ``--workers 0``: inline synthesis, as they ran before the
@@ -203,6 +220,9 @@ EXT_SHAPES = [
     ("ragged_c6", 3, 13, 3, 5, 6, None, 0, 0),
 ]
 HOP_PER_STEP = sum(s[7] for s in EXT_SHAPES)     # 12
+# of them the backwards the bf16 mode runs with packed products: the max
+# convs (C=64); the softmax convs' dm is f32 (and C=2 the scalar path)
+HOP_PACKED_PER_STEP = sum(s[7] for s in EXT_SHAPES if s[6] == "max")  # 10
 # the two routes of the backward and of the extension forward: the staged
 # kernel with the slab that fused_mp.bwd_slab (fwd_slab) plans, and the
 # kept kernels of the first port (slab 0);
@@ -1272,6 +1292,10 @@ def _run_syn(torch, fused_mp, dev, workload, args, steps, eval_batches,
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     fwd, bwd = dict(fused_mp.EXT_COUNTS), dict(fused_mp.EXT_BWD_COUNTS)
+    # the staged backward's bf16 launches with the scalar products count
+    # as its kept bf16 route
+    bwd["kernel_launches"] += fused_mp.KEPT_BF16_EXT_BWD_COUNTS[
+        "kernel_launches"]
     require(fwd["kernel_launches"] == per_step * (steps + eval_batches),
             f"{workload}: forward launches {fwd['kernel_launches']} != "
             f"{per_step} x ({steps} + {eval_batches})")
@@ -1720,14 +1744,22 @@ def _same_bits(torch, a, b, what):
             f"{what}: two launches give the same bits")
 
 
-def _time_modes(torch, call, plain, slabs, check):
-    """``call(dtype, slab)`` of the f32 and bf16 instantiations timed in
-    turns (f32, bf16, bf16, f32), the bf16 plain version, and every bf16
-    slab of ``slabs`` (the staged kernels), each checked by ``check(result,
-    slab)`` first.  Returns (timings, worst error of the slabs)."""
+def _time_modes(torch, call, plain, slabs, check, kept=None):
+    """``call(dtype, slab)`` of the f32 and bf16 instantiations, and with
+    ``kept`` the bf16 mode's kept route, timed in turns (f32, kept, bf16,
+    bf16, kept, f32), the bf16 plain version, and every bf16 slab of
+    ``slabs`` (the staged kernels), each checked by ``check(result, slab)``
+    first.  Returns (timings, worst error of the slabs)."""
     f32, b16 = torch.float32, torch.bfloat16
-    runs = [device_ms(lambda d=d: call(d, None), 200, torch)
-            for d in (f32, b16, b16, f32)]
+    order = [("f32", lambda: call(f32, None))]
+    if kept is not None:
+        order.append(("kept", kept))
+    order.append(("bf16", lambda: call(b16, None)))
+    runs = {name: [] for name, _ in order}
+    turns = []
+    for name, fn in order + order[::-1]:
+        runs[name].append(device_ms(fn, 200, torch))
+        turns.append([name, runs[name][-1][0]])
     plain_ms, _ = device_ms(plain, 20, torch)
     worst, slab_ms = 0.0, {}
     for cs in slabs:
@@ -1735,11 +1767,14 @@ def _time_modes(torch, call, plain, slabs, check):
         torch.cuda.synchronize()
         worst = max(worst, check(got, cs))
         slab_ms[cs] = device_ms(lambda s=cs: call(b16, s), 200, torch)[0]
-    ms = (runs[1][0] + runs[2][0]) / 2
-    f32_ms = (runs[0][0] + runs[3][0]) / 2
-    return dict(ms=ms, f32_ms=f32_ms, ms_in_turns=[r[0] for r in runs],
-                wrapper_host_ms=runs[1][1], plain_ms=plain_ms,
-                bf16_over_f32=ms / f32_ms, slab_ms=slab_ms), worst
+    mean = {name: sum(r[0] for r in v) / len(v) for name, v in runs.items()}
+    res = dict(ms=mean["bf16"], f32_ms=mean["f32"], ms_in_turns=turns,
+               wrapper_host_ms=runs["bf16"][0][1], plain_ms=plain_ms,
+               bf16_over_f32=mean["bf16"] / mean["f32"], slab_ms=slab_ms)
+    if kept is not None:
+        res.update(kept_ms=mean["kept"], new_over_kept=mean["bf16"]
+                   / mean["kept"])
+    return res, worst
 
 
 def _bf16_fwd_bytes(B, rows, Nd, K, T, C, argmax):
@@ -1759,17 +1794,107 @@ def _bf16_bwd_bytes(B, rows, Nd, K, T, C, agg, table_ints):
             + 2 * 4 * B * Nd * K * T + 4 * table_ints)
 
 
+def _route_bits(torch, new, kept, what):
+    """The new bf16 route against the kept one: the same bits."""
+    if not all(torch.equal(a, b) for a, b in zip(new, kept)):
+        _bf16_fail(f"{what}: the new and the kept route give other bits")
+
+
+# Batches at which the new bf16 routes are timed against the kept ones
+# beside the path's B=256: the forward's sample route around its plan's
+# threshold (fused_mp.fwd_sample: one sample for every second SM, B >= 66)
+# and the LDPC CLI's default of 32, the backward's packed products at 32
+# and 66.
+BATCH_SWEEP = {"typed_mp_fwd": (32, 48, 66, 96, 132),
+               "typed_mp_bwd": (32, 66)}
+
+
+def _sample_fwd(torch, fused_mp, h, idx, et, want_argmax):
+    """The bf16 forward's sample route launched at any batch, the plan
+    aside (``typed_mp_fwd_sample`` through ``fused_mp._launch``; counted
+    nowhere): the timing of a route the plan does not take."""
+    B, N, T, C = h.shape
+    Nd, K = idx.shape
+    out = h.new_empty((B, Nd, C))
+    am = (h.new_empty((B, Nd, C), dtype=torch.uint8) if want_argmax
+          else None)
+    fused_mp._launch("typed_mp_fwd", "typed_mp_fwd_sample", h.device,
+                     (B, N, Nd, K, T, C), h.data_ptr(), idx.data_ptr(),
+                     et.data_ptr(), out.data_ptr(), fused_mp._ptr(am), None,
+                     B, N, Nd, K, T, C, fused_mp.AGGREGATORS["max"], 3.0)
+    return (out, am) if want_argmax else out
+
+
+def _time_batches(torch, fused_mp):
+    """At each LDPC path shape and each batch of BATCH_SWEEP: the new bf16
+    route (the forward's sample route with the argmax, the backward's
+    packed products for max) and the kept one, bit-equal, then timed in
+    turns (new, kept, kept, new) with ``device_ms``; beside them the route
+    the plan takes at that batch."""
+    from fgnn_tpu_torch.ops.typed_mp import GatherTable
+
+    b16 = torch.bfloat16
+    for si, (name, _, N, Nd, K, T, C, per_fwd, _) in enumerate(SHAPES):
+        if not per_fwd:
+            continue
+        for kernel, batches in BATCH_SWEEP.items():
+            for B in batches:
+                h32, idx, et = _inputs(torch, B, N, Nd, K, T, C, 1000 + si)
+                h = h32.to(b16)
+                if kernel == "typed_mp_fwd":
+                    planned = ("sample" if fused_mp.fwd_sample(
+                        B, N, Nd, K, T, C, 2) else "kept")
+                    calls = {
+                        "new": lambda: _sample_fwd(torch, fused_mp, h, idx,
+                                                   et, True),
+                        "kept": lambda: fused_mp.typed_gather_mix_agg(
+                            h, idx, et, "max", 3.0, True, slab=0)}
+                else:
+                    table = GatherTable(idx.cpu().numpy(), N).to("cuda")
+                    _, am = fused_mp.typed_gather_mix_agg(
+                        h, idx, et, "max", 3.0, True, slab=0)
+                    g = torch.randn(B, Nd, C, device="cuda").to(b16)
+                    planned = ("packed" if fused_mp.bwd_packed(
+                        C, fused_mp.bwd_slab(B, N, Nd, K, T, C, "max", 2),
+                        "max", 2) else "kept")
+
+                    def bwd(packed):
+                        return fused_mp.typed_gather_mix_agg_bwd(
+                            g, h, idx, table.src_ptr, table.src_edge, et,
+                            "max", 3.0, argmax=am, packed=packed)
+
+                    calls = {"new": lambda: bwd(None),
+                             "kept": lambda: bwd(False)}
+                new, kept = calls["new"](), calls["kept"]()
+                torch.cuda.synchronize()
+                _route_bits(torch, new, kept, f"{name} B={B} {kernel}")
+                runs = {"new": [], "kept": []}
+                for route in ("new", "kept", "kept", "new"):
+                    runs[route].append(
+                        device_ms(calls[route], 200, torch)[0] * 1e3)
+                us = {r: sum(v) / len(v) for r, v in runs.items()}
+                emit("kernel_check_bf16", name="batch_sweep", kernel=kernel,
+                     shape=name, B=B, planned=planned, new_us=us["new"],
+                     kept_us=us["kept"], us_in_turns=runs,
+                     new_over_kept=us["new"] / us["kept"])
+
+
 def phase_kernel_check_bf16(torch, fused_mp):
-    """The NO_EXTENSION forward and the staged backward in the bf16 mode
+    """The NO_EXTENSION forward (the sample route and the kept kernel) and
+    the staged backward (packed and scalar products) in the bf16 mode
     against their plain versions at every LDPC and ragged shape, all four
-    aggregators; two launches bit-equal; at the path shapes the f32 and
-    bf16 instantiations timed in turns, and every bf16 slab of the
-    backward."""
+    aggregators; the new routes bit-equal to the kept ones wherever the
+    plan takes them, each launch counted under the route that ran; two
+    launches bit-equal; at the path shapes the f32 instantiation and both
+    bf16 routes timed in turns, and every bf16 slab of the backward; then
+    ``_time_batches``."""
     from fgnn_tpu_torch.ops.typed_mp import GatherTable
 
     b16 = torch.bfloat16
     worst, fwd_rows, bwd_rows = 0.0, [], []
     start = {q: len(v) for q, v in BF16_READINGS.items()}
+    # the (shape, aggregator) cases where a new route ran beside the kept
+    compared = {"typed_mp_fwd": [], "typed_mp_bwd": []}
     for si, (name, B, N, Nd, K, T, C, per_fwd, per_step) in enumerate(
             SHAPES):
         h32, idx, et = _inputs(torch, B, N, Nd, K, T, C, 600 + si)
@@ -1778,16 +1903,24 @@ def phase_kernel_check_bf16(torch, fused_mp):
         gen = torch.Generator(device="cuda").manual_seed(700 + si)
         g = torch.randn(B, Nd, C, device="cuda", generator=gen).to(b16)
         saved = {}
+        # the sample route at the path shapes; the ragged ones (a few
+        # samples, C % 8 != 0) take the kept kernel through the plan
+        sample = fused_mp.fwd_sample(B, N, Nd, K, T, C, 2)
+        require(sample == bool(per_fwd),
+                f"{name}: the bf16 forward's plan takes the sample route "
+                f"at the path shapes only")
+        planned = fused_mp.COUNTS if sample else fused_mp.KEPT_BF16_COUNTS
         for agg in AGGS:
             kw = dict(want_argmax=agg == "max", want_lse=agg == "softmax")
-            before = fused_mp.COUNTS["bf16_launches"]
+            before = planned["bf16_launches"]
             runs = [fused_mp.typed_gather_mix_agg(h, idx, et, agg, 3.0, **kw)
                     for _ in range(2)]
             ref = fused_mp.typed_gather_mix_agg_plain(h, idx, et, agg, 3.0,
                                                       **kw)
             torch.cuda.synchronize()
-            require(fused_mp.COUNTS["bf16_launches"] == before + 2,
-                    f"{name} {agg}: two launches of the bf16 forward")
+            require(planned["bf16_launches"] == before + 2,
+                    f"{name} {agg}: two launches of the planned bf16 "
+                    f"forward")
             two = agg in ("max", "softmax")
             first, again = ((r if two else (r,)) for r in runs)
             ref = ref if two else (ref,)
@@ -1809,24 +1942,52 @@ def phase_kernel_check_bf16(torch, fused_mp):
                 if not (first[1] == ref[1])[clear].all().item():
                     _bf16_fail(f"{name}: bf16 argmax differs where the gap "
                                "is clear")
+            # the kept route: the first kernel's bf16 instantiation
+            before = fused_mp.KEPT_BF16_COUNTS["kernel_launches"]
+            kept = fused_mp.typed_gather_mix_agg(h, idx, et, agg, 3.0,
+                                                 slab=0, **kw)
+            torch.cuda.synchronize()
+            require(fused_mp.KEPT_BF16_COUNTS["kernel_launches"]
+                    == before + 1, f"{name} {agg}: a kept bf16 forward")
+            kept = kept if two else (kept,)
+            worst = max(worst, _check_bf16_out(torch, kept[0], ref[0],
+                                               f"{name} {agg} bf16 kept"))
+            if sample:
+                _route_bits(torch, first, kept, f"{name} {agg} bf16 forward")
+                compared["typed_mp_fwd"].append(f"{name} {agg}")
             am = first[1] if agg == "max" else None
             lse = first[1] if agg == "softmax" else None
             saved[agg] = (am, lse)
+            # the packed products for max, sum and mean on the vector path;
+            # softmax (f32 dm) and C=30 run the scalar ones on either route
+            packs = fused_mp.bwd_packed(
+                C, fused_mp.bwd_slab(B, N, Nd, K, T, C, agg, 2), agg, 2)
             before = fused_mp.BWD_COUNTS["bf16_launches"]
+            kept_before = fused_mp.KEPT_BF16_BWD_COUNTS["kernel_launches"]
             bwd = [fused_mp.typed_gather_mix_agg_bwd(
                 g, h, idx, table.src_ptr, table.src_edge, et, agg, 3.0,
-                argmax=am, out=lse) for _ in range(2)]
+                argmax=am, out=lse, packed=packed)
+                for packed in (None, None, False)]
             bref = fused_mp.typed_gather_mix_agg_bwd_plain(
                 g, h, idx, et, agg, 3.0, argmax=am, out=lse)
             torch.cuda.synchronize()
-            require(fused_mp.BWD_COUNTS["bf16_launches"] == before + 2,
-                    f"{name} {agg}: two launches of the bf16 backward")
+            require(fused_mp.BWD_COUNTS["bf16_launches"] - before
+                    == (2 if packs else 0)
+                    and fused_mp.KEPT_BF16_BWD_COUNTS["kernel_launches"]
+                    - kept_before == (1 if packs else 3),
+                    f"{name} {agg}: the bf16 backward's launches counted "
+                    f"under the route that ran (packed: {packs})")
             _same_bits(torch, bwd[0], bwd[1], f"{name} {agg} bf16 backward")
             require(bwd[0][0].dtype == b16
                     and bwd[0][1].dtype == torch.float32,
                     f"{name} {agg}: bf16 dh, f32 d_etype")
-            worst = max(worst, _check_grads(torch, bwd[0], bref,
-                                            f"{name} {agg} bf16"))
+            for route, res in (("", bwd[0]), (" kept", bwd[2])):
+                worst = max(worst, _check_grads(torch, res, bref,
+                                                f"{name} {agg} bf16{route}"))
+            if packs:
+                _route_bits(torch, bwd[0], bwd[2],
+                            f"{name} {agg} bf16 backward")
+                compared["typed_mp_bwd"].append(f"{name} {agg}")
         if per_fwd == 0:
             continue
         # the path's calls: max, the argmax for training, none for decode
@@ -1835,7 +1996,9 @@ def phase_kernel_check_bf16(torch, fused_mp):
                 torch, lambda d, _s, a=argmax: fused_mp.typed_gather_mix_agg(
                     h32.to(d) if d != b16 else h, idx, et, "max", 3.0, a),
                 lambda a=argmax: fused_mp.typed_gather_mix_agg_plain(
-                    h, idx, et, "max", 3.0, a), (), None)
+                    h, idx, et, "max", 3.0, a), (), None,
+                kept=lambda a=argmax: fused_mp.typed_gather_mix_agg(
+                    h, idx, et, "max", 3.0, a, slab=0))
             nbytes = _bf16_fwd_bytes(B, N, Nd, K, T, C, argmax)
             ops = B * Nd * K * C * (2 * T + 1)
             fwd_rows.append(dict(
@@ -1843,18 +2006,20 @@ def phase_kernel_check_bf16(torch, fused_mp):
                 bf16_per_forward=BF16_FWD[name], f32_per_forward=per_fwd
                 - BF16_FWD[name], **timing, bytes=nbytes, ops=ops,
                 bound_ms=bound_ms(nbytes, ops),
-                bound_by=bound_by(nbytes, ops)))
+                bound_by=bound_by(nbytes, ops),
+                gbytes_per_s=nbytes / timing["ms"] / 1e6,
+                kept_gbytes_per_s=nbytes / timing["kept_ms"] / 1e6))
             emit("kernel_check_bf16", kernel="typed_mp_fwd", **fwd_rows[-1],
                  max_abs_err=worst)
         am, _ = saved["max"]
         h_f32 = h.float()
         g_f32 = g.float()
 
-        def bwd_call(d, slab):
+        def bwd_call(d, slab, packed=None):
             if d == b16:
                 return fused_mp.typed_gather_mix_agg_bwd(
                     g, h, idx, table.src_ptr, table.src_edge, et, "max", 3.0,
-                    argmax=am, slab=slab)
+                    argmax=am, slab=slab, packed=packed)
             return fused_mp.typed_gather_mix_agg_bwd(
                 g_f32, h_f32, idx, table.src_ptr, table.src_edge, et, "max",
                 3.0, argmax=am, slab=slab)
@@ -1868,7 +2033,8 @@ def phase_kernel_check_bf16(torch, fused_mp):
         timing, err = _time_modes(
             torch, bwd_call, lambda: fused_mp.typed_gather_mix_agg_bwd_plain(
                 g, h, idx, et, "max", 3.0, argmax=am),
-            fused_mp.staged_slabs(N, Nd, K, T, C, "max", 2), check)
+            fused_mp.staged_slabs(N, Nd, K, T, C, "max", 2), check,
+            kept=lambda: bwd_call(b16, None, False))
         worst = max(worst, err)
         nbytes = _bf16_bwd_bytes(B, N, Nd, K, T, C, "max",
                                  2 * idx.numel() + N + 1)
@@ -1880,7 +2046,9 @@ def phase_kernel_check_bf16(torch, fused_mp):
             - BF16_BWD[name], **timing, slab=slab,
             slab_bytes=fused_mp.staged_bytes(N, Nd, K, T, slab, "max", 2),
             bytes=nbytes, ops=ops, bound_ms=bound_ms(nbytes, ops),
-            bound_by=bound_by(nbytes, ops)))
+            bound_by=bound_by(nbytes, ops),
+            gbytes_per_s=nbytes / timing["ms"] / 1e6,
+            kept_gbytes_per_s=nbytes / timing["kept_ms"] / 1e6))
         emit("kernel_check_bf16", kernel="typed_mp_bwd", **bwd_rows[-1],
              max_abs_err=worst)
 
@@ -1900,20 +2068,43 @@ def phase_kernel_check_bf16(torch, fused_mp):
     require(not det[:, :, 1:].any().item() and det[:, :, 0].any().item(),
             "bf16 all ties: d_etype only at k = 0")
     emit("kernel_check_bf16", name="all_ties", max_abs_err=worst,
-         rel_l2_worst=_worst_readings(start), tol_rel_l2=BF16_KERNEL_REL_L2)
+         rel_l2_worst=_worst_readings(start), tol_rel_l2=BF16_KERNEL_REL_L2,
+         new_vs_kept_bits=compared)
+    if BF16_FAILED is None:
+        _time_batches(torch, fused_mp)
+    # per bf16 decode forward (15 launches), per bf16 train step (15
+    # forward launches with the argmax, 14 backward): us, bound, GB/s
+    for what, kernel, rows, per in (
+            ("per_bf16_forward", "typed_mp_fwd",
+             [r for r in fwd_rows if not r["argmax"]], "bf16_per_forward"),
+            ("per_bf16_step", "typed_mp_fwd",
+             [r for r in fwd_rows if r["argmax"]], "bf16_per_forward"),
+            ("per_bf16_step", "typed_mp_bwd", bwd_rows, "bf16_per_step")):
+        tot = {key: sum(r[key] * r[per] for r in rows)
+               for key in ("ms", "kept_ms", "f32_ms", "bytes", "ops")}
+        emit("kernel_check_bf16", name=what, kernel=kernel,
+             new_us=tot["ms"] * 1e3, kept_us=tot["kept_ms"] * 1e3,
+             f32_us=tot["f32_ms"] * 1e3,
+             bound_us=bound_ms(tot["bytes"], tot["ops"]) * 1e3,
+             gbytes_per_s=tot["bytes"] / tot["ms"] / 1e6,
+             kept_gbytes_per_s=tot["bytes"] / tot["kept_ms"] / 1e6,
+             new_over_kept=tot["ms"] / tot["kept_ms"])
     return worst, fwd_rows, bwd_rows
 
 
 def phase_kernel_check_ext_bf16(torch, fused_mp):
     """Both routes of the DIFF/NEIGHBOR forward (the staged kernel with its
-    bf16 plan, and the kept kernel) and the staged backward in the bf16
-    mode, at every extension shape and aggregator: against the plain
-    versions, two launches bit-equal, max bit-equal between the routes; at
-    the path shapes the f32 and bf16 instantiations timed in turns with
-    every bf16 slab; an all-ties case."""
+    bf16 plan, and the kept kernel) and the staged backward (packed dh
+    products, and the kept scalar ones) in the bf16 mode, at every
+    extension shape and aggregator: against the plain versions, two
+    launches bit-equal, the forward's max bit-equal between the routes and
+    the backward wherever the packed products run (max, sum and mean at
+    C % 4 == 0); at the path shapes the f32 instantiation and the bf16
+    routes timed in turns with every bf16 slab; an all-ties case."""
     b16 = torch.bfloat16
     worst, fwd_rows, bwd_rows = 0.0, [], []
     start = {q: len(v) for q, v in BF16_READINGS.items()}
+    compared = []  # the backward's cases with the packed products
     for si, (name, B, N, K, T, C, path_agg, per_hop, _) in enumerate(
             EXT_SHAPES):
         h32, table, et = _ext_inputs(torch, B, N, K, T, C, 800 + si)
@@ -1957,15 +2148,25 @@ def phase_kernel_check_ext_bf16(torch, fused_mp):
             am = routes["staged"][1] if agg == "max" else None
             lse = routes["staged"][1] if agg == "softmax" else None
             saved[agg] = (am, lse)
+            # the packed dh products (the planned route) twice, and the
+            # scalar ones (the kept route)
             bwd = [fused_mp.typed_gather_mix_agg_bwd(
                 g, h, idx, table.ext_ptr, table.ext_edge, et, agg, 3.0,
-                argmax=am, out=lse, ext=True) for _ in range(2)]
+                argmax=am, out=lse, ext=True, packed=packed)
+                for packed in (None, None, False)]
             bref = fused_mp.typed_gather_mix_agg_bwd_plain(
                 g, h, idx, et, agg, 3.0, argmax=am, out=lse, ext=True)
             torch.cuda.synchronize()
             _same_bits(torch, bwd[0], bwd[1], f"{name} {agg} bf16 backward")
-            worst = max(worst, _check_grads(torch, bwd[0], bref,
-                                            f"{name} {agg} bf16"))
+            for route, res in (("", bwd[0]), (" kept", bwd[2])):
+                worst = max(worst, _check_grads(torch, res, bref,
+                                                f"{name} {agg} bf16{route}"))
+            # the packed dh products run for max, sum and mean at C % 4 == 0
+            if fused_mp.bwd_packed(C, fused_mp.bwd_slab(
+                    B, 2 * N, N, K, T, C, agg, 2), agg, 2):
+                _route_bits(torch, bwd[0], bwd[2],
+                            f"{name} {agg} bf16 backward")
+                compared.append(f"{name} {agg}")
         if path_agg is None:
             continue
         want = path_agg == "max"
@@ -2004,11 +2205,11 @@ def phase_kernel_check_ext_bf16(torch, fused_mp):
              max_abs_err=worst)
         h_f32, g_f32 = h.float(), g.float()
 
-        def bwd_call(d, slab, agg=path_agg, am=am, lse=lse):
+        def bwd_call(d, slab, agg=path_agg, am=am, lse=lse, packed=None):
             x, gg = (h, g) if d == b16 else (h_f32, g_f32)
             return fused_mp.typed_gather_mix_agg_bwd(
                 gg, x, idx, table.ext_ptr, table.ext_edge, et, agg, 3.0,
-                argmax=am, out=lse, ext=True, slab=slab)
+                argmax=am, out=lse, ext=True, slab=slab, packed=packed)
 
         bref = fused_mp.typed_gather_mix_agg_bwd_plain(
             g, h, idx, et, path_agg, 3.0, argmax=am, out=lse, ext=True)
@@ -2021,7 +2222,7 @@ def phase_kernel_check_ext_bf16(torch, fused_mp):
             fused_mp.typed_gather_mix_agg_bwd_plain(
                 g, h, idx, et, agg, 3.0, argmax=am, out=lse, ext=True),
             fused_mp.staged_slabs(2 * N, N, K, T, C, path_agg, 2),
-            bwd_check)
+            bwd_check, kept=lambda: bwd_call(b16, None, packed=False))
         worst = max(worst, err)
         nbytes = _bf16_bwd_bytes(B, 2 * N, N, K, T, C, path_agg,
                                  idx.numel() + table.ext_ptr.numel()
@@ -2049,7 +2250,8 @@ def phase_kernel_check_ext_bf16(torch, fused_mp):
         require(am.max().item() == 0,
                 f"bf16 all-ties argmax is 0 (extensions, {route})")
     emit("kernel_check_ext_bf16", name="all_ties", max_abs_err=worst,
-         rel_l2_worst=_worst_readings(start), tol_rel_l2=BF16_KERNEL_REL_L2)
+         rel_l2_worst=_worst_readings(start), tol_rel_l2=BF16_KERNEL_REL_L2,
+         packed_vs_kept_bits=compared)
     return worst, fwd_rows, bwd_rows
 
 
@@ -2086,6 +2288,9 @@ def phase_decode_bf16(torch, fused_mp, dev, model, batch, path):
             f"bf16 decode: {counts['bf16_launches']} bf16 launches != "
             f"{BF16_FWD_PER_STEP} x {n_batches}")
     require(counts["plain_calls"] == 0, "no plain calls on the card")
+    require(fused_mp.KEPT_BF16_COUNTS["kernel_launches"] == 0,
+            "bf16 decode: every bf16 launch on the sample route, none on "
+            "the kept kernel")
     require(0.0 <= ber_total <= 1.0 and err.shape == (5, 6),
             "BER in [0, 1], 5 x 6 matrix")
     f32 = decode_logits(model, batch, dev).double()
@@ -2108,8 +2313,10 @@ def phase_decode_bf16(torch, fused_mp, dev, model, batch, path):
          decisions_agree=((got >= 0) == (f32 >= 0)).double().mean().item(),
          kernel_launches=counts["kernel_launches"],
          bf16_launches=counts["bf16_launches"],
+         kept_bf16_launches=fused_mp.KEPT_BF16_COUNTS["kernel_launches"],
          plain_calls=counts["plain_calls"])
-    return counts["bf16_launches"]
+    return counts["bf16_launches"], fused_mp.KEPT_BF16_COUNTS[
+        "kernel_launches"]
 
 
 def phase_train_bf16(torch, fused_mp, dev, tmp):
@@ -2155,6 +2362,10 @@ def phase_train_bf16(torch, fused_mp, dev, tmp):
     require(fwd["plain_calls"] == 0 and bwd["plain_calls"] == 0
             and fused_mp.KEPT_BWD_COUNTS["kernel_launches"] == 0,
             "no plain calls, no kept backward")
+    require(fused_mp.KEPT_BF16_COUNTS["kernel_launches"] == 0
+            and fused_mp.KEPT_BF16_BWD_COUNTS["kernel_launches"] == 0,
+            "bf16 train: every bf16 launch on the new routes (the sample "
+            "forward, the packed backward), none on the kept ones")
     with open(os.path.join(run_dir, "tf_logs", "metrics.jsonl")) as f:
         logged = [json.loads(line) for line in f]
     losses = [r["value"] for r in logged if r["tag"] == "syn_train/loss"]
@@ -2173,7 +2384,11 @@ def phase_train_bf16(torch, fused_mp, dev, tmp):
                     losses=losses, fwd_launches=fwd["kernel_launches"],
                     bwd_launches=bwd["kernel_launches"],
                     bf16_fwd_launches=fwd["bf16_launches"],
-                    bf16_bwd_launches=bwd["bf16_launches"])
+                    bf16_bwd_launches=bwd["bf16_launches"],
+                    kept_bf16_fwd_launches=fused_mp.KEPT_BF16_COUNTS[
+                        "kernel_launches"],
+                    kept_bf16_bwd_launches=fused_mp.KEPT_BF16_BWD_COUNTS[
+                        "kernel_launches"])
     emit("train_bf16", workload="ldpc", **ldpc_res)
 
     hop_args = synthetic.parse_args([
@@ -2186,8 +2401,16 @@ def phase_train_bf16(torch, fused_mp, dev, tmp):
                    SYN_EVAL_BATCHES, HOP_PER_STEP)
     fwd, bwd = (fused_mp.EXT_COUNTS["bf16_launches"],
                 fused_mp.EXT_BWD_COUNTS["bf16_launches"])
-    require(fwd == hop["fwd_launches"] and bwd == hop["bwd_launches"],
-            f"bf16 hop: every launch in the bf16 mode ({fwd}, {bwd})")
+    kept_bwd = fused_mp.KEPT_BF16_EXT_BWD_COUNTS["bf16_launches"]
+    require(fwd == hop["fwd_launches"] and bwd + kept_bwd
+            == hop["bwd_launches"],
+            f"bf16 hop: every launch in the bf16 mode ({fwd}, {bwd} + "
+            f"{kept_bwd})")
+    require(bwd == HOP_PACKED_PER_STEP * SYN_STEPS
+            and kept_bwd == (HOP_PER_STEP - HOP_PACKED_PER_STEP) * SYN_STEPS,
+            f"bf16 hop: {HOP_PACKED_PER_STEP} backward launches a step with "
+            f"the packed products (the max convs), the softmax convs' with "
+            f"the scalar ones ({bwd}, {kept_bwd})")
     require(all(math.isfinite(v) for v in hop["losses"]),
             "bf16 hop: finite losses")
     wl = synthetic.SynWorkload("hop", hop_args)
@@ -2201,26 +2424,51 @@ def phase_train_bf16(torch, fused_mp, dev, tmp):
                           20, torch)
     hop.update(syn_train_step_ms=step_ms,
                step_samples_per_s=SYN_BATCH / step_ms * 1e3,
-               bf16_fwd_launches=fwd, bf16_bwd_launches=bwd)
+               bf16_fwd_launches=fwd, bf16_bwd_launches=bwd,
+               kept_bf16_bwd_launches=kept_bwd)
     emit("train_bf16", workload="hop", batch_size=SYN_BATCH, **hop)
     return ldpc_res, hop
 
 
+# The bf16 roundings of the kernels, each a text of csrc/typed_mp_common.cuh,
+# and what --unrounded builds in its place: rnd<TH> (etype as read, mean's
+# g / K, each product of the scalar bf16 mode) becomes the identity, and the
+# packed products (mul_rnd2) multiply in f32 without rounding the product or
+# etype.  Stores to bf16 still round (out, dh, the packed route's g / K).
+UNROUNDED = {
+    "return to_f32(from_f32<TH>(v));": "return v;",
+    """  unsigned r;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(bits(a)), "r"(bits(b)));
+  return unpack2(r);""": """  const float2 x = unpack2(bits(a)), y = unpack2(bits(b));
+  return make_float2(__fmul_rn(x.x, y.x), __fmul_rn(x.y, y.y));""",
+    "  return mul_rnd2(a, __float2bfloat162_rn(w));": """  const float2 x = unpack2(bits(a));
+  return make_float2(__fmul_rn(x.x, w), __fmul_rn(x.y, w));""",
+}
+
+
+def unrounded_header(text):
+    """The shared header with every rounding of UNROUNDED switched off;
+    each text must be found exactly once."""
+    for rounded, bare in UNROUNDED.items():
+        require(text.count(rounded) == 1,
+                f"the rounding {rounded.splitlines()[-1].strip()!r} found "
+                f"once in the header")
+        text = text.replace(rounded, bare)
+    return text
+
+
 def _unrounded_build(fused_mp, tmp):
-    """Build the kernels from a copy of csrc/ in ``tmp`` whose ``rnd<TH>``
-    is the identity: no rounding of etype, of each backward product or of
-    g/K in the bf16 mode (out and dh are still stored in bf16).  The
-    wrappers launch those builds from here on."""
+    """Build the kernels from a copy of csrc/ in ``tmp`` without the bf16
+    mode's roundings (``unrounded_header``).  The wrappers launch those
+    builds from here on."""
     src = os.path.join(tmp, "csrc")
     shutil.copytree(fused_mp._CSRC, src,
                     ignore=shutil.ignore_patterns("build"))
     header = os.path.join(src, "typed_mp_common.cuh")
     with open(header) as f:
-        text = f.read()
-    rounded = "return to_f32(from_f32<TH>(v));"
-    require(text.count(rounded) == 1, "rnd<TH> found in the header")
+        text = unrounded_header(f.read())
     with open(header, "w") as f:
-        f.write(text.replace(rounded, "return v;"))
+        f.write(text)
     fused_mp._CSRC, fused_mp.BUILD_DIR = src, os.path.join(src, "build")
     fused_mp._libs.clear()
     require(sorted(fused_mp.build(force=True)) == sorted(fused_mp.KERNELS),
@@ -2300,8 +2548,8 @@ def main():
         model, batch, counts, grid = phase_decode(torch, fused_mp, dev, tmp)
         phase_decode_vs_cpu(torch, model, batch, dev)
         phase_bp_decode(torch, dev, grid)
-        decode_b16 = phase_decode_bf16(torch, fused_mp, dev, model, batch,
-                                       grid)
+        decode_b16, decode_b16_kept = phase_decode_bf16(
+            torch, fused_mp, dev, model, batch, grid)
         fwd_train, bwd_train, train_ms = phase_train(torch, fused_mp, dev,
                                                      tmp)
         phase_train_vs_cpu(torch, dev)
@@ -2342,29 +2590,53 @@ def main():
 
     fwd_cuda = "fgnn_tpu_torch/csrc/typed_mp_fwd.cu"
     bwd_cuda = "fgnn_tpu_torch/csrc/typed_mp_bwd.cu"
+    def kept(rows):  # the kept bf16 route's times in the rows' "ms"
+        return [dict(r, ms=r["kept_ms"]) for r in rows]
+
+    fwd_b16_decode = [r for r in fwd_b16 if not r["argmax"]]
+    fwd_b16_train = [r for r in fwd_b16 if r["argmax"]]
+    fwd_per = (f"one bf16 decode forward at B={BATCH}: {BF16_FWD_PER_STEP} "
+               "bf16 launches (ms; f32_ms the f32 instantiation on the same "
+               "launches)")
+    fwd_step = (f"one bf16 train step: {BF16_FWD_PER_STEP} bf16 launches "
+                "with the argmax")
+    bwd_per = (f"one bf16 train step at B={BATCH}: {BF16_BWD_PER_STEP} bf16 "
+               "launches")
+    hop_bwd_per = (f"one bf16 hop train step at B={SYN_BATCH}: "
+                   f"{HOP_PER_STEP} launches")
     bf16_kernels = [
         bf16_entry(
-            "typed_mp_fwd (bf16 mode)", fwd_cuda,
+            "typed_mp_fwd (bf16 mode, sample route)", fwd_cuda,
             "fgnn_tpu/ops/fused_mp.py:243", "_fwd_kernel, mm_dtype bfloat16",
             decode_b16 + ldpc_b16["bf16_fwd_launches"],
             {"decode_bf16": decode_b16,
              "train_bf16": ldpc_b16["bf16_fwd_launches"]}, worst_b16,
-            [r for r in fwd_b16 if not r["argmax"]], "bf16_per_forward",
-            f"one bf16 decode forward at B={BATCH}: {BF16_FWD_PER_STEP} "
-            "bf16 launches (ms; f32_ms the f32 instantiation on the same "
-            "launches)",
-            train_step={**entry([r for r in fwd_b16 if r["argmax"]],
-                                "bf16_per_forward"),
-                        "per": f"one bf16 train step: {BF16_FWD_PER_STEP} "
-                               "bf16 launches with the argmax"}),
+            fwd_b16_decode, "bf16_per_forward", fwd_per,
+            train_step={**entry(fwd_b16_train, "bf16_per_forward"),
+                        "per": fwd_step}),
         bf16_entry(
-            "typed_mp_bwd (bf16 mode)", bwd_cuda,
+            "typed_mp_fwd (bf16 mode, kept route)", fwd_cuda,
+            "fgnn_tpu/ops/fused_mp.py:243", "_fwd_kernel, mm_dtype bfloat16",
+            decode_b16_kept + ldpc_b16["kept_bf16_fwd_launches"],
+            {"decode_bf16": decode_b16_kept,
+             "train_bf16": ldpc_b16["kept_bf16_fwd_launches"]}, worst_b16,
+            kept(fwd_b16_decode), "bf16_per_forward",
+            fwd_per + ", the first kernel (slab=0)",
+            train_step={**entry(kept(fwd_b16_train), "bf16_per_forward"),
+                        "per": fwd_step}),
+        bf16_entry(
+            "typed_mp_bwd (bf16 mode, packed route)", bwd_cuda,
             "fgnn_tpu/ops/fused_mp.py:297", "_bwd_kernel, mm_dtype bfloat16",
             ldpc_b16["bf16_bwd_launches"],
             {"train_bf16": ldpc_b16["bf16_bwd_launches"]}, worst_b16,
-            bwd_b16, "bf16_per_step",
-            f"one bf16 train step at B={BATCH}: {BF16_BWD_PER_STEP} bf16 "
-            "launches, staged route"),
+            bwd_b16, "bf16_per_step", bwd_per + ", packed products"),
+        bf16_entry(
+            "typed_mp_bwd (bf16 mode, kept route)", bwd_cuda,
+            "fgnn_tpu/ops/fused_mp.py:297", "_bwd_kernel, mm_dtype bfloat16",
+            ldpc_b16["kept_bf16_bwd_launches"],
+            {"train_bf16": ldpc_b16["kept_bf16_bwd_launches"]}, worst_b16,
+            kept(bwd_b16), "bf16_per_step",
+            bwd_per + ", scalar products (packed=False)"),
         bf16_entry(
             "typed_mp_fwd (DIFF/NEIGHBOR mode, bf16)", fwd_cuda,
             "fgnn_tpu/ops/fused_mp.py:243",
@@ -2375,14 +2647,24 @@ def main():
             f"one bf16 hop train step at B={SYN_BATCH}: {HOP_PER_STEP} "
             "launches, 10 with the argmax, staged route"),
         bf16_entry(
-            "typed_mp_bwd (DIFF/NEIGHBOR mode, bf16)", bwd_cuda,
-            "fgnn_tpu/ops/fused_mp.py:297",
+            "typed_mp_bwd (DIFF/NEIGHBOR mode, bf16, packed route)",
+            bwd_cuda, "fgnn_tpu/ops/fused_mp.py:297",
             "_bwd_kernel, extension mode, mm_dtype bfloat16",
             hop_b16["bf16_bwd_launches"],
             {"train_bf16": hop_b16["bf16_bwd_launches"]}, worst_ext_b16,
             ext_bwd_b16, "per_hop_step",
-            f"one bf16 hop train step at B={SYN_BATCH}: {HOP_PER_STEP} "
-            "launches, staged route"),
+            hop_bwd_per + f", staged route as planned: packed dh products "
+            f"in the {HOP_PACKED_PER_STEP} max launches, the scalar ones "
+            f"in the softmax launches (C=2); launches: the packed ones"),
+        bf16_entry(
+            "typed_mp_bwd (DIFF/NEIGHBOR mode, bf16, kept route)",
+            bwd_cuda, "fgnn_tpu/ops/fused_mp.py:297",
+            "_bwd_kernel, extension mode, mm_dtype bfloat16",
+            hop_b16["kept_bf16_bwd_launches"],
+            {"train_bf16": hop_b16["kept_bf16_bwd_launches"]},
+            worst_ext_b16, kept(ext_bwd_b16), "per_hop_step",
+            hop_bwd_per + ", staged route, scalar products (packed=False) "
+            "in all; launches: the softmax convs' on the main path"),
     ]
 
     print(json.dumps({"kernels": [{

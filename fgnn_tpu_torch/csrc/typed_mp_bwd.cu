@@ -96,12 +96,36 @@
 // softmax is a VMEM tiling choice).  The staged slab of h and g halve.  The
 // kept route is f32 only (the wrapper refuses a bf16 h there).
 //
+// The bf16 mode has two sets of products (`packed`, a template argument
+// PACK of staged_bwd_kernel):
+// * the packed route (PACK), planned for every bf16 launch of max, sum or
+//   mean on the vector path (C and the slab a multiple of 4).  The
+//   staged phases are bound by instruction issue (above), and the scalar
+//   bf16 product cost four instructions where f32 fuses one FMA: an f32
+//   multiply, a round to bf16, a widening, an add, after widening both
+//   operands.  Both operands of a product are bf16 wherever dm is (max,
+//   sum, mean) and, for d_etype, wherever hg is a staged row (NO_EXTENSION),
+//   so one mul.rn.bf16x2 (mul_rnd2) rounds two products at once, with the
+//   bits of the scalar rounding (the product of two bf16 values is exact in
+//   f32 in f32's normal range, and rounds alike below it), and only the two
+//   f32 adds remain.  The pairs are read from shared memory as they lie,
+//   never widened first.  Whole rows of h and g are copied in 16 bytes, and
+//   mean stages g / K once.  Every sum keeps the scalar route's order: the
+//   same bits.  At LDPC f2v C=64 on the H100 (PERF.md) it is still slower
+//   than f32: in bf16 a product costs half a multiply, a widening and an
+//   add where f32 fuses one FMA.
+// * the kept route (PACK false, `packed=False` in the wrapper): the scalar
+//   products, as the bf16 mode first had them.  Softmax (f32 dm) and the
+//   scalar path (C or the slab not a multiple of 4) run it on either
+//   setting, and the wrapper counts them there.
+//
 // Each route launches on the caller's stream, allocates nothing and never
 // synchronises; the wrapper (fgnn_tpu_torch/ops/fused_mp.py) checks the
 // arguments, picks the route and allocates the outputs.
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "typed_mp_common.cuh"
@@ -165,11 +189,37 @@ __device__ __forceinline__ void staged_dm(const TH* gs, const uint8_t* as,
   }
 }
 
+// The packed route's dm[e, c..c+3] for max, sum and mean as two bf16
+// pairs, straight from the staged g (mean's g is staged as g / K) and, for
+// max, zeroed where the argmax (4 bytes) is not e's slot k: the pairs that
+// staged_dm's values round to, never widened.
+template <int AGG>
+__device__ __forceinline__ uint2 staged_dm2(const bf16* gs, const uint8_t* as,
+                                            int d, int k, int Cs, int c) {
+  uint2 v = *reinterpret_cast<const uint2*>(gs + (size_t)d * Cs + c);
+  if (AGG != AGG_MAX) return v;
+  const unsigned a =
+      *reinterpret_cast<const unsigned*>(as + (size_t)d * Cs + c);
+  const unsigned eq = __vcmpeq4(a, 0x01010101u * (unsigned)k);  // 0xff: ==
+  v.x &= __byte_perm(eq, 0, 0x1100);  // channels c, c + 1
+  v.y &= __byte_perm(eq, 0, 0x3322);  // channels c + 2, c + 3
+  return v;
+}
+
+__device__ __forceinline__ __nv_bfloat162 pair(unsigned w) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&w);
+}
+
 // Block blockIdx.x = b * S + s takes sample b's channels [s Cs, (s+1) Cs).
 // The types are handled in runs of 4: a thread of dh or d_etype keeps 4
 // types x VEC channels of sums in registers, so each load of dm or of a
-// row of h feeds 4 VEC FMAs.
-template <int AGG, int VEC, bool EXT, class TH>
+// row of h feeds 4 VEC FMAs.  PACK (the bf16 mode's packed route: VEC = 4,
+// max, sum or mean) forms the bf16-rounded products of the dh phase, and of
+// the d_etype phase for NO_EXTENSION, two channels at a time from bf16
+// pairs (mul_rnd2), in the same order of sums as the scalar bf16 mode, so
+// with the same bits; it copies whole rows of h and g in 16 bytes, and
+// stages mean's g as g / K.
+template <int AGG, int VEC, bool EXT, class TH, bool PACK>
 __global__ void __launch_bounds__(STAGED_THREADS)
 staged_bwd_kernel(const TH* __restrict__ g,
                   const uint8_t* __restrict__ argmax,
@@ -199,6 +249,8 @@ staged_bwd_kernel(const TH* __restrict__ g,
   const int nt = STAGED_THREADS;
   const FastDiv by_cv(cv), by_t(T), by_k(K), by_runs(runs), by_e(E);
   const float inv_k = 1.f / (float)K;
+  // the packed route stages mean's g as g / K: then dm is g, as for sum
+  constexpr int DM_AGG = PACK && AGG == AGG_MEAN ? AGG_SUM : AGG;
   TH* hs = reinterpret_cast<TH*>(smem);
   char* cot = reinterpret_cast<char*>(smem) + pad16((size_t)rows * RS * ESZ);
   float* dm = reinterpret_cast<float*>(cot);  // softmax
@@ -215,12 +267,24 @@ staged_bwd_kernel(const TH* __restrict__ g,
   // 1. stage the slab of h, the sample's etype and the table, and for max,
   // sum and mean the slab of g and of the argmax
   const TH* hb = h + (size_t)b * rows * T * C + c0;
-  for (int q = tid; q < rows * T * cv; q += nt) {
-    const int o = by_cv(q);  // o = r T + t
-    const int c = (q - o * cv) * VEC;
-    const int r = by_t(o);
-    stage<VEC>(hs + (size_t)r * RS + (o - r * T) * Cs + c,
-               hb + (size_t)o * C + c);
+  if (PACK && Cs == C && T * C % 8 == 0 && RS % 8 == 0 &&
+      (reinterpret_cast<uintptr_t>(hb) & 15) == 0) {
+    // the packed route's whole rows: 16-byte copies
+    const int q8 = T * C / 8;
+    const FastDiv by_q8(q8);
+    for (int q = tid; q < rows * q8; q += nt) {
+      const int r = by_q8(q);
+      const int o = 8 * (q - r * q8);
+      cp_async(hs + (size_t)r * RS + o, hb + (size_t)r * T * C + o, 16);
+    }
+  } else {
+    for (int q = tid; q < rows * T * cv; q += nt) {
+      const int o = by_cv(q);  // o = r T + t
+      const int c = (q - o * cv) * VEC;
+      const int r = by_t(o);
+      stage<VEC>(hs + (size_t)r * RS + (o - r * T) * Cs + c,
+                 hb + (size_t)o * C + c);
+    }
   }
   const float* eb = etype + (size_t)b * E * T;
   if (T % 4 == 0 && (reinterpret_cast<uintptr_t>(eb) & 15) == 0) {
@@ -240,10 +304,16 @@ staged_bwd_kernel(const TH* __restrict__ g,
   for (int q = tid; q < R * E; q += nt) cp_async(se + q, src_edge + q, 4);
   if (!SOFTMAX) {
     const size_t g0 = (size_t)b * Nd * C + c0;
+    const bool whole = PACK && Cs == C && Nd * C % 8 == 0 &&
+                       (reinterpret_cast<uintptr_t>(g + g0) & 15) == 0;
+    if (whole)  // the packed route's whole rows of g: 16-byte copies
+      for (int q = tid; q < Nd * C / 8; q += nt)
+        cp_async(gs + 8 * q, g + g0 + 8 * q, 16);
     for (int q = tid; q < Nd * cv; q += nt) {
       const int d = by_cv(q);
       const int c = (q - d * cv) * VEC;
-      stage<VEC>(gs + (size_t)d * Cs + c, g + g0 + (size_t)d * C + c);
+      if (!whole)
+        stage<VEC>(gs + (size_t)d * Cs + c, g + g0 + (size_t)d * C + c);
       if (AGG == AGG_MAX) {
         uint8_t* a = as + (size_t)d * Cs + c;
         if (VEC == 4)
@@ -255,6 +325,11 @@ staged_bwd_kernel(const TH* __restrict__ g,
   }
   cp_async_wait_all();
   __syncthreads();
+  if (PACK && AGG == AGG_MEAN) {  // g / K in bf16, as staged_dm rounds it
+    for (int q = tid; q < Nd * Cs; q += nt)
+      gs[q] = from_f32<TH>(to_f32(gs[q]) * inv_k);
+    __syncthreads();
+  }
 
   // 2. softmax: dm once per (edge, vector), with m_k recomputed from the
   // staged rows in typed_mp_fwd.cu's order
@@ -316,12 +391,28 @@ staged_bwd_kernel(const TH* __restrict__ g,
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         if (ev[u] < 0) break;
+        if constexpr (PACK) {
+          const int d = by_k(ev[u]);
+          const uint2 v = staged_dm2<AGG>(gs, as, d, ev[u] - d * K, Cs, c);
+          float w[4];
+          Vec<4>::lds(et + (size_t)ev[u] * ET + t0, w);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float2 a = mul_rnd2(pair(v.x), w[i]);
+            const float2 b2 = mul_rnd2(pair(v.y), w[i]);
+            acc[i][0] = acc[i][0] + a.x;
+            acc[i][1] = acc[i][1] + a.y;
+            acc[i][2] = acc[i][2] + b2.x;
+            acc[i][3] = acc[i][3] + b2.y;
+          }
+          continue;
+        }
         float v[VEC], w[4];
         if (SOFTMAX) {
           Vec<VEC>::lds(dm + (size_t)ev[u] * Cs + c, v);
         } else {
           const int d = by_k(ev[u]);
-          staged_dm<AGG, VEC>(gs, as, d, ev[u] - d * K, Cs, c, inv_k, v);
+          staged_dm<DM_AGG, VEC>(gs, as, d, ev[u] - d * K, Cs, c, inv_k, v);
         }
         Vec<4>::lds(et + (size_t)ev[u] * ET + t0, w);
 #pragma unroll
@@ -372,11 +463,28 @@ staged_bwd_kernel(const TH* __restrict__ g,
     int m = (q & (VEC == 4 ? 7 : 31)) % per_lane;
     for (int n = 0; n < per_lane; ++n) {
       const int u = (gl + G * m) * VEC;
+      if constexpr (PACK && !EXT) {
+        const uint2 x = staged_dm2<AGG>(gs, as, d, e - d * K, Cs, u);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (t0 + i < T) {
+            const uint2 y = *reinterpret_cast<const uint2*>(hn + i * Cs + u);
+            const float2 a = mul_rnd2(pair(x.x), pair(y.x));
+            const float2 b2 = mul_rnd2(pair(x.y), pair(y.y));
+            acc[i][0] = acc[i][0] + a.x;
+            acc[i][1] = acc[i][1] + a.y;
+            acc[i][2] = acc[i][2] + b2.x;
+            acc[i][3] = acc[i][3] + b2.y;
+          }
+        }
+        if (++m == per_lane) m = 0;
+        continue;
+      }
       float x[VEC];
       if (SOFTMAX)
         Vec<VEC>::lds(dm + (size_t)e * Cs + u, x);
       else
-        staged_dm<AGG, VEC>(gs, as, d, e - d * K, Cs, u, inv_k, x);
+        staged_dm<DM_AGG, VEC>(gs, as, d, e - d * K, Cs, u, inv_k, x);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         if (t0 + i < T) {
@@ -426,11 +534,16 @@ int launch_staged(cudaStream_t st, const TH* g, const uint8_t* argmax,
                   const int32_t* src_ptr, const int32_t* src_edge,
                   const float* etype, const float* out, TH* dh,
                   float* d_etype, int B, int N, int Nd, int K, int T, int C,
-                  float gamma, float* part, int cs) {
+                  float gamma, float* part, int cs, int packed) {
   const int S = C / cs;
+  // the packed products where there are pairs to multiply (the entry
+  // refuses `packed` elsewhere)
+  constexpr bool CAN_PACK =
+      std::is_same<TH, bf16>::value && VEC == 4 && AGG != AGG_SOFTMAX;
   const size_t smem = staged_bytes((EXT ? 2 : 1) * N, Nd, K, T, cs,
                                    AGG == AGG_SOFTMAX, (int)sizeof(TH));
-  auto kernel = staged_bwd_kernel<AGG, VEC, EXT, TH>;
+  auto kernel = packed ? staged_bwd_kernel<AGG, VEC, EXT, TH, CAN_PACK>
+                       : staged_bwd_kernel<AGG, VEC, EXT, TH, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
       cudaSharedmemCarveoutMaxShared);
@@ -733,7 +846,9 @@ bool refused(const uint8_t* argmax, const float* out, int B, int N, int Nd,
 // C / cs <= 8 whose shared memory fits in a block.  With S = C / cs > 1,
 // `part` is scratch for the S partial sums of d_etype, (B, S, Nd, K, T)
 // f32.  `bf16` says g, h and dh are bf16 (the bf16 mode); `out` is the f32
-// log-sum-exp in either mode.
+// log-sum-exp in either mode.  `packed` picks the bf16 mode's products: 0
+// scalar (the kept route), 1 packed bf16 pairs, which max, sum and mean take
+// on the vector path (vec4) only.
 extern "C" int typed_mp_bwd_staged(const void* g, const uint8_t* argmax,
                                    const void* h, const int32_t* nn_idx,
                                    const int32_t* src_ptr,
@@ -742,11 +857,13 @@ extern "C" int typed_mp_bwd_staged(const void* g, const uint8_t* argmax,
                                    void* dh, float* d_etype, int B, int N,
                                    int Nd, int K, int T, int C,
                                    int aggregator, float gamma, int vec4,
-                                   int ext, int bf16_mode, float* part,
-                                   int cs, void* stream) {
+                                   int ext, int bf16_mode, int packed,
+                                   float* part, int cs, void* stream) {
   if (refused(argmax, out, B, N, Nd, K, T, C, aggregator, vec4, ext) ||
       cs <= 0 || C % cs != 0 || C / cs > MAX_SLABS || (vec4 && cs % 4 != 0) ||
       (C / cs > 1 && part == nullptr) || (long long)B * (C / cs) > INT_MAX ||
+      packed < 0 || packed > 1 ||
+      (packed && (!bf16_mode || !vec4 || aggregator == AGG_SOFTMAX)) ||
       (long long)B * Nd * K * T / THREADS >= INT_MAX ||
       staged_bytes((ext ? 2 : 1) * N, Nd, K, T, cs,
                    aggregator == AGG_SOFTMAX, bf16_mode ? 2 : 4) >
@@ -757,12 +874,13 @@ extern "C" int typed_mp_bwd_staged(const void* g, const uint8_t* argmax,
                            static_cast<const bf16*>(g), argmax,
                            static_cast<const bf16*>(h), nn_idx, src_ptr,
                            src_edge, etype, out, static_cast<bf16*>(dh),
-                           d_etype, B, N, Nd, K, T, C, gamma, part, cs);
+                           d_etype, B, N, Nd, K, T, C, gamma, part, cs,
+                           packed);
   return by_mode<Staged>(vec4, ext, aggregator, (cudaStream_t)stream,
                          static_cast<const float*>(g), argmax,
                          static_cast<const float*>(h), nn_idx, src_ptr,
                          src_edge, etype, out, static_cast<float*>(dh),
-                         d_etype, B, N, Nd, K, T, C, gamma, part, cs);
+                         d_etype, B, N, Nd, K, T, C, gamma, part, cs, 0);
 }
 
 // The kept route: the first kernels of the port, for any size.

@@ -1,6 +1,7 @@
 // Helpers shared by typed_mp_fwd.cu and typed_mp_bwd.cu: the aggregator
 // codes, loads and stores of 1 and 4 values of f32 or bf16 (converted to and
-// from f32 in registers), cp.async into shared memory, index division by one
+// from f32 in registers; 8 bf16 for the bf16-only routes), the packed bf16
+// products (mul_rnd2), cp.async into shared memory, index division by one
 // multiply, and the row stride of a staged slab of h.
 // ops/fused_mp.py:build rebuilds a library when this header changes.
 //
@@ -9,6 +10,8 @@
 // value where the bf16 mode of the TPU kernel rounds it (to nearest even, as
 // torch's .to(torch.bfloat16)), and is the identity for f32, so the f32
 // instantiations compute what they computed before the bf16 mode existed.
+// The bf16-only routes round through rnd<bf16> and mul_rnd2 alone (a store
+// to bf16 rounds too: out, dh, and mean's g / K in the backward).
 
 #pragma once
 
@@ -52,6 +55,34 @@ __device__ __forceinline__ float mac(float a, float b, float acc) {
     return fmaf(a, b, acc);
   else
     return acc + rnd<TH>(__fmul_rn(a, b));
+}
+
+// The bits of a bf16 pair, and the pair of f32 values a word of two bf16
+// holds (the low half is the first element).
+__device__ __forceinline__ unsigned bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+__device__ __forceinline__ float2 unpack2(unsigned w) {
+  return make_float2(__uint_as_float(w << 16),
+                     __uint_as_float(w & 0xffff0000u));
+}
+
+// The two products a.x b.x and a.y b.y of bf16 pairs, each rounded once to
+// bf16, as f32: one packed mul.rn.bf16x2 where the scalar bf16 mode pays
+// __fmul_rn, a round to bf16 and a widening per product.  The bits are
+// those of rnd<bf16>(__fmul_rn(a, b)): the product of two bf16 values (8
+// significant bits each) is exact in f32 wherever it lies in f32's normal
+// range, and below it rounding the f32 product to bf16 still gives the
+// rounding of the exact product (tests/test_torch_bf16_products.py).
+__device__ __forceinline__ float2 mul_rnd2(__nv_bfloat162 a,
+                                           __nv_bfloat162 b) {
+  unsigned r;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(bits(a)), "r"(bits(b)));
+  return unpack2(r);
+}
+// the same with b = (w, w): w rounded to bf16 first, as rnd<bf16>(w)
+__device__ __forceinline__ float2 mul_rnd2(__nv_bfloat162 a, float w) {
+  return mul_rnd2(a, __float2bfloat162_rn(w));
 }
 
 template <int VEC>
@@ -114,6 +145,37 @@ struct Vec<4> {
     q.x = *reinterpret_cast<const unsigned*>(&a);
     q.y = *reinterpret_cast<const unsigned*>(&b);
     *reinterpret_cast<uint2*>(p) = q;
+  }
+};
+
+// 8 bf16 in 16 bytes (the bf16-only routes), with their argmax (8 bytes)
+// and f32 log-sum-exp (32 bytes)
+template <>
+struct Vec<8> {
+  __device__ static void lds(const bf16* p, float* v) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = unpack2(w[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  __device__ static void store(bf16* p, const float* v) {
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = bits(__floats2bfloat162_rn(v[2 * i], v[2 * i + 1]));
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  __device__ static void store(float* p, const float* v) {
+    Vec<4>::store(p, v);
+    Vec<4>::store(p + 4, v + 4);
+  }
+  __device__ static void store_u8(uint8_t* p, const int* v) {
+    Vec<4>::store_u8(p, v);
+    Vec<4>::store_u8(p + 4, v + 4);
   }
 };
 

@@ -29,17 +29,34 @@
 // extension) it reads h 15.7 MB and etype 1.1 MB and writes 0.6 MB with the
 // argmax: 17 MB, or 5 us, against 53 MFLOP.
 //
-// Two routes, each behind its own C entry point; ops/fused_mp.py:fwd_slab
-// picks one from the shapes alone, before the launch:
+// Three routes, each behind its own C entry point; ops/fused_mp.py
+// (fwd_sample, fwd_slab) picks one from the shapes alone, before the launch:
 //
+// * typed_mp_fwd_sample: sample_fwd_kernel, NO_EXTENSION in the bf16 mode
+//   (the LDPC path under --bf16).  The first kernel (below) ran 4 channels a
+//   thread, 8-byte loads in bf16, as many load instructions as f32 for half
+//   the bytes; each thread walked its K edges and T types one after another
+//   behind a dependent index load, read every gathered h row from L2 (each
+//   row K Nd / N_src times: 6 at LDPC f2v, 3 at v2f), and rounded the same
+//   etype weight in each of the C/4 threads of a row: 31% of its byte bound
+//   at the LDPC shapes.  Here one block per sample copies the whole of the
+//   sample's bf16 h (25-98 KB at the LDPC shapes) into shared memory with
+//   16-byte cp.async, so each byte crosses L2 once per block, and rounds the
+//   sample's etype once per (d, k, t) into shared memory; a thread then
+//   takes 8 channels (16-byte loads) of a row and forms its messages out of
+//   shared memory in the kept kernel's order, so out, the argmax and the
+//   log-sum-exp keep its bits.  The kept kernel takes a sample too wide for
+//   a block, C % 8 != 0, and batches that leave more than half the SMs
+//   without a block (ops/fused_mp.py:fwd_sample; timed in chip_smoke.py).
 // * typed_mp_fwd: typed_mp_fwd_kernel, the first kernel of the port, every
-//   NO_EXTENSION launch.  Threads run along c in 16-byte vectors, a block
+//   f32 NO_EXTENSION launch.  Threads run along c in 16-byte vectors, a block
 //   takes 256 / (C / 4) rows, and each thread forms its row's K messages one
 //   after another, reading h rows from L2 by nn_idx (none of the TPU
 //   kernel's one-hot gather matmuls, k-major layouts or tile/VMEM policy).
-//   At the LDPC batch of 256 that fills the card.  For the extensions it is
-//   kept for graphs too wide to stage, and as the baseline the staged route
-//   is timed against (chip_smoke.py).
+//   At the LDPC batch of 256 that fills the card.  Its bf16 instantiation
+//   is the kept route of the bf16 mode (slab=0 in the wrapper), and for the
+//   extensions it is kept for graphs too wide to stage; both are the
+//   baselines the newer routes are timed against (chip_smoke.py).
 // * typed_mp_fwd_staged: staged_fwd_kernel, DIFF/NEIGHBOR.  At the synthetic
 //   models' B=32 the first kernel ran 4-30 thousand threads, each through a
 //   serial chain of K T steps with two 16-byte L2 loads each, and re-read the
@@ -56,8 +73,9 @@
 //   G come from the shapes, so that the grid keeps most SMs busy at C=2 and
 //   a block fills at Nd=30.
 //
-// Both routes have an f32 and a bf16 mode (the template argument TH, the
-// storage type of h and out), as the TPU kernel's mm_dtype.  The bf16 mode
+// The first two routes have an f32 and a bf16 mode (the template argument
+// TH, the storage type of h and out), as the TPU kernel's mm_dtype; the
+// sample route has the bf16 mode only.  The bf16 mode
 // reads bf16 h, rounds etype to bf16 as it reads it, forms the messages and
 // their aggregate in f32 exactly as the f32 mode does, and rounds out once to
 // bf16 on the store; softmax may also write the f32 log-sum-exp (`lse`),
@@ -477,6 +495,118 @@ int by_kc(int kc, int aggregator, A... a) {
   return dispatch_staged<VEC, MAX_KC, TH>(aggregator, a...);
 }
 
+// --------------------------------------------------------------------------
+// the sample route: NO_EXTENSION in the bf16 mode
+
+constexpr int SAMPLE_THREADS = 512;  // most threads a block
+
+// Shared memory of one block of the sample route, in bytes, each region
+// 16-byte aligned: the sample's h (N, T, C) bf16 as it lies in device
+// memory, its etype (Nd K T) rounded to bf16 and held as f32, and the table
+// (Nd K) int32.
+__host__ __device__ inline size_t sample_bytes(int N, int Nd, int K, int T,
+                                               int C) {
+  return pad16((size_t)N * T * C * sizeof(bf16)) +
+         4 * pad4((size_t)Nd * K * T) + 4 * pad4((size_t)Nd * K);
+}
+
+// Block b takes sample b.  It copies the whole of the sample's h into
+// shared memory with 16-byte cp.async, the table likewise, and rounds the
+// sample's etype to bf16 once per (d, k, t) into shared memory.  Then one
+// item per (row, vector of 8 channels) forms the K messages in the kept
+// kernel's order (fmaf over ascending t from 0, then the aggregate over
+// ascending k), so out, the argmax and the log-sum-exp are the kept bf16
+// kernel's bits.
+template <int AGG>
+__global__ void __launch_bounds__(SAMPLE_THREADS)
+sample_fwd_kernel(const bf16* __restrict__ h,
+                  const int32_t* __restrict__ nn_idx,
+                  const float* __restrict__ etype, bf16* __restrict__ out,
+                  uint8_t* __restrict__ argmax, float* __restrict__ lse,
+                  int N, int Nd, int K, int T, int C, float gamma) {
+  constexpr int VEC = 8;
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.x;
+  const int TC = T * C;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  bf16* hs = reinterpret_cast<bf16*>(smem);
+  float* ws = reinterpret_cast<float*>(reinterpret_cast<char*>(smem) +
+                                       pad16((size_t)N * TC * sizeof(bf16)));
+  int* nn = reinterpret_cast<int*>(ws + pad4((size_t)Nd * K * T));
+
+  // 1. stage the sample's h, the table and the rounded etype
+  const bf16* hb = h + (size_t)b * N * TC;
+  for (int q = tid; q < N * TC / VEC; q += nt)
+    cp_async(hs + VEC * q, hb + VEC * q, 16);
+  for (int q = tid; q < Nd * K; q += nt) cp_async(nn + q, nn_idx + q, 4);
+  const float* eb = etype + (size_t)b * Nd * K * T;
+  for (int q = tid; q < Nd * K * T; q += nt) ws[q] = rnd<bf16>(__ldg(eb + q));
+  cp_async_wait_all();
+  __syncthreads();
+
+  // 2. one item per (row d, vector of channels)
+  const int cv = C / VEC;
+  const FastDiv by_cv(cv);
+  for (int q = tid; q < Nd * cv; q += nt) {
+    const int d = by_cv(q);
+    const int c = (q - d * cv) * VEC;
+    const int* nk = nn + d * K;
+    const float* w = ws + d * K * T;
+    float acc[VEC], s[VEC];
+    int am[VEC];
+    for (int k = 0; k < K; ++k) {
+      const bf16* hr = hs + nk[k] * TC + c;
+      const float* wk = w + k * T;
+      float m[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) m[i] = 0.f;
+#pragma unroll 4
+      for (int t = 0; t < T; ++t) {
+        float hv[VEC];
+        Vec<VEC>::lds(hr + t * C, hv);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) m[i] = fmaf(wk[t], hv[i], m[i]);
+      }
+      agg_step<AGG, VEC>(m, k, k == 0, gamma, acc, s, am);
+    }
+    agg_finish<AGG, VEC>(K, gamma, s, acc);
+    const size_t o = ((size_t)b * Nd + d) * C + c;
+    Vec<VEC>::store(out + o, acc);
+    if (AGG == AGG_MAX && argmax != nullptr) Vec<VEC>::store_u8(argmax + o, am);
+    if (AGG == AGG_SOFTMAX && lse != nullptr) Vec<VEC>::store(lse + o, acc);
+  }
+}
+
+template <int AGG>
+int launch_sample(cudaStream_t st, unsigned blocks, int threads, size_t smem,
+                  const bf16* h, const int32_t* nn_idx, const float* etype,
+                  bf16* out, uint8_t* argmax, float* lse, int N, int Nd,
+                  int K, int T, int C, float gamma) {
+  auto kernel = sample_fwd_kernel<AGG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, threads, smem, st>>>(h, nn_idx, etype, out, argmax, lse,
+                                        N, Nd, K, T, C, gamma);
+  return (int)cudaGetLastError();
+}
+
+template <typename... A>
+int dispatch_sample(int aggregator, A... a) {
+  switch (aggregator) {
+    case AGG_MAX: return launch_sample<AGG_MAX>(a...);
+    case AGG_SUM: return launch_sample<AGG_SUM>(a...);
+    case AGG_MEAN: return launch_sample<AGG_MEAN>(a...);
+    case AGG_SOFTMAX: return launch_sample<AGG_SOFTMAX>(a...);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // The storage type of h and out: bf16 or f32.
 template <typename F>
 int by_type(int bf16_mode, const void* h, void* out, F&& f) {
@@ -570,4 +700,37 @@ extern "C" int typed_mp_fwd_staged(const void* h, const int32_t* nn_idx,
                                nn_idx, etype, op, argmax, lse, N, K, T, C, cs,
                                tiles, tile_rows, lg, vec_fast, gamma);
   });
+}
+
+// The sample route, NO_EXTENSION in the bf16 mode (h (B, N, T, C) bf16,
+// out bf16): one block per sample, the whole of the sample's h in shared
+// memory, 8 channels a thread.  It takes C % 8 == 0 and 16-byte aligned h,
+// out and lse; ops/fused_mp.py:fwd_sample plans it only where the samples
+// give at least every second SM a block.  `argmax` and `lse` as for
+// typed_mp_fwd.
+extern "C" int typed_mp_fwd_sample(const void* h, const int32_t* nn_idx,
+                                   const float* etype, void* out,
+                                   uint8_t* argmax, float* lse, int B, int N,
+                                   int Nd, int K, int T, int C,
+                                   int aggregator, float gamma,
+                                   void* stream) {
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(out) |
+        reinterpret_cast<uintptr_t>(lse)) & 15) == 0;
+  if (B <= 0 || N <= 0 || Nd <= 0 || K <= 0 || K > 255 || T <= 0 || C <= 0 ||
+      C % 8 != 0 || !aligned ||
+      sample_bytes(N, Nd, K, T, C) > SMEM_PER_BLOCK)
+    return (int)cudaErrorInvalidValue;
+  // as few threads as run the items in the same number of steps
+  const long long items = (long long)Nd * (C / 8);
+  const long long steps = (items + SAMPLE_THREADS - 1) / SAMPLE_THREADS;
+  const int threads = (int)std::max<long long>(
+      32, ((items + steps - 1) / steps + 31) / 32 * 32);
+  const size_t smem = sample_bytes(N, Nd, K, T, C);
+  cudaStream_t s = (cudaStream_t)stream;
+  const bf16* hp = static_cast<const bf16*>(h);
+  bf16* op = static_cast<bf16*>(out);
+  return dispatch_sample(aggregator, s, (unsigned)B, threads, smem, hp,
+                         nn_idx, etype, op, argmax, lse, N, Nd, K, T, C,
+                         gamma);
 }

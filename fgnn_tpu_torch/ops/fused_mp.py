@@ -12,7 +12,11 @@ replace its Pallas TPU kernels, in both of their modes,
 
   plus, for max, the first-win argmax over k (strict ``>``, as the TPU
   kernel) as uint8.  NO_EXTENSION runs the first kernel of the port
-  (``typed_mp_fwd``); the DIFF/NEIGHBOR mode has two routes, the staged
+  (``typed_mp_fwd``) in f32; in bf16 the sample route
+  (``typed_mp_fwd_sample``, one block per sample with its whole h in
+  shared memory), planned by ``fwd_sample``, and the first kernel where
+  the plan refuses it (a sample too wide, C % 8 != 0, a batch too small to
+  give every second SM a block).  The DIFF/NEIGHBOR mode has two routes, the staged
   kernel (``typed_mp_fwd_staged``, one block per sample, slab of channels
   and tile of rows out of shared memory), planned by ``fwd_slab`` from the
   shapes alone, and the first kernel where no slab fits;
@@ -30,7 +34,11 @@ replace its Pallas TPU kernels, in both of their modes,
   (``typed_mp_bwd_staged``) runs one block per (sample, slab of channels)
   out of shared memory; ``bwd_slab`` picks the slab from the shapes alone.
   Where no slab fits (N_src in the thousands), the first kernels of the
-  port (``typed_mp_bwd``) run instead.
+  port (``typed_mp_bwd``) run instead.  In bf16 the staged kernel forms
+  the products of max, sum and mean on the vector path two at a time from
+  bf16 pairs (``packed``, ``bwd_packed``), with the bits of its scalar
+  products, which ``packed=False`` keeps reachable; softmax and the scalar
+  path run the scalar products.
 
 The DIFF/NEIGHBOR mode (``ext=True``) takes h (B, 2 N, T, C) with two rows
 per node, interleaved: the self row 2 n (x_n W_a) and the neighbour row
@@ -67,7 +75,11 @@ Beside each kernel, as every kernel of the port has them:
   staged routes count the staged kernels, ``KEPT_EXT_COUNTS``,
   ``KEPT_BWD_COUNTS`` and ``KEPT_EXT_BWD_COUNTS`` the kept ones); the
   ``bf16_launches`` of each counts the launches of the bf16 mode among
-  its ``kernel_launches``;
+  its ``kernel_launches``; in the bf16 mode ``COUNTS`` counts the sample
+  route and ``BWD_COUNTS``/``EXT_BWD_COUNTS`` the packed products,
+  ``KEPT_BF16_COUNTS``, ``KEPT_BF16_BWD_COUNTS`` and
+  ``KEPT_BF16_EXT_BWD_COUNTS`` the kept bf16 routes, each launch under the
+  route that ran;
 * a wrapper (``typed_gather_mix_agg``, ``typed_gather_mix_agg_bwd``).  A
   CPU tensor goes to the plain version, a CUDA tensor to the kernel, or
   the wrapper raises; nothing falls back.
@@ -106,6 +118,11 @@ KEPT_EXT_COUNTS = {"kernel_launches": 0, "bf16_launches": 0}
 # the kept backward takes f32 only
 KEPT_BWD_COUNTS = {"kernel_launches": 0}
 KEPT_EXT_BWD_COUNTS = {"kernel_launches": 0}
+# the bf16 mode's kept routes: the first NO_EXTENSION forward kernel, and
+# the staged backward with scalar products, per mode
+KEPT_BF16_COUNTS = {"kernel_launches": 0, "bf16_launches": 0}
+KEPT_BF16_BWD_COUNTS = {"kernel_launches": 0, "bf16_launches": 0}
+KEPT_BF16_EXT_BWD_COUNTS = {"kernel_launches": 0, "bf16_launches": 0}
 
 KERNELS = ("typed_mp_fwd", "typed_mp_bwd")
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
@@ -122,14 +139,17 @@ _ARGTYPES = {
     # the same with the channels per block in place of ext
     "typed_mp_fwd_staged": [_PTR] * 6 + [_INT] * 7 + [ctypes.c_float]
     + [_INT] * 3 + [_PTR],
+    # the same without vec4 bf16 ext
+    "typed_mp_fwd_sample": [_PTR] * 6 + [_INT] * 7 + [ctypes.c_float]
+    + [_PTR],
     # g, argmax, h, nn_idx, src_ptr, src_edge, etype, out, dh, d_etype;
     # B N Nd K T C agg; gamma; vec4 ext; stream (f32 only)
     "typed_mp_bwd": [_PTR] * 10 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 2
     + [_PTR],
-    # the same with bf16 after ext, then scratch for the slabs' partial
-    # sums of d_etype and the channels per block before the stream
+    # the same with bf16 and packed after ext, then scratch for the slabs'
+    # partial sums of d_etype and the channels per block before the stream
     "typed_mp_bwd_staged": [_PTR] * 10 + [_INT] * 7 + [ctypes.c_float]
-    + [_INT] * 3 + [_PTR, _INT, _PTR],
+    + [_INT] * 4 + [_PTR, _INT, _PTR],
 }
 _libs = {}
 
@@ -144,7 +164,9 @@ def library(name: str) -> str:
 
 def reset_counts() -> None:
     for counts in (COUNTS, BWD_COUNTS, EXT_COUNTS, EXT_BWD_COUNTS,
-                   KEPT_EXT_COUNTS, KEPT_BWD_COUNTS, KEPT_EXT_BWD_COUNTS):
+                   KEPT_EXT_COUNTS, KEPT_BWD_COUNTS, KEPT_EXT_BWD_COUNTS,
+                   KEPT_BF16_COUNTS, KEPT_BF16_BWD_COUNTS,
+                   KEPT_BF16_EXT_BWD_COUNTS):
         for k in counts:
             counts[k] = 0
 
@@ -415,6 +437,26 @@ def checked_fwd_slab(slab, B: int, rows: int, Nd: int, K: int, T: int,
     return slab
 
 
+def sample_bytes(N: int, Nd: int, K: int, T: int, C: int) -> int:
+    """Shared memory of one block of the bf16 NO_EXTENSION forward's
+    sample route (``sample_bytes`` in ``csrc/typed_mp_fwd.cu``), each region
+    16-byte aligned: the sample's h (N, T, C) bf16, its etype rounded to
+    bf16 and held as f32 (Nd K T) and the table (Nd K) int32."""
+    return _pad16(N * T * C, 2) + 4 * _pad4(Nd * K * T) + 4 * _pad4(Nd * K)
+
+
+def fwd_sample(B: int, N: int, Nd: int, K: int, T: int, C: int,
+               esz: int = 4) -> bool:
+    """Whether the NO_EXTENSION forward of h (B, N, T, C) of ``esz``-byte
+    elements takes the sample route, from the shapes alone: the bf16 mode,
+    whole 16-byte vectors of channels (C % 8 == 0), a whole sample of h in
+    a block's shared memory, and at least one block (sample) for every
+    second SM; else the kept kernel runs.  ``chip_smoke.py`` times both
+    routes at and above that batch."""
+    return (esz == 2 and C % 8 == 0 and 2 * B >= SMS
+            and sample_bytes(N, Nd, K, T, C) <= SMEM_PER_BLOCK)
+
+
 def typed_gather_mix_agg(h, nn_idx, etype, aggregator: str,
                          gamma: float = 3.0, want_argmax: bool = False,
                          ext: bool = False, slab=None,
@@ -429,8 +471,10 @@ def typed_gather_mix_agg(h, nn_idx, etype, aggregator: str,
     the host).  ``ext`` selects the DIFF/NEIGHBOR mode, and for it ``slab``
     the staged kernel's channels per block, ``fwd_slab`` of the shapes by
     default; 0 takes the kept kernel (the checks on the card pass it to
-    hold and time both routes).  NO_EXTENSION has one route.  A bf16 h
-    selects the bf16 mode of either route."""
+    hold and time both routes).  A bf16 h selects the bf16 mode of either
+    route.  NO_EXTENSION in the bf16 mode takes the sample route where
+    ``fwd_sample`` plans it and h is 16-byte aligned, and ``slab=0`` the
+    kept kernel; in f32 it has the kept kernel only."""
     counts = EXT_COUNTS if ext else COUNTS
     if slab and not ext:
         raise ValueError("the staged forward takes the DIFF/NEIGHBOR mode "
@@ -448,6 +492,8 @@ def typed_gather_mix_agg(h, nn_idx, etype, aggregator: str,
     Nd, K = nn_idx.shape
     N = rows // 2 if ext else rows
     bf16 = h.dtype == torch.bfloat16
+    sample = (not ext and slab is None and h.data_ptr() % 16 == 0
+              and fwd_sample(B, N, Nd, K, T, C, h.element_size()))
     slab = (checked_fwd_slab(slab, B, rows, Nd, K, T, C, aggregator,
                              h.element_size()) if ext else 0)
     out = torch.empty((B, Nd, C), dtype=h.dtype, device=h.device)
@@ -459,7 +505,10 @@ def typed_gather_mix_agg(h, nn_idx, etype, aggregator: str,
     args = (h.data_ptr(), nn_idx.data_ptr(), etype.data_ptr(),
             out.data_ptr(), _ptr(am), _ptr(lse), B, N, Nd, K, T, C,
             AGGREGATORS[aggregator], float(gamma), vec4, int(bf16))
-    if slab:
+    if sample:
+        _launch("typed_mp_fwd", "typed_mp_fwd_sample", h.device,
+                (B, N, Nd, K, T, C), *args[:-2])
+    elif slab:
         _launch("typed_mp_fwd", "typed_mp_fwd_staged", h.device,
                 (B, N, Nd, K, T, C), *args, slab)
     else:
@@ -467,6 +516,8 @@ def typed_gather_mix_agg(h, nn_idx, etype, aggregator: str,
                 (B, N, Nd, K, T, C), *args, int(ext))
         if ext:
             counts = KEPT_EXT_COUNTS
+        elif bf16:
+            counts = KEPT_BF16_COUNTS
     counts["kernel_launches"] += 1
     if bf16:
         counts["bf16_launches"] += 1
@@ -567,6 +618,15 @@ def bwd_slab(B: int, rows: int, Nd: int, K: int, T: int, C: int,
     return _busiest(staged_slabs(rows, Nd, K, T, C, aggregator, esz), B, C)
 
 
+def bwd_packed(C: int, slab: int, aggregator: str, esz: int = 4) -> bool:
+    """Whether the staged backward with ``slab`` channels a block forms
+    packed bf16 products: the bf16 mode, max, sum or mean (softmax's dm is
+    f32), and the vector path (C and the slab multiples of 4; the wrapper
+    also asks 16-byte aligned tensors).  Else the scalar products run."""
+    return (esz == 2 and aggregator != "softmax" and slab > 0
+            and C % 4 == 0 and slab % 4 == 0)
+
+
 def checked_slab(slab, B: int, rows: int, Nd: int, K: int, T: int, C: int,
                  aggregator: str, esz: int = 4) -> int:
     """``slab`` if the staged kernel takes it (0, the kept kernels, always),
@@ -627,7 +687,7 @@ def check_bwd_args(g, h, nn_idx, src_ptr, src_edge, etype, aggregator: str,
 def typed_gather_mix_agg_bwd(g, h, nn_idx, src_ptr, src_edge, etype,
                              aggregator: str, gamma: float = 3.0,
                              argmax=None, out=None, ext: bool = False,
-                             slab=None):
+                             slab=None, packed=None):
     """(dh (B, N, T, C) in h's dtype, d_etype (B, Nd, K, T) f32).
 
     CPU tensors take the plain version; CUDA tensors launch a kernel or
@@ -637,7 +697,13 @@ def typed_gather_mix_agg_bwd(g, h, nn_idx, src_ptr, src_edge, etype,
     is the staged kernel's channels per block, ``bwd_slab`` of the shapes
     by default; 0 takes the kept kernels (the checks on the card pass it
     to hold and time both routes).  A bf16 h selects the bf16 mode, which
-    the staged kernel alone has: the kept kernels raise ``TypeError``."""
+    the staged kernel alone has: the kept kernels raise ``TypeError``.
+    ``packed`` picks the bf16 mode's products: packed bf16 pairs where
+    ``bwd_packed`` says they exist and g, h and dh are 16-byte aligned (the
+    default), or, with False, the scalar products of the kept bf16 route;
+    the two give the same bits.  A launch counts under the route that ran:
+    softmax and the scalar path count as the kept route either way.  f32
+    has the scalar route only."""
     counts = EXT_BWD_COUNTS if ext else BWD_COUNTS
     if h.device.type == "cpu":
         counts["plain_calls"] += 1
@@ -656,6 +722,8 @@ def typed_gather_mix_agg_bwd(g, h, nn_idx, src_ptr, src_edge, etype,
     if aggregator != "softmax":
         out = None
     bf16 = h.dtype == torch.bfloat16
+    if packed and not bf16:
+        raise ValueError("the packed products exist in the bf16 mode only")
     slab = checked_slab(slab, B, rows, Nd, K, T, C, aggregator,
                         h.element_size())
     if bf16 and not slab:
@@ -676,8 +744,14 @@ def typed_gather_mix_agg_bwd(g, h, nn_idx, src_ptr, src_edge, etype,
     if slab:
         part = (etype.new_empty((B, C // slab) + etype.shape[1:])
                 if slab < C else None)
+        packed = (packed is not False and bool(vec4)
+                  and bwd_packed(C, slab, aggregator, h.element_size()))
         _launch("typed_mp_bwd", "typed_mp_bwd_staged", h.device,
-                (B, N, Nd, K, T, C), *args, int(bf16), _ptr(part), slab)
+                (B, N, Nd, K, T, C), *args, int(bf16), int(packed),
+                _ptr(part), slab)
+        if bf16 and not packed:
+            counts = (KEPT_BF16_EXT_BWD_COUNTS if ext
+                      else KEPT_BF16_BWD_COUNTS)
     else:
         _launch("typed_mp_bwd", "typed_mp_bwd", h.device,
                 (B, N, Nd, K, T, C), *args)

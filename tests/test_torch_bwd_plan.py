@@ -155,3 +155,86 @@ def test_cpu_backward_is_the_plain_version_on_either_route(slab):
     assert fused_mp.KEPT_BWD_COUNTS == {"kernel_launches": 0}
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# the bf16 mode's packed route: the staged kernel's plan with bf16 slabs
+
+
+@pytest.mark.parametrize("name,cs,nbytes", [
+    # one slab a sample at every LDPC shape in bf16 (v2f C=128 takes two in
+    # f32): the same blocks as the kept scalar route
+    ("f2v_c64", 64, 51280), ("f2v_c128", 128, 94288),
+    ("v2f_c64", 64, 66832), ("v2f_c128", 128, 125200)])
+def test_ldpc_shapes_take_the_packed_bf16_route(name, cs, nbytes):
+    (shape,) = [s for s in SMOKE if s[0] == name]
+    _, B, rows, Nd, K, T, C, agg = shape
+    assert fused_mp.bwd_slab(B, rows, Nd, K, T, C, agg, 2) == cs
+    assert fused_mp.staged_bytes(rows, Nd, K, T, cs, agg, 2) == nbytes
+    assert nbytes <= fused_mp.SMEM_PER_BLOCK == 232448
+    assert cs % 4 == 0  # the packed pairs: the vector path
+
+
+@pytest.mark.parametrize("name,cs", [
+    ("f2v_c64", 64), ("f2v_c128", 128), ("v2f_c64", 64), ("v2f_c128", 64)])
+def test_f32_backward_keeps_its_plan(name, cs):
+    (shape,) = [s for s in SMOKE if s[0] == name]
+    _, B, rows, Nd, K, T, C, agg = shape
+    assert fused_mp.bwd_slab(B, rows, Nd, K, T, C, agg) == cs
+    assert fused_mp.bwd_slab(B, rows, Nd, K, T, C, agg, 4) == cs
+
+
+@pytest.mark.parametrize("rows,Nd", [(4096, 64), (9000, 3)])
+def test_a_graph_too_wide_takes_no_bf16_slab(rows, Nd):
+    # no staged slab, hence no packed route; the kept kernels take f32 only
+    assert fused_mp.bwd_slab(2, rows, Nd, 3, 4, 64, "max", 2) == 0
+
+
+@pytest.mark.parametrize("packed", [None, False, True])
+def test_cpu_bf16_backward_is_the_plain_version_on_either_route(packed):
+    rng = np.random.default_rng(3)
+    B, N, Nd, K, T, C = 2, 6, 5, 3, 2, 8
+    h = torch.from_numpy(rng.standard_normal((B, N, T, C), np.float32))
+    h = h.to(torch.bfloat16)
+    table = GatherTable(rng.integers(0, N, (Nd, K)).astype(np.int32), N)
+    et = torch.from_numpy(rng.standard_normal((B, Nd, K, T), np.float32))
+    g = torch.from_numpy(rng.standard_normal((B, Nd, C), np.float32))
+    g = g.to(torch.bfloat16)
+    fused_mp.reset_counts()
+    got = fused_mp.typed_gather_mix_agg_bwd(
+        g, h, table.idx, table.src_ptr, table.src_edge, et, "mean",
+        packed=packed)
+    ref = fused_mp.typed_gather_mix_agg_bwd_plain(g, h, table.idx, et,
+                                                  "mean")
+    assert fused_mp.BWD_COUNTS["plain_calls"] == 1
+    assert fused_mp.KEPT_BF16_BWD_COUNTS == {"kernel_launches": 0,
+                                             "bf16_launches": 0}
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("agg,esz,C,cs,packed", [
+    # max, sum and mean of the bf16 mode on the vector path
+    ("max", 2, 64, 64, True), ("sum", 2, 64, 64, True),
+    ("mean", 2, 64, 64, True), ("max", 2, 128, 64, True),
+    ("max", 2, 24, 12, True),
+    # softmax's dm is f32; f32 has the scalar route; C or the slab not a
+    # multiple of 4 is the scalar path; no slab is the kept kernels
+    ("softmax", 2, 64, 64, False), ("max", 4, 64, 64, False),
+    ("max", 2, 30, 30, False), ("max", 2, 2, 2, False),
+    ("max", 2, 24, 6, False), ("max", 2, 64, 0, False)])
+def test_packed_products_where_both_operands_are_bf16_pairs(agg, esz, C, cs,
+                                                            packed):
+    assert fused_mp.bwd_packed(C, cs, agg, esz) == packed
+
+
+@pytest.mark.parametrize("name", ["hop_pw_c64", "hop_high_c64", "hop_pw_c2",
+                                  "hop_high_c2"])
+def test_hop_path_packs_its_max_convs_and_not_its_softmax_convs(name):
+    """The hop step's bf16 backward: the 10 DIFF max convs (C=64) take the
+    packed products, the 2 softmax convs (C=2) the scalar ones, which the
+    wrapper counts as the kept bf16 route."""
+    (shape,) = [s for s in chip_smoke.EXT_SHAPES if s[0] == name]
+    _, B, N, K, T, C, agg, per_hop, _ = shape
+    cs = fused_mp.bwd_slab(B, 2 * N, N, K, T, C, agg, 2)
+    assert fused_mp.bwd_packed(C, cs, agg, 2) == (agg == "max")
+    assert chip_smoke.HOP_PACKED_PER_STEP == 10

@@ -472,11 +472,17 @@ def test_typed_kernel_matches_plain(cuda, shape, agg, dtype):
     dt = DTYPES[dtype]
     h, idx, et = _inputs(shape, cuda)
     h = h.to(dt)
-    before = fused_mp.COUNTS["bf16_launches"]
+    # the bf16 launches of either route: at these batches the plan sends
+    # bf16 to the kept kernel (fwd_sample)
+    def bf16_launches():
+        return (fused_mp.COUNTS["bf16_launches"]
+                + fused_mp.KEPT_BF16_COUNTS["bf16_launches"])
+
+    before = bf16_launches()
     lse = agg == "softmax"
     got = fused_mp.typed_gather_mix_agg(h, idx, et, agg, 3.0, agg == "max",
                                         want_lse=lse)
-    assert fused_mp.COUNTS["bf16_launches"] == before + (dtype == "bf16")
+    assert bf16_launches() == before + (dtype == "bf16")
     ref = fused_mp.typed_gather_mix_agg_plain(h, idx, et, agg, 3.0,
                                               agg == "max", want_lse=lse)
     torch.cuda.synchronize()
@@ -526,12 +532,18 @@ def test_typed_bwd_kernel_matches_plain(cuda, shape, agg, dtype):
     equal."""
     dt = DTYPES[dtype]
     g, h, table, et, am, lse = _typed_bwd_inputs(shape, cuda, agg, dt)
-    before = fused_mp.BWD_COUNTS["bf16_launches"]
+
+    # the bf16 launches of either set of products: softmax and C=30 run
+    # the scalar ones, counted as the kept bf16 route
+    def bf16_launches():
+        return (fused_mp.BWD_COUNTS["bf16_launches"]
+                + fused_mp.KEPT_BF16_BWD_COUNTS["bf16_launches"])
+
+    before = bf16_launches()
     runs = [fused_mp.typed_gather_mix_agg_bwd(
         g, h, table.idx, table.src_ptr, table.src_edge, et, agg, 3.0,
         argmax=am, out=lse) for _ in range(2)]
-    assert fused_mp.BWD_COUNTS["bf16_launches"] == \
-        before + 2 * (dtype == "bf16")
+    assert bf16_launches() == before + 2 * (dtype == "bf16")
     ref = fused_mp.typed_gather_mix_agg_bwd_plain(
         g, h, table.idx, et, agg, 3.0, argmax=am, out=lse)
     torch.cuda.synchronize()
@@ -655,9 +667,122 @@ def test_bf16_conv_backward_on_cuda(cuda, ext):
         assert out.dtype == torch.bfloat16
         out.float().sin().sum().backward()
         if dev != "cpu":
+            # either route's bf16 launches: at B=4 the plan sends the
+            # NO_EXTENSION forward to the kept kernel
             fwd, bwd = ((fused_mp.EXT_COUNTS, fused_mp.EXT_BWD_COUNTS)
                         if ext else (fused_mp.COUNTS, fused_mp.BWD_COUNTS))
-            assert fwd["bf16_launches"] == 1 and bwd["bf16_launches"] == 1
+            kept = fused_mp.KEPT_BF16_COUNTS["bf16_launches"]
+            assert fwd["bf16_launches"] + kept == 1
+            assert bwd["bf16_launches"] == 1
         grads.append([t.grad.float().cpu() for t in ts])
     for got, ref in zip(grads[1], grads[0]):
         assert ((got - ref).norm() / ref.norm()).item() <= BF16_REL_L2
+
+
+# --------------------------------------------------------------------------
+# the bf16 mode's new routes: the NO_EXTENSION forward's sample route (the
+# kept kernel with slab=0) and the staged backward's packed products (the
+# scalar ones with packed=False), held to their plain versions and, bit for
+# bit, to the kept routes
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else \
+        t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _same_bits(a, b):
+    return all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b))
+
+
+# the LDPC f2v / v2f shapes at the smallest batch of the sample route (one
+# sample for every second SM), and the ragged ones, which the plan sends to
+# the kept forward (and C=30 to the scalar products)
+BF16_SHAPES = [(66, 48, 96, 3, 4, 64), (66, 96, 48, 6, 4, 128)] + SHAPES[2:]
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+@pytest.mark.parametrize("agg", ["max", "sum", "mean", "softmax"])
+def test_bf16_new_routes_match_plain_and_kept(cuda, shape, agg):
+    B, N, Nd, K, T, C = shape
+    sample = fused_mp.fwd_sample(B, N, Nd, K, T, C, 2)
+    packed = fused_mp.bwd_packed(
+        C, fused_mp.bwd_slab(B, N, Nd, K, T, C, agg, 2), agg, 2)
+    assert sample == (B == 66)  # the ragged shapes: a few samples
+    assert packed == (agg != "softmax" and C % 4 == 0)
+    g, h, table, et, am, lse = _typed_bwd_inputs(shape, cuda, agg,
+                                                 torch.bfloat16, seed=4)
+    kw = dict(want_argmax=agg == "max", want_lse=agg == "softmax")
+    two = agg in ("max", "softmax")
+    fused_mp.reset_counts()
+    runs = [fused_mp.typed_gather_mix_agg(h, table.idx, et, agg, 3.0,
+                                          slab=slab, **kw)
+            for slab in (None, None, 0)]
+    # each launch counted under the route that ran
+    assert fused_mp.COUNTS["bf16_launches"] == (2 if sample else 0)
+    assert fused_mp.KEPT_BF16_COUNTS["kernel_launches"] == \
+        (1 if sample else 3)
+    ref = fused_mp.typed_gather_mix_agg_plain(h, table.idx, et, agg, 3.0,
+                                              **kw)
+    new, again, kept = ((r if two else (r,)) for r in runs)
+    torch.cuda.synchronize()
+    assert _same_bits(new, again) and _same_bits(new, kept)
+    _close(new[0], ref[0] if two else ref, torch.bfloat16)
+    bwd = [fused_mp.typed_gather_mix_agg_bwd(
+        g, h, table.idx, table.src_ptr, table.src_edge, et, agg, 3.0,
+        argmax=am, out=lse, packed=packed) for packed in (None, None, False)]
+    assert fused_mp.BWD_COUNTS["bf16_launches"] == (2 if packed else 0)
+    assert fused_mp.KEPT_BF16_BWD_COUNTS["kernel_launches"] == \
+        (1 if packed else 3)
+    bref = fused_mp.typed_gather_mix_agg_bwd_plain(
+        g, h, table.idx, et, agg, 3.0, argmax=am, out=lse)
+    torch.cuda.synchronize()
+    assert _same_bits(bwd[0], bwd[1]) and _same_bits(bwd[0], bwd[2])
+    for got, want in zip(bwd[0], bref):
+        _close(got, want, torch.bfloat16)
+
+
+def _edge_values(shape, gen):
+    """Normal values spread over 2^-140 .. 2^20, so that many products
+    fall below f32's normal range (2^-126), with +-0 and the largest finite
+    bf16 planted at the front."""
+    x = torch.randn(shape, generator=gen) * torch.exp2(
+        torch.randint(-140, 20, shape, generator=gen).float())
+    planted = torch.tensor([0.0, -0.0, 3.3895e38, -3.3895e38, 2.0 ** -126,
+                            2.0 ** -133, -2.0 ** -130, 2.0 ** -70])
+    x.view(-1)[:planted.numel()] = planted
+    return x
+
+
+@pytest.mark.parametrize("agg", ["max", "sum", "mean"])
+def test_bf16_packed_products_give_the_scalar_bits(cuda, agg):
+    """The packed bf16 products against the kept scalar ones on g, h and
+    etype whose products include values below f32's normal range, zeros of
+    both signs and the largest finite: dh and d_etype bit for bit."""
+    B, N, Nd, K, T, C = 4, 16, 16, 3, 4, 64
+    gen = torch.Generator().manual_seed(5)
+    h = _edge_values((B, N, T, C), gen).to(torch.bfloat16).to(cuda)
+    g = _edge_values((B, Nd, C), gen).to(torch.bfloat16).to(cuda)
+    et = _edge_values((B, Nd, K, T), gen).to(cuda)
+    idx = torch.randint(0, N, (Nd, K), generator=gen, dtype=torch.int32)
+    table = GatherTable(idx.numpy(), N).to(cuda)
+    am = (fused_mp.typed_gather_mix_agg(h, table.idx, et, "max", 3.0, True)[1]
+          if agg == "max" else None)
+    # dm etype, the products of the dh phase (in f64: exact)
+    products = (g.double()[:, :, None, None, :]
+                * et.to(torch.bfloat16).double()[..., None])
+    assert ((products.abs() < 2.0 ** -126) & (products != 0)).any()
+    new, kept = (fused_mp.typed_gather_mix_agg_bwd(
+        g, h, table.idx, table.src_ptr, table.src_edge, et, agg, 3.0,
+        argmax=am, packed=packed) for packed in (None, False))
+    torch.cuda.synchronize()
+    assert _same_bits(new, kept)
+
+
+def test_bf16_packed_route_refuses_f32(cuda):
+    g, h, table, et, am, _ = _typed_bwd_inputs(SHAPES[0], cuda, "max",
+                                               torch.float32)
+    with pytest.raises(ValueError, match="bf16 mode only"):
+        fused_mp.typed_gather_mix_agg_bwd(
+            g, h, table.idx, table.src_ptr, table.src_edge, et, "max",
+            argmax=am, packed=True)

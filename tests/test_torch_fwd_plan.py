@@ -230,3 +230,102 @@ def test_a_newer_shared_header_rebuilds_the_library(tmp_path, monkeypatch):
     os.utime(header, (300, 300))  # newer than the library, the .cu is not
     with pytest.raises(RuntimeError, match="no nvcc in this test"):
         fused_mp.build(("typed_mp_fwd",))
+
+
+# --------------------------------------------------------------------------
+# the bf16 NO_EXTENSION forward's sample route: one block per sample with
+# the whole of the sample's h in shared memory
+
+LDPC = [(n, B, N, Nd, K, T, C) for n, B, N, Nd, K, T, C, per_fwd, _
+        in chip_smoke.SHAPES if per_fwd]
+
+
+@pytest.mark.parametrize("name,nbytes", [
+    # h (N, T, C) bf16, etype (Nd K T) f32, the table (Nd K) int32
+    ("f2v_c64", 48 * 4 * 64 * 2 + 4 * 96 * 3 * 4 + 4 * 96 * 3),
+    ("f2v_c128", 48 * 4 * 128 * 2 + 4 * 96 * 3 * 4 + 4 * 96 * 3),
+    ("v2f_c64", 96 * 4 * 64 * 2 + 4 * 48 * 6 * 4 + 4 * 48 * 6),
+    ("v2f_c128", 96 * 4 * 128 * 2 + 4 * 48 * 6 * 4 + 4 * 48 * 6)])
+def test_ldpc_shapes_take_the_bf16_sample_route(name, nbytes):
+    (shape,) = [s for s in LDPC if s[0] == name]
+    _, B, N, Nd, K, T, C = shape
+    assert fused_mp.sample_bytes(N, Nd, K, T, C) == nbytes
+    assert nbytes <= fused_mp.SMEM_PER_BLOCK == 232448
+    assert fused_mp.fwd_sample(B, N, Nd, K, T, C, 2)
+
+
+@pytest.mark.parametrize("shape", chip_smoke.SHAPES,
+                         ids=[s[0] for s in chip_smoke.SHAPES])
+def test_f32_forward_keeps_the_kept_kernel(shape):
+    """f32 keeps today's plans: the first kernel for NO_EXTENSION, at
+    every shape, whatever fits; bf16 takes the sample route at the path
+    shapes (B=256) and the kept kernel at the ragged ones (a few samples,
+    C % 8 != 0)."""
+    _, B, N, Nd, K, T, C, per_fwd, _ = shape
+    assert fused_mp.fwd_sample(B, N, Nd, K, T, C, 2) == bool(per_fwd)
+    assert not fused_mp.fwd_sample(B, N, Nd, K, T, C)
+    assert not fused_mp.fwd_sample(B, N, Nd, K, T, C, 4)
+
+
+@pytest.mark.parametrize("N,T,C", [(4096, 4, 64), (96, 4, 1024),
+                                   (48, 256, 128)])
+def test_a_sample_too_wide_takes_the_kept_bf16_forward(N, T, C):
+    assert fused_mp.sample_bytes(N, 96, 3, T, C) > fused_mp.SMEM_PER_BLOCK
+    assert not fused_mp.fwd_sample(256, N, 96, 3, T, C, 2)
+
+
+def test_the_sample_route_plan_reads_the_shapes_only():
+    # the largest sample that fits: 113 KB of bf16 h leaves room for the
+    # rest at v2f's table
+    assert fused_mp.fwd_sample(256, 96, 48, 6, 4, 256, 2)
+    assert not fused_mp.fwd_sample(256, 96, 48, 6, 4, 320, 2)
+    assert fused_mp.sample_bytes(96, 48, 6, 4, 256) == \
+        96 * 4 * 256 * 2 + 4 * 48 * 6 * 4 + 4 * 48 * 6
+
+
+@pytest.mark.parametrize("B,sample", [
+    # one block a sample: the route needs a sample for every second SM
+    (1, False), (32, False), (65, False), (66, True), (132, True),
+    (256, True), (4096, True)])
+def test_the_sample_route_needs_a_block_for_every_second_sm(B, sample):
+    assert fused_mp.SMS == 132
+    assert fused_mp.fwd_sample(B, 48, 96, 3, 4, 64, 2) == sample
+
+
+@pytest.mark.parametrize("C,sample", [
+    # 8 channels (16 bytes of bf16) a thread: C % 8 == 0 only
+    (8, True), (16, True), (64, True), (4, False), (28, False),
+    (30, False), (60, False)])
+def test_the_sample_route_takes_whole_16_byte_vectors(C, sample):
+    assert fused_mp.fwd_sample(256, 48, 96, 3, 4, C, 2) == sample
+
+
+@pytest.mark.parametrize("slab", [None, 0])
+@pytest.mark.parametrize("agg", AGGS)
+def test_cpu_bf16_forward_is_the_plain_version_on_either_route(slab, agg):
+    rng = np.random.default_rng(2)
+    h = torch.from_numpy(rng.standard_normal((2, 5, 2, 8), np.float32))
+    h = h.to(torch.bfloat16)
+    idx = torch.from_numpy(rng.integers(0, 5, (4, 3)).astype(np.int32))
+    et = torch.from_numpy(rng.standard_normal((2, 4, 3, 2), np.float32))
+    kw = dict(want_argmax=agg == "max", want_lse=agg == "softmax")
+    fused_mp.reset_counts()
+    got = fused_mp.typed_gather_mix_agg(h, idx, et, agg, slab=slab, **kw)
+    ref = fused_mp.typed_gather_mix_agg_plain(h, idx, et, agg, **kw)
+    assert fused_mp.COUNTS == {"kernel_launches": 0, "bf16_launches": 0,
+                               "plain_calls": 1}
+    assert fused_mp.KEPT_BF16_COUNTS == {"kernel_launches": 0,
+                                         "bf16_launches": 0}
+    two = agg in ("max", "softmax")
+    for a, b in zip(got if two else (got,), ref if two else (ref,)):
+        assert torch.equal(a, b)
+
+
+def test_reset_counts_clears_the_kept_bf16_routes():
+    for counts in (fused_mp.KEPT_BF16_COUNTS, fused_mp.KEPT_BF16_BWD_COUNTS,
+                   fused_mp.KEPT_BF16_EXT_BWD_COUNTS):
+        counts["kernel_launches"] = counts["bf16_launches"] = 2
+    fused_mp.reset_counts()
+    assert all(c == {"kernel_launches": 0, "bf16_launches": 0} for c in (
+        fused_mp.KEPT_BF16_COUNTS, fused_mp.KEPT_BF16_BWD_COUNTS,
+        fused_mp.KEPT_BF16_EXT_BWD_COUNTS))

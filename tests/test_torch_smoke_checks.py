@@ -80,3 +80,31 @@ def test_wrong_argmax_at_a_clear_gap_fails(small, monkeypatch, capsys):
     assert line["flipped_kink_distance_worst"]["card"] \
         > 1e3 * chip_smoke.KINK_TOL
     assert line["flipped_kink_distance_worst"]["cpu"] <= chip_smoke.KINK_TOL
+
+
+def test_unrounded_build_finds_each_rounding_once_in_the_shipped_header():
+    """``--unrounded`` switches off every bf16 rounding of the kernels:
+    rnd<TH> and both forms of the packed mul_rnd2, each found exactly once
+    in csrc/typed_mp_common.cuh."""
+    with open(fused_mp.os.path.join(fused_mp._CSRC,
+                                    "typed_mp_common.cuh")) as f:
+        text = f.read()
+    assert len(chip_smoke.UNROUNDED) == 3
+    for rounded in chip_smoke.UNROUNDED:
+        assert text.count(rounded) == 1
+    bare = chip_smoke.unrounded_header(text)
+    assert 'asm("mul.rn.bf16x2' not in bare
+    assert "__float2bfloat162_rn(w)" not in bare
+    assert "from_f32<TH>(v)" not in bare
+    for unrounded in chip_smoke.UNROUNDED.values():
+        assert unrounded in bare
+
+
+def test_unrounded_build_refuses_a_header_without_a_rounding():
+    (rounded, _), *_ = chip_smoke.UNROUNDED.items()
+    with open(fused_mp.os.path.join(fused_mp._CSRC,
+                                    "typed_mp_common.cuh")) as f:
+        text = f.read()
+    for broken in (text.replace(rounded, ""), text + rounded):
+        with pytest.raises(RuntimeError, match="found once"):
+            chip_smoke.unrounded_header(broken)
