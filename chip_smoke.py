@@ -115,11 +115,16 @@ Phases, one JSON line each:
                    slab of the backward (each checked); the sums per bf16
                    forward and per bf16 LDPC step; both new routes against
                    the kept ones at the smaller batches of BATCH_SWEEP
-  kernel_check_ext_bf16 the same for both routes of the DIFF/NEIGHBOR
-                   forward (max bit-equal between them) and the staged
-                   backward (packed dh products bit-equal to the kept
-                   scalar ones where they run), with every bf16 slab of
-                   both staged kernels
+  kernel_check_ext_bf16 the same for the DIFF/NEIGHBOR mode's bf16 routes
+                   (EXT_BF16_FWD_ROUTES, EXT_BF16_BWD_ROUTES): the bf16
+                   designs, the kept staged routes (kept=True), the first
+                   forward kernel (slab=0) and the scalar products
+                   (packed=False), each launch counted under its route; max
+                   bit-equal across the forward's three routes, dh across
+                   the backward's for max, sum and mean; at the path shapes
+                   f32, kept and design timed in turns (f32, kept, new,
+                   new, kept, f32) with every slab of the designs, bound
+                   and GB/s, and the sums per bf16 hop step
   decode_bf16      ``evaluate`` with ``--bf16`` on the decode phase's
                    weights and grid: 15 of the 16 launches per batch in the
                    bf16 mode (layer 6's v2f conv gets an f32 x), all on the
@@ -130,11 +135,11 @@ Phases, one JSON line each:
                    with 4 eval batches (``train_and_eval``) with ``--bf16``:
                    finite losses, the bf16 launches per step the CPU
                    dtype-flow test implies (LDPC 15 forward and 14
-                   backward, hop 12 and 12), the LDPC ones all on the new
-                   routes and none on the kept ones, the hop backward's 10
-                   max convs with the packed products and its 2 softmax
-                   convs with the scalar ones, f32 parameters; step
-                   times
+                   backward, hop 12 and 12), all on the new routes and
+                   none on the kept ones: the hop step's 12 forwards on the
+                   staged forward's bf16 design, its 10 max backwards on
+                   ext_bwd_kernel and its 2 softmax backwards on the staged
+                   kernel in tiles of rows; f32 parameters; step times
 
 The phases that train the synthetic workloads without naming
 ``--workers`` pass ``--workers 0``: inline synthesis, as they ran before the
@@ -220,9 +225,10 @@ EXT_SHAPES = [
     ("ragged_c6", 3, 13, 3, 5, 6, None, 0, 0),
 ]
 HOP_PER_STEP = sum(s[7] for s in EXT_SHAPES)     # 12
-# of them the backwards the bf16 mode runs with packed products: the max
-# convs (C=64); the softmax convs' dm is f32 (and C=2 the scalar path)
-HOP_PACKED_PER_STEP = sum(s[7] for s in EXT_SHAPES if s[6] == "max")  # 10
+# of them the backwards that the bf16 mode's design runs on ext_bwd_kernel:
+# the max convs (C=64); the softmax convs (f32 dm, C=2) run the staged
+# kernel in tiles of rows
+HOP_EXT_PER_STEP = sum(s[7] for s in EXT_SHAPES if s[6] == "max")  # 10
 # the two routes of the backward and of the extension forward: the staged
 # kernel with the slab that fused_mp.bwd_slab (fwd_slab) plans, and the
 # kept kernels of the first port (slab 0);
@@ -2092,19 +2098,53 @@ def phase_kernel_check_bf16(torch, fused_mp):
     return worst, fwd_rows, bwd_rows
 
 
+# The routes of the DIFF/NEIGHBOR mode's bf16 forward and backward, with
+# the counter each launch lands in: the bf16 design as planned, the kept
+# staged route (kept=True: the f32 mode's design, as the bf16 mode first
+# ran it) and, for the forward, the first kernel (slab=0); for the
+# backward, the kept scalar products (packed=False).
+EXT_BF16_FWD_ROUTES = (("new", {}, "EXT_COUNTS"),
+                       ("kept", dict(kept=True), "KEPT_BF16_EXT_COUNTS"),
+                       ("first", dict(slab=0), "KEPT_EXT_COUNTS"))
+EXT_BF16_BWD_ROUTES = (("new", {}, None),
+                       ("kept", dict(kept=True), "KEPT_BF16_EXT_BWD_COUNTS"),
+                       ("scalar", dict(packed=False),
+                        "KEPT_BF16_EXT_BWD_COUNTS"))
+
+
+def _ext_bwd_new_counter(fused_mp, B, N, K, T, C, agg):
+    """Where the bf16 design's backward launch counts: the design's counter
+    wherever it runs (ext_bwd_kernel, or the staged kernel in more than
+    one tile of rows), else the kept route's."""
+    slab = fused_mp.bwd_slab(B, 2 * N, N, K, T, C, agg, 2)
+    design = (fused_mp.bwd_ext_plan(B, 2 * N, N, K, T, C, agg)[0] > 0
+              or fused_mp.bwd_ext_tiles(B, N, C, slab) > 1)
+    return "EXT_BWD_COUNTS" if design else "KEPT_BF16_EXT_BWD_COUNTS"
+
+
+def _counted(fused_mp, counter, what, fn):
+    """``fn()``, which must add exactly one launch to ``counter``."""
+    counts = getattr(fused_mp, counter)
+    before = counts["bf16_launches"]
+    res = fn()
+    require(counts["bf16_launches"] == before + 1,
+            f"{what}: one launch counted in {counter}")
+    return res
+
+
 def phase_kernel_check_ext_bf16(torch, fused_mp):
-    """Both routes of the DIFF/NEIGHBOR forward (the staged kernel with its
-    bf16 plan, and the kept kernel) and the staged backward (packed dh
-    products, and the kept scalar ones) in the bf16 mode, at every
-    extension shape and aggregator: against the plain versions, two
-    launches bit-equal, the forward's max bit-equal between the routes and
-    the backward wherever the packed products run (max, sum and mean at
-    C % 4 == 0); at the path shapes the f32 instantiation and the bf16
-    routes timed in turns with every bf16 slab; an all-ties case."""
+    """Every route of the DIFF/NEIGHBOR forward and backward in the bf16
+    mode (EXT_BF16_FWD_ROUTES, EXT_BF16_BWD_ROUTES) at every extension
+    shape and aggregator: against the plain versions, two launches
+    bit-equal, each launch counted under its route; the forward's max
+    (out and argmax) bit-equal across its three routes; the backward's dh
+    bit-equal across its routes for max, sum and mean; at the path shapes
+    the f32 instantiation, the kept route and the bf16 design timed in
+    turns, with every slab of the design; an all-ties case."""
     b16 = torch.bfloat16
     worst, fwd_rows, bwd_rows = 0.0, [], []
     start = {q: len(v) for q, v in BF16_READINGS.items()}
-    compared = []  # the backward's cases with the packed products
+    dh_bits = []  # the backward's cases with dh bit-equal across routes
     for si, (name, B, N, K, T, C, path_agg, per_hop, _) in enumerate(
             EXT_SHAPES):
         h32, table, et = _ext_inputs(torch, B, N, K, T, C, 800 + si)
@@ -2113,17 +2153,19 @@ def phase_kernel_check_ext_bf16(torch, fused_mp):
         g = torch.randn(B, N, C, device="cuda", generator=gen).to(b16)
         saved = {}
         for agg in AGGS:
-            require(fused_mp.fwd_slab(B, 2 * N, N, K, T, C, agg, 2) > 0,
-                    f"{name} {agg}: a bf16 forward slab is planned")
+            require(fused_mp.fwd_bf16_plan(B, 2 * N, N, K, T, C)[0] > 0,
+                    f"{name} {agg}: the bf16 forward design is planned")
             kw = dict(want_argmax=agg == "max", want_lse=agg == "softmax")
             two = agg in ("max", "softmax")
             ref = fused_mp.typed_gather_mix_agg_plain(h, idx, et, agg, 3.0,
                                                       ext=True, **kw)
             ref = ref if two else (ref,)
             routes = {}
-            for route, slab in ROUTES:
-                runs = [fused_mp.typed_gather_mix_agg(
-                    h, idx, et, agg, 3.0, ext=True, slab=slab, **kw)
+            for route, extra, counter in EXT_BF16_FWD_ROUTES:
+                runs = [_counted(
+                    fused_mp, counter, f"{name} {agg} bf16 {route} forward",
+                    lambda: fused_mp.typed_gather_mix_agg(
+                        h, idx, et, agg, 3.0, ext=True, **kw, **extra))
                     for _ in range(2)]
                 torch.cuda.synchronize()
                 first, again = ((r if two else (r,)) for r in runs)
@@ -2133,40 +2175,46 @@ def phase_kernel_check_ext_bf16(torch, fused_mp):
                     torch, first[0], ref[0], f"{name} {agg} bf16 {route}"))
                 routes[route] = first
             if agg == "max":
-                require(all(torch.equal(a, b) for a, b in zip(
-                    routes["staged"], routes["kept"])),
-                    f"{name}: bf16 max bit-equal between the routes")
+                for route in ("kept", "first"):
+                    require(all(torch.equal(a, b) for a, b in zip(
+                        routes["new"], routes[route])),
+                        f"{name}: bf16 max bit-equal between the design and "
+                        f"the {route} route")
                 hg = h.float()[:, 0::2, None] + h.float()[:, 1::2][
                     :, idx.long()]
                 msgs = (hg * et.to(b16).float()[..., None]).sum(dim=3)
                 top2 = msgs.topk(2, dim=2).values
                 clear = ((top2[:, :, 0] - top2[:, :, 1])
                          > 2.0 ** -8 * top2[:, :, 0].abs())
-                if not (routes["staged"][1] == ref[1])[clear].all().item():
+                if not (routes["new"][1] == ref[1])[clear].all().item():
                     _bf16_fail(f"{name}: bf16 argmax differs where the gap "
                                "is clear")
-            am = routes["staged"][1] if agg == "max" else None
-            lse = routes["staged"][1] if agg == "softmax" else None
+            am = routes["new"][1] if agg == "max" else None
+            lse = routes["new"][1] if agg == "softmax" else None
             saved[agg] = (am, lse)
-            # the packed dh products (the planned route) twice, and the
-            # scalar ones (the kept route)
-            bwd = [fused_mp.typed_gather_mix_agg_bwd(
-                g, h, idx, table.ext_ptr, table.ext_edge, et, agg, 3.0,
-                argmax=am, out=lse, ext=True, packed=packed)
-                for packed in (None, None, False)]
             bref = fused_mp.typed_gather_mix_agg_bwd_plain(
                 g, h, idx, et, agg, 3.0, argmax=am, out=lse, ext=True)
-            torch.cuda.synchronize()
-            _same_bits(torch, bwd[0], bwd[1], f"{name} {agg} bf16 backward")
-            for route, res in (("", bwd[0]), (" kept", bwd[2])):
-                worst = max(worst, _check_grads(torch, res, bref,
-                                                f"{name} {agg} bf16{route}"))
-            # the packed dh products run for max, sum and mean at C % 4 == 0
-            if fused_mp.bwd_packed(C, fused_mp.bwd_slab(
-                    B, 2 * N, N, K, T, C, agg, 2), agg, 2):
-                _route_bits(torch, bwd[0], bwd[2],
-                            f"{name} {agg} bf16 backward")
-                compared.append(f"{name} {agg}")
+            bwd = {}
+            for route, extra, counter in EXT_BF16_BWD_ROUTES:
+                counter = counter or _ext_bwd_new_counter(
+                    fused_mp, B, N, K, T, C, agg)
+                runs = [_counted(
+                    fused_mp, counter, f"{name} {agg} bf16 {route} backward",
+                    lambda: fused_mp.typed_gather_mix_agg_bwd(
+                        g, h, idx, table.ext_ptr, table.ext_edge, et, agg,
+                        3.0, argmax=am, out=lse, ext=True, **extra))
+                    for _ in range(2)]
+                torch.cuda.synchronize()
+                _same_bits(torch, runs[0], runs[1],
+                           f"{name} {agg} bf16 {route} backward")
+                worst = max(worst, _check_grads(
+                    torch, runs[0], bref, f"{name} {agg} bf16 {route}"))
+                bwd[route] = runs[0]
+            if agg != "softmax":
+                for route in ("kept", "scalar"):
+                    _route_bits(torch, bwd["new"][:1], bwd[route][:1],
+                                f"{name} {agg} bf16 backward dh ({route})")
+                dh_bits.append(f"{name} {agg}")
         if path_agg is None:
             continue
         want = path_agg == "max"
@@ -2176,10 +2224,10 @@ def phase_kernel_check_ext_bf16(torch, fused_mp):
                                                   ext=True, **kw)
         ref = ref if want else (ref,)
 
-        def fwd_call(d, slab, agg=path_agg, kw=kw):
+        def fwd_call(d, slab, agg=path_agg, kw=kw, kept=False):
             x = h if d == b16 else h32
-            return fused_mp.typed_gather_mix_agg(x, idx, et, agg, 3.0,
-                                                 ext=True, slab=slab, **kw)
+            return fused_mp.typed_gather_mix_agg(
+                x, idx, et, agg, 3.0, ext=True, slab=slab, kept=kept, **kw)
 
         def fwd_check(got, cs, want=want, ref=ref):
             got = got if want else (got,)
@@ -2190,26 +2238,29 @@ def phase_kernel_check_ext_bf16(torch, fused_mp):
             torch, fwd_call, lambda agg=path_agg, kw=kw:
             fused_mp.typed_gather_mix_agg_plain(h, idx, et, agg, 3.0,
                                                 ext=True, **kw),
-            fused_mp.fwd_slabs(2 * N, N, K, T, C, 2), fwd_check)
+            fused_mp.fwd_bf16_slabs(2 * N, N, K, T, C), fwd_check,
+            kept=lambda: fwd_call(b16, None, kept=True))
         worst = max(worst, err)
         nbytes = _bf16_fwd_bytes(B, 2 * N, N, K, T, C, want)
         ops = B * N * K * C * (3 * T + 1)
-        slab = fused_mp.fwd_slab(B, 2 * N, N, K, T, C, path_agg, 2)
+        slab, tiles = fused_mp.fwd_bf16_plan(B, 2 * N, N, K, T, C)
         fwd_rows.append(dict(
             name=name, B=B, N=N, K=K, T=T, C=C, aggregator=path_agg,
             argmax=want, per_hop_step=per_hop, **timing, slab=slab,
-            slab_bytes=fused_mp.fwd_bytes(2 * N, N, K, T, slab, 2),
+            tiles=tiles, kept_slab=fused_mp.fwd_slab(
+                B, 2 * N, N, K, T, C, path_agg, 2),
             bytes=nbytes, ops=ops, bound_ms=bound_ms(nbytes, ops),
-            bound_by=bound_by(nbytes, ops)))
+            bound_by=bound_by(nbytes, ops),
+            gb_per_s=nbytes / timing["ms"] * 1e-6))
         emit("kernel_check_ext_bf16", kernel="typed_mp_fwd", **fwd_rows[-1],
              max_abs_err=worst)
         h_f32, g_f32 = h.float(), g.float()
 
-        def bwd_call(d, slab, agg=path_agg, am=am, lse=lse, packed=None):
+        def bwd_call(d, slab, agg=path_agg, am=am, lse=lse, kept=False):
             x, gg = (h, g) if d == b16 else (h_f32, g_f32)
             return fused_mp.typed_gather_mix_agg_bwd(
                 gg, x, idx, table.ext_ptr, table.ext_edge, et, agg, 3.0,
-                argmax=am, out=lse, ext=True, slab=slab, packed=packed)
+                argmax=am, out=lse, ext=True, slab=slab, kept=kept)
 
         bref = fused_mp.typed_gather_mix_agg_bwd_plain(
             g, h, idx, et, path_agg, 3.0, argmax=am, out=lse, ext=True)
@@ -2217,12 +2268,17 @@ def phase_kernel_check_ext_bf16(torch, fused_mp):
         def bwd_check(got, cs, bref=bref):
             return _check_grads(torch, got, bref, f"{name} bf16 slab {cs}")
 
+        slab, tiles = fused_mp.bwd_ext_plan(B, 2 * N, N, K, T, C, path_agg)
+        if not slab:  # the staged kernel in tiles of rows
+            slab = fused_mp.bwd_slab(B, 2 * N, N, K, T, C, path_agg, 2)
+            tiles = fused_mp.bwd_ext_tiles(B, N, C, slab)
         timing, err = _time_modes(
             torch, bwd_call, lambda agg=path_agg, am=am, lse=lse:
             fused_mp.typed_gather_mix_agg_bwd_plain(
                 g, h, idx, et, agg, 3.0, argmax=am, out=lse, ext=True),
-            fused_mp.staged_slabs(2 * N, N, K, T, C, path_agg, 2),
-            bwd_check, kept=lambda: bwd_call(b16, None, packed=False))
+            fused_mp.bwd_ext_slabs(B, 2 * N, N, K, T, C, path_agg)
+            or fused_mp.staged_slabs(2 * N, N, K, T, C, path_agg, 2),
+            bwd_check, kept=lambda: bwd_call(b16, None, kept=True))
         worst = max(worst, err)
         nbytes = _bf16_bwd_bytes(B, 2 * N, N, K, T, C, path_agg,
                                  idx.numel() + table.ext_ptr.numel()
@@ -2231,10 +2287,14 @@ def phase_kernel_check_ext_bf16(torch, fused_mp):
                                             else 0))
         bwd_rows.append(dict(
             name=name, B=B, N=N, K=K, T=T, C=C, aggregator=path_agg,
-            per_hop_step=per_hop, **timing,
-            slab=fused_mp.bwd_slab(B, 2 * N, N, K, T, C, path_agg, 2),
+            per_hop_step=per_hop, **timing, slab=slab, tiles=tiles,
+            route=("ext_bwd_kernel" if fused_mp.bwd_ext_plan(
+                B, 2 * N, N, K, T, C, path_agg)[0] else
+                "staged_bwd_kernel in tiles"),
+            kept_slab=fused_mp.bwd_slab(B, 2 * N, N, K, T, C, path_agg, 2),
             bytes=nbytes, ops=ops, bound_ms=bound_ms(nbytes, ops),
-            bound_by=bound_by(nbytes, ops)))
+            bound_by=bound_by(nbytes, ops),
+            gb_per_s=nbytes / timing["ms"] * 1e-6))
         emit("kernel_check_ext_bf16", kernel="typed_mp_bwd", **bwd_rows[-1],
              max_abs_err=worst)
 
@@ -2243,15 +2303,19 @@ def phase_kernel_check_ext_bf16(torch, fused_mp):
         B, 2 * N, T, C).contiguous()
     idx = torch.zeros(N, K, dtype=torch.int32, device="cuda")
     et = torch.ones(B, N, K, T, device="cuda")
-    for route, slab in ROUTES:
+    for route, extra, _ in EXT_BF16_FWD_ROUTES:
         _, am = fused_mp.typed_gather_mix_agg(h, idx, et, "max",
                                               want_argmax=True, ext=True,
-                                              slab=slab)
+                                              **extra)
         require(am.max().item() == 0,
                 f"bf16 all-ties argmax is 0 (extensions, {route})")
+    per_step = {}
+    for what, rows in (("fwd", fwd_rows), ("bwd", bwd_rows)):
+        per_step[what] = {key: sum(r[key] * r["per_hop_step"] for r in rows)
+                          for key in ("ms", "kept_ms", "f32_ms", "bound_ms")}
     emit("kernel_check_ext_bf16", name="all_ties", max_abs_err=worst,
          rel_l2_worst=_worst_readings(start), tol_rel_l2=BF16_KERNEL_REL_L2,
-         packed_vs_kept_bits=compared)
+         dh_bits_across_routes=dh_bits, per_bf16_hop_step=per_step)
     return worst, fwd_rows, bwd_rows
 
 
@@ -2401,16 +2465,17 @@ def phase_train_bf16(torch, fused_mp, dev, tmp):
                    SYN_EVAL_BATCHES, HOP_PER_STEP)
     fwd, bwd = (fused_mp.EXT_COUNTS["bf16_launches"],
                 fused_mp.EXT_BWD_COUNTS["bf16_launches"])
-    kept_bwd = fused_mp.KEPT_BF16_EXT_BWD_COUNTS["bf16_launches"]
-    require(fwd == hop["fwd_launches"] and bwd + kept_bwd
-            == hop["bwd_launches"],
-            f"bf16 hop: every launch in the bf16 mode ({fwd}, {bwd} + "
-            f"{kept_bwd})")
-    require(bwd == HOP_PACKED_PER_STEP * SYN_STEPS
-            and kept_bwd == (HOP_PER_STEP - HOP_PACKED_PER_STEP) * SYN_STEPS,
-            f"bf16 hop: {HOP_PACKED_PER_STEP} backward launches a step with "
-            f"the packed products (the max convs), the softmax convs' with "
-            f"the scalar ones ({bwd}, {kept_bwd})")
+    kept_fwd = (fused_mp.KEPT_BF16_EXT_COUNTS["kernel_launches"]
+                + fused_mp.KEPT_EXT_COUNTS["kernel_launches"])
+    kept_bwd = fused_mp.KEPT_BF16_EXT_BWD_COUNTS["kernel_launches"]
+    require(fwd == hop["fwd_launches"] and bwd == hop["bwd_launches"],
+            f"bf16 hop: every launch in the bf16 mode ({fwd}, {bwd})")
+    require(kept_fwd == 0 and kept_bwd == 0,
+            f"bf16 hop: all {HOP_PER_STEP} forward and {HOP_PER_STEP} "
+            f"backward launches a step on the bf16 designs (ext_bwd_kernel "
+            f"for the {HOP_EXT_PER_STEP} max convs, the staged kernel in "
+            f"tiles of rows for the softmax convs), none on the kept routes "
+            f"({kept_fwd}, {kept_bwd})")
     require(all(math.isfinite(v) for v in hop["losses"]),
             "bf16 hop: finite losses")
     wl = synthetic.SynWorkload("hop", hop_args)
@@ -2425,16 +2490,20 @@ def phase_train_bf16(torch, fused_mp, dev, tmp):
     hop.update(syn_train_step_ms=step_ms,
                step_samples_per_s=SYN_BATCH / step_ms * 1e3,
                bf16_fwd_launches=fwd, bf16_bwd_launches=bwd,
+               kept_bf16_fwd_launches=kept_fwd,
                kept_bf16_bwd_launches=kept_bwd)
     emit("train_bf16", workload="hop", batch_size=SYN_BATCH, **hop)
     return ldpc_res, hop
 
 
 # The bf16 roundings of the kernels, each a text of csrc/typed_mp_common.cuh,
-# and what --unrounded builds in its place: rnd<TH> (etype as read, mean's
-# g / K, each product of the scalar bf16 mode) becomes the identity, and the
-# packed products (mul_rnd2) multiply in f32 without rounding the product or
-# etype.  Stores to bf16 still round (out, dh, the packed route's g / K).
+# and what --unrounded builds in its place: rnd<TH> (etype as read or
+# staged, mean's g / K, each product of the scalar bf16 mode and of the
+# design's single self-row products) and rnd2 (the pairs of d_etype
+# products of the DIFF/NEIGHBOR backward's design) become the identity, and
+# the packed products (mul_rnd2) multiply in f32 without rounding the
+# product or etype.  Stores to bf16 still round (out, dh, the packed and
+# the design's g / K).
 UNROUNDED = {
     "return to_f32(from_f32<TH>(v));": "return v;",
     """  unsigned r;
@@ -2443,6 +2512,8 @@ UNROUNDED = {
   return make_float2(__fmul_rn(x.x, y.x), __fmul_rn(x.y, y.y));""",
     "  return mul_rnd2(a, __float2bfloat162_rn(w));": """  const float2 x = unpack2(bits(a));
   return make_float2(__fmul_rn(x.x, w), __fmul_rn(x.y, w));""",
+    "  return unpack2(bits(__floats2bfloat162_rn(a, b)));":
+    "  return make_float2(a, b);",
 }
 
 
@@ -2638,24 +2709,36 @@ def main():
             kept(bwd_b16), "bf16_per_step",
             bwd_per + ", scalar products (packed=False)"),
         bf16_entry(
-            "typed_mp_fwd (DIFF/NEIGHBOR mode, bf16)", fwd_cuda,
+            "typed_mp_fwd (DIFF/NEIGHBOR mode, bf16, design)", fwd_cuda,
             "fgnn_tpu/ops/fused_mp.py:243",
             "_fwd_kernel, extension mode, mm_dtype bfloat16",
             hop_b16["bf16_fwd_launches"],
             {"train_bf16": hop_b16["bf16_fwd_launches"]}, worst_ext_b16,
             ext_fwd_b16, "per_hop_step",
             f"one bf16 hop train step at B={SYN_BATCH}: {HOP_PER_STEP} "
-            "launches, 10 with the argmax, staged route"),
+            "launches, 10 with the argmax, staged_fwd_kernel's bf16 design "
+            "(etype rounded once in shared memory, 8 channels a thread, "
+            "fwd_bf16_plan)"),
         bf16_entry(
-            "typed_mp_bwd (DIFF/NEIGHBOR mode, bf16, packed route)",
+            "typed_mp_fwd (DIFF/NEIGHBOR mode, bf16, kept route)", fwd_cuda,
+            "fgnn_tpu/ops/fused_mp.py:243",
+            "_fwd_kernel, extension mode, mm_dtype bfloat16",
+            hop_b16["kept_bf16_fwd_launches"],
+            {"train_bf16": hop_b16["kept_bf16_fwd_launches"]},
+            worst_ext_b16, kept(ext_fwd_b16), "per_hop_step",
+            f"one bf16 hop train step at B={SYN_BATCH}: {HOP_PER_STEP} "
+            "launches on staged_fwd_kernel's f32 design and plan "
+            "(kept=True)"),
+        bf16_entry(
+            "typed_mp_bwd (DIFF/NEIGHBOR mode, bf16, design)",
             bwd_cuda, "fgnn_tpu/ops/fused_mp.py:297",
             "_bwd_kernel, extension mode, mm_dtype bfloat16",
             hop_b16["bf16_bwd_launches"],
             {"train_bf16": hop_b16["bf16_bwd_launches"]}, worst_ext_b16,
             ext_bwd_b16, "per_hop_step",
-            hop_bwd_per + f", staged route as planned: packed dh products "
-            f"in the {HOP_PACKED_PER_STEP} max launches, the scalar ones "
-            f"in the softmax launches (C=2); launches: the packed ones"),
+            hop_bwd_per + f", the bf16 design: ext_bwd_kernel for the "
+            f"{HOP_EXT_PER_STEP} max convs, the staged kernel in tiles of "
+            f"rows for the softmax convs (C=2)"),
         bf16_entry(
             "typed_mp_bwd (DIFF/NEIGHBOR mode, bf16, kept route)",
             bwd_cuda, "fgnn_tpu/ops/fused_mp.py:297",
@@ -2663,8 +2746,8 @@ def main():
             hop_b16["kept_bf16_bwd_launches"],
             {"train_bf16": hop_b16["kept_bf16_bwd_launches"]},
             worst_ext_b16, kept(ext_bwd_b16), "per_hop_step",
-            hop_bwd_per + ", staged route, scalar products (packed=False) "
-            "in all; launches: the softmax convs' on the main path"),
+            hop_bwd_per + ", the staged kernel with its plan of the f32 "
+            "mode (kept=True; packed products for max)"),
     ]
 
     print(json.dumps({"kernels": [{

@@ -119,6 +119,34 @@
 //   scalar path (C or the slab not a multiple of 4) run it on either
 //   setting, and the wrapper counts them there.
 //
+// The DIFF/NEIGHBOR mode in bf16 has a design of its own (typed_mp_bwd_ext,
+// ext_bwd_kernel, planned by ops/fused_mp.py:bwd_ext_plan), for max, sum
+// and mean on 16-byte vectors; the staged kernel with the f32 mode's plan
+// and the packed products stays reachable (kept=True).  That kept route
+// ran the f32 design on a bf16 slab: its plan took the f32 slab (4 slabs of
+// 16 channels at the hop table, 128 lone blocks), each of a sample's 4
+// blocks staged its f32 etype and rounded it at every use, its d_etype
+// phase formed scalar products, and a softmax conv at C=2 ran 32 blocks.
+// The design (where its launch goes, phase by phase: python -m
+// fgnn_tpu_torch.utils.phases; PERF.md):
+// * the whole of C in a block where it fits, in tiles of destination
+//   rows, one block an SM (bwd_ext_tiles): at the hop tables 4 tiles of
+//   15 rows a sample, and no partial sums of d_etype, so no sum_slabs (a
+//   launch of its own);
+// * of h only what its tile reads: the N neighbour rows and the tile's
+//   self rows, staged after what dh needs, so that they arrive while dh
+//   runs (dh reads no h);
+// * etype and mean's g / K rounded once in shared memory;
+// * dh: under max a self row's single product per (t, c), in warps of
+//   self rows apart from warps of neighbour rows; the neighbour rows keep
+//   the packed products in the table's order: dh has the kept route's bits;
+// * d_etype: 8 channels a thread, the self row and g held over d's K
+//   edges, products rounded two at a time (rnd2) and summed in a fixed
+//   order (other bits than the kept route's, within the bf16 checks).
+// Softmax and C % 8 != 0 run the staged kernel in tiles of rows
+// (bwd_ext_tiles, the wrapper's `tiles`), which fills the SMs at C=2 with
+// the same sums of dh; d_etype's lanes follow the tile.
+//
 // Each route launches on the caller's stream, allocates nothing and never
 // synchronises; the wrapper (fgnn_tpu_torch/ops/fused_mp.py) checks the
 // arguments, picks the route and allocates the outputs.
@@ -210,8 +238,12 @@ __device__ __forceinline__ __nv_bfloat162 pair(unsigned w) {
   return *reinterpret_cast<const __nv_bfloat162*>(&w);
 }
 
-// Block blockIdx.x = b * S + s takes sample b's channels [s Cs, (s+1) Cs).
-// The types are handled in runs of 4: a thread of dh or d_etype keeps 4
+// Block blockIdx.x = (b S + s) tiles + tile takes sample b's channels
+// [s Cs, (s+1) Cs) for the destinations d of its tile (the extensions' rows
+// 2 d and 2 d + 1 of dh and the edges of d in d_etype; tiles > 1 for the
+// extensions only); with tiles = 1, as every kept route runs, all of them.
+// It stages the whole sample either way.  The types are handled in runs of
+// 4: a thread of dh or d_etype keeps 4
 // types x VEC channels of sums in registers, so each load of dm or of a
 // row of h feeds 4 VEC FMAs.  PACK (the bf16 mode's packed route: VEC = 4,
 // max, sum or mean) forms the bf16-rounded products of the dh phase, and of
@@ -230,24 +262,32 @@ staged_bwd_kernel(const TH* __restrict__ g,
                   const float* __restrict__ etype,
                   const float* __restrict__ out, TH* __restrict__ dh,
                   float* __restrict__ d_etype, float* __restrict__ part,
-                  int N, int Nd, int K, int T, int C, int Cs, float gamma) {
+                  int N, int Nd, int K, int T, int C, int Cs, int tiles,
+                  float gamma) {
   constexpr int R = EXT ? 2 : 1;
   constexpr bool SOFTMAX = AGG == AGG_SOFTMAX;
   constexpr int ESZ = (int)sizeof(TH);
   extern __shared__ __align__(16) float smem[];
   const int S = C / Cs;
-  const int b = blockIdx.x / S;
-  const int s = blockIdx.x - b * S;
+  const int bs = blockIdx.x / tiles;
+  const int b = bs / S;
+  const int s = bs - b * S;
   const int c0 = s * Cs;
   const int rows = R * N;
   const int E = Nd * K;
+  // the tile's destinations d0 .. d0 + nd (the extensions' rows 2 d and
+  // 2 d + 1 of dh and the edges of d in d_etype), all of them for tiles = 1
+  const int tile_rows = (Nd + tiles - 1) / tiles;
+  const int d0 = (blockIdx.x - bs * tiles) * tile_rows;
+  const int nd = min(tile_rows, Nd - d0);
+  const int r0 = EXT ? 2 * d0 : 0, nr = EXT ? 2 * nd : rows;
   const int cv = Cs / VEC;               // vectors per slab row
   const int RS = row_stride(T, Cs, ESZ);
   const int ET = et_stride(T, SOFTMAX);
   const int runs = (T + 3) / 4;          // runs of 4 types
   const int tid = threadIdx.x;
   const int nt = STAGED_THREADS;
-  const FastDiv by_cv(cv), by_t(T), by_k(K), by_runs(runs), by_e(E);
+  const FastDiv by_cv(cv), by_t(T), by_k(K), by_runs(runs), by_e(nd * K);
   const float inv_k = 1.f / (float)K;
   // the packed route stages mean's g as g / K: then dm is g, as for sum
   constexpr int DM_AGG = PACK && AGG == AGG_MEAN ? AGG_SUM : AGG;
@@ -373,11 +413,12 @@ staged_bwd_kernel(const TH* __restrict__ g,
   // to a multiple of 4 words, so each edge's run loads as one vector (sums
   // past T are never stored).
   TH* dhb = dh + (size_t)b * rows * T * C + c0;
-  for (int q = tid; q < rows * runs * cv; q += nt) {
-    const int o = by_cv(q);  // o = r runs + run
+  for (int q = tid; q < nr * runs * cv; q += nt) {
+    const int o = by_cv(q);  // o = (r - r0) runs + run
     const int c = (q - o * cv) * VEC;
-    const int r = by_runs(o);
-    const int t0 = (o - r * runs) * 4;
+    const int rl = by_runs(o);
+    const int r = r0 + rl;
+    const int t0 = (o - rl * runs) * 4;
     float acc[4][VEC];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -436,9 +477,9 @@ staged_bwd_kernel(const TH* __restrict__ g,
   // at staggered vectors so that the lanes of a wavefront hit distinct
   // banks; the G lanes then add their sums in a fixed butterfly.  With
   // S > 1 they are the slab's partial sums, which sum_slabs adds.
-  float* dst = S > 1 ? part + (size_t)blockIdx.x * E * T
+  float* dst = S > 1 ? part + (size_t)bs * E * T
                      : d_etype + (size_t)b * E * T;
-  const int items = runs * E;
+  const int items = runs * nd * K;
   int lg = 0;  // G = 1 << lg lanes per item, a power of two <= 8
   while (lg < 3 && cv % (2 << lg) == 0 && items * (2 << lg) <= nt) ++lg;
   const int G = 1 << lg;
@@ -450,7 +491,7 @@ staged_bwd_kernel(const TH* __restrict__ g,
     const int q = live ? qq >> lg : 0;
     const int gl = qq & (G - 1);
     const int run = by_e(q);
-    const int e = q - run * E;
+    const int e = d0 * K + q - run * nd * K;
     const int d = by_k(e);
     const int t0 = run * 4;
     const TH* hn = hs + (size_t)(nn[e] * R + R - 1) * RS + t0 * Cs;
@@ -514,6 +555,293 @@ staged_bwd_kernel(const TH* __restrict__ g,
   }
 }
 
+// --------------------------------------------------------------------------
+// the bf16 DIFF/NEIGHBOR design (typed_mp_bwd_ext): max, sum and mean on
+// the vector path, 8 channels a thread
+
+constexpr int EXT_THREADS = 512;
+
+// The bf16 pairs v of g (or of g / K) at 8 channels, as four words; for
+// max zeroed where their argmax a (8 bytes) is not slot k: the pairs
+// staged_dm2 gives, 8 channels at a time.
+template <int AGG>
+__device__ __forceinline__ uint4 ext_mask(uint4 v, uint2 a, int k) {
+  if (AGG != AGG_MAX) return v;
+  const unsigned kk = 0x01010101u * (unsigned)k;
+  const unsigned e0 = __vcmpeq4(a.x, kk), e1 = __vcmpeq4(a.y, kk);
+  v.x &= __byte_perm(e0, 0, 0x1100);
+  v.y &= __byte_perm(e0, 0, 0x3322);
+  v.z &= __byte_perm(e1, 0, 0x1100);
+  v.w &= __byte_perm(e1, 0, 0x3322);
+  return v;
+}
+
+// ext_mask of row d's g and argmax at channels c..c+7 of the slab
+template <int AGG>
+__device__ __forceinline__ uint4 ext_dm(const bf16* gs, const uint8_t* as,
+                                        int d, int k, int Cs, int c) {
+  const uint4 v = *reinterpret_cast<const uint4*>(gs + (size_t)d * Cs + c);
+  if (AGG != AGG_MAX) return v;
+  return ext_mask<AGG>(
+      v, *reinterpret_cast<const uint2*>(as + (size_t)d * Cs + c), k);
+}
+
+// Block blockIdx.x = (b S + s) tiles + tile takes sample b's channels
+// [s Cs, (s+1) Cs) (Cs % 8 == 0) for the destination rows d of its tile:
+// the rows 2 d and 2 d + 1 of dh and the edges of d in d_etype.  It stages
+// what staged_bwd_kernel stages for the whole sample (g and the argmax,
+// etype, both tables), with 16-byte copies of every slab row, and rounds
+// etype to bf16 once per (e, t) and mean's g / K once, in
+// place; of h it stages the N neighbour rows, which the tile's edges read,
+// and the tile's own self rows.  Then:
+// * dh: one item per (row, run of 4 types, 8 channels).  Under max a self
+//   row 2 d has one non-zero product per (t, c), g[d, c] times the etype
+//   of the edge (d, argmax[d, c]): the item forms that product alone and
+//   adds it to +0, which gives the bits of the kept route's sum over the K
+//   edges (every other term is a zero product, and acc + 0 is acc for a
+//   finite acc; +0 + -0 is +0).  Every other row walks its in-edges in the
+//   table's order with the packed products (mul_rnd2) of the kept route:
+//   the same bits.
+// * d_etype: one item per (d, run of 4 types, 8 channels), the self row's
+//   32 values held in registers over d's K edges; each edge's 32 products
+//   dm hg are formed in f32 and rounded two at a time (rnd2), summed over
+//   the item's channels in ascending order, then over the slab's items in
+//   a fixed butterfly; the S slabs' partial sums are added by sum_slabs.
+template <int AGG>
+__global__ void __launch_bounds__(EXT_THREADS)
+ext_bwd_kernel(const bf16* __restrict__ g, const uint8_t* __restrict__ argmax,
+               const bf16* __restrict__ h, const int32_t* __restrict__ nn_idx,
+               const int32_t* __restrict__ src_ptr,
+               const int32_t* __restrict__ src_edge,
+               const float* __restrict__ etype, bf16* __restrict__ dh,
+               float* __restrict__ d_etype, float* __restrict__ part, int N,
+               int K, int T, int C, int Cs, int tiles) {
+  constexpr int VEC = 8;
+  extern __shared__ __align__(16) float smem[];
+  const int Nd = N;
+  const int S = C / Cs;
+  const int bs = blockIdx.x / tiles;
+  const int tile = blockIdx.x - bs * tiles;
+  const int b = bs / S;
+  const int s = bs - b * S;
+  const int c0 = s * Cs;
+  const int tile_rows = (Nd + tiles - 1) / tiles;
+  const int d0 = tile * tile_rows;
+  const int nd = min(tile_rows, Nd - d0);
+  const int rows = 2 * N;
+  const int E = Nd * K;
+  const int cv = Cs / VEC;  // vectors per slab row, a power of two
+  const int RS = row_stride(T, Cs, 2);
+  const int ET = et_stride(T, false);
+  const int runs = (T + 3) / 4;
+  const int tid = threadIdx.x;
+  const int nt = EXT_THREADS;
+  const FastDiv by_cv(cv), by_t(T), by_k(K), by_runs(runs);
+  // the slab of h: the N neighbour rows 2 n + 1 in slots n, then the
+  // tile's self rows 2 d in slots N + d - d0
+  bf16* hs = reinterpret_cast<bf16*>(smem);
+  char* cot = reinterpret_cast<char*>(smem) +
+              pad16((size_t)(N + tile_rows) * RS * 2);
+  bf16* gs = reinterpret_cast<bf16*>(cot);
+  uint8_t* as = reinterpret_cast<uint8_t*>(cot) + pad16((size_t)Nd * Cs * 2);
+  float* et = reinterpret_cast<float*>(
+      cot + pad16((size_t)Nd * Cs * 2) + pad16((size_t)Nd * Cs));
+  int* nn = reinterpret_cast<int*>(et + pad4((size_t)E * ET));
+  int* sp = nn + pad4(E);
+  int* se = sp + pad4((size_t)rows + 1);
+
+  // 1. stage, in two groups of copies: what dh needs (the slab of g in
+  // 16-byte pieces, the argmax in 8, etype and the tables), then the slab
+  // of h, which only d_etype reads and which arrives while dh runs; etype
+  // (and mean's g / K) rounded in place once the first group is in
+  const size_t g0 = (size_t)b * Nd * C + c0;
+  for (int q = tid; q < Nd * cv; q += nt) {
+    const int d = by_cv(q);
+    const int c = (q - d * cv) * VEC;
+    cp_async(gs + (size_t)d * Cs + c, g + g0 + (size_t)d * C + c, 16);
+    if (AGG == AGG_MAX)
+      cp_async(as + (size_t)d * Cs + c, argmax + g0 + (size_t)d * C + c, 8);
+  }
+  const float* eb = etype + (size_t)b * E * T;
+  if (T % 4 == 0 && (reinterpret_cast<uintptr_t>(eb) & 15) == 0) {
+    for (int q = tid; q < E * runs; q += nt) {
+      const int e = by_runs(q);  // T / 4 == runs
+      cp_async(et + (size_t)e * ET + 4 * (q - e * runs), eb + 4 * (size_t)q,
+               16);
+    }
+  } else {
+    for (int q = tid; q < E * T; q += nt) {
+      const int e = by_t(q);
+      cp_async(et + (size_t)e * ET + (q - e * T), eb + q, 4);
+    }
+  }
+  for (int q = tid; q < E; q += nt) cp_async(nn + q, nn_idx + q, 4);
+  for (int q = tid; q <= rows; q += nt) cp_async(sp + q, src_ptr + q, 4);
+  for (int q = tid; q < 2 * E; q += nt) cp_async(se + q, src_edge + q, 4);
+  cp_async_commit();
+  const bf16* hb = h + (size_t)b * rows * T * C + c0;
+  for (int q = tid; q < (N + nd) * T * cv; q += nt) {
+    const int o = by_cv(q);  // o = slot T + t
+    const int c = (q - o * cv) * VEC;
+    const int slot = by_t(o);
+    const int t = o - slot * T;
+    const int r = slot < N ? 2 * slot + 1 : 2 * (d0 + slot - N);
+    cp_async(hs + (size_t)slot * RS + t * Cs + c,
+             hb + ((size_t)r * T + t) * C + c, 16);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  for (int q = tid; q < E * T; q += nt) {
+    const int e = by_t(q);
+    float* w = et + (size_t)e * ET + (q - e * T);
+    *w = rnd<bf16>(*w);
+  }
+  if (AGG == AGG_MEAN) {  // g / K in bf16, as staged_dm rounds it
+    const float inv_k = 1.f / (float)K;
+    for (int q = tid; q < Nd * Cs; q += nt)
+      gs[q] = from_f32<bf16>(to_f32(gs[q]) * inv_k);
+  }
+  __syncthreads();
+
+  // 2. dh: the rows 2 d and 2 d + 1 of the tile's d, items (side, d, run,
+  // vector), vector fastest: the self rows first, so that a warp's items
+  // take one path
+  bf16* dhb = dh + (size_t)b * rows * T * C + c0;
+  const FastDiv by_nd(nd);
+  for (int q = tid; q < 2 * nd * runs * cv; q += nt) {
+    const int o = by_cv(q);  // o = (side nd + dl) runs + run
+    const int c = (q - o * cv) * VEC;
+    const int sd = by_runs(o);
+    const int t0 = (o - sd * runs) * 4;
+    const int side = by_nd(sd);
+    const int r = 2 * (d0 + sd - side * nd) + side;
+    float acc[4][VEC];
+    if (AGG == AGG_MAX && (r & 1) == 0) {
+      // the self row: one product per (t, c), added to +0
+      const int d = r >> 1;
+      const uint4 gw = *reinterpret_cast<const uint4*>(gs + (size_t)d * Cs + c);
+      const uint2 a = *reinterpret_cast<const uint2*>(as + (size_t)d * Cs + c);
+      const unsigned gq[4] = {gw.x, gw.y, gw.z, gw.w};
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const int k = ((i < 4 ? a.x : a.y) >> (8 * (i & 3))) & 0xff;
+        const bool in = k < K;  // a slot past K: every term is zero
+        const float gi = i & 1 ? unpack2(gq[i >> 1]).y : unpack2(gq[i >> 1]).x;
+        float w[4];
+        Vec<4>::lds(et + (size_t)(d * K + (in ? k : 0)) * ET + t0, w);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          acc[u][i] = in ? 0.f + rnd<bf16>(__fmul_rn(gi, w[u])) : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[u][i] = 0.f;
+      // the in-edges two at a time, both edges' loads first; the second
+      // of an odd count adds nothing (n = 0)
+      const int p1 = sp[r + 1];
+      for (int p = sp[r]; p < p1; p += 2) {
+        uint4 v[2];
+        float w[2][4];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int e = se[min(p + x, p1 - 1)];
+          const int d = by_k(e);
+          v[x] = ext_dm<AGG>(gs, as, d, e - d * K, Cs, c);
+          Vec<4>::lds(et + (size_t)e * ET + t0, w[x]);
+        }
+        const int n = min(2, p1 - p);
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          if (x == n) break;
+          const unsigned vq[4] = {v[x].x, v[x].y, v[x].z, v[x].w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float2 m = mul_rnd2(pair(vq[j]), w[x][u]);
+              acc[u][2 * j] = acc[u][2 * j] + m.x;
+              acc[u][2 * j + 1] = acc[u][2 * j + 1] + m.y;
+            }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (t0 + u < T)
+        Vec<VEC>::store(dhb + ((size_t)r * T + t0 + u) * C + c, acc[u]);
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 3. d_etype: items (run, d, vector), vector fastest, so that a
+  // wavefront's self rows are consecutive d; the cv items of a (run, d) lie
+  // in one warp and add their sums in a fixed butterfly
+  float* dst = S > 1 ? part + (size_t)bs * E * T : d_etype + (size_t)b * E * T;
+  const int items = nd * runs * cv;
+  const int steps = (items + nt - 1) / nt;  // the same in every warp
+  for (int it = 0; it < steps; ++it) {
+    const int qq = it * nt + tid;
+    const bool live = qq < items;  // whole groups of cv: items % cv == 0
+    const int q = live ? qq : 0;
+    const int o = by_cv(q);  // o = run nd + dl
+    const int c = (q - o * cv) * VEC;
+    const int run = by_nd(o);
+    const int t0 = run * 4;
+    const int d = d0 + (o - run * nd);
+    float sv[4][VEC];  // the self row 2 d
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      Vec<VEC>::lds(hs + (size_t)(N + d - d0) * RS + min(t0 + u, T - 1) * Cs +
+                        c,
+                    sv[u]);
+    const size_t gd = (size_t)d * Cs + c;
+    const uint4 gw = *reinterpret_cast<const uint4*>(gs + gd);
+    const uint2 a = AGG == AGG_MAX ? *reinterpret_cast<const uint2*>(as + gd)
+                                   : make_uint2(0, 0);
+    for (int k = 0; k < K; ++k) {
+      const int e = d * K + k;
+      const uint4 v = ext_mask<AGG>(gw, a, k);
+      const unsigned vq[4] = {v.x, v.y, v.z, v.w};
+      float x[VEC];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = unpack2(vq[j]);
+        x[2 * j] = f.x;
+        x[2 * j + 1] = f.y;
+      }
+      const bf16* hn = hs + (size_t)nn[e] * RS + c;
+      float sum[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float y[VEC];
+        Vec<VEC>::lds(hn + min(t0 + u, T - 1) * Cs, y);
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 pr =
+              rnd2(__fmul_rn(x[2 * j], sv[u][2 * j] + y[2 * j]),
+                   __fmul_rn(x[2 * j + 1], sv[u][2 * j + 1] + y[2 * j + 1]));
+          acc = acc + pr.x;
+          acc = acc + pr.y;
+        }
+        sum[u] = acc;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        for (int off = cv / 2; off > 0; off /= 2)
+          sum[u] += __shfl_xor_sync(0xffffffffu, sum[u], off);
+      if (live && c == 0)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (t0 + u < T) dst[(size_t)e * T + t0 + u] = sum[u];
+    }
+  }
+}
+
 // d_etype[b] = sum over the S slabs of part[b, s], in slab order: one
 // thread per output.
 __global__ void sum_slabs(const float* __restrict__ part,
@@ -528,13 +856,56 @@ __global__ void sum_slabs(const float* __restrict__ part,
   d_etype[i] = v;
 }
 
+// Shared memory of one block of ext_bwd_kernel, in bytes: staged_bytes'
+// layout (bf16, max, sum or mean) with the slab of h cut to the N
+// neighbour rows and the tile's td self rows.
+inline size_t ext_bytes(int N, int td, int K, int T, int cs) {
+  const size_t E = (size_t)N * K;
+  return pad16((size_t)(N + td) * row_stride(T, cs, 2) * 2) +
+         pad16((size_t)N * cs * 2) + pad16((size_t)N * cs) +
+         4 * (pad4(E * et_stride(T, false)) + pad4(E) +
+              pad4((size_t)2 * N + 1) + pad4(2 * E));
+}
+
+// sum_slabs after a launch with S > 1 slabs a sample
+int add_slabs(cudaStream_t st, const float* part, float* d_etype, int B,
+              int Nd, int K, int T, int S) {
+  const long long n = (long long)B * Nd * K * T;
+  sum_slabs<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0, st>>>(
+      part, d_etype, n, S, Nd * K * T);
+  return (int)cudaGetLastError();
+}
+
+template <int AGG>
+int launch_ext(cudaStream_t st, const bf16* g, const uint8_t* argmax,
+               const bf16* h, const int32_t* nn_idx, const int32_t* src_ptr,
+               const int32_t* src_edge, const float* etype, bf16* dh,
+               float* d_etype, float* part, int B, int N, int K, int T, int C,
+               int cs, int tiles, size_t smem) {
+  auto kernel = ext_bwd_kernel<AGG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int S = C / cs;
+  kernel<<<(unsigned)((long long)B * S * tiles), EXT_THREADS, smem, st>>>(
+      g, argmax, h, nn_idx, src_ptr, src_edge, etype, dh, d_etype, part, N,
+      K, T, C, cs, tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || S == 1) return (int)err;
+  return add_slabs(st, part, d_etype, B, N, K, T, S);
+}
+
 template <int AGG, int VEC, bool EXT, class TH>
 int launch_staged(cudaStream_t st, const TH* g, const uint8_t* argmax,
                   const TH* h, const int32_t* nn_idx,
                   const int32_t* src_ptr, const int32_t* src_edge,
                   const float* etype, const float* out, TH* dh,
                   float* d_etype, int B, int N, int Nd, int K, int T, int C,
-                  float gamma, float* part, int cs, int packed) {
+                  float gamma, float* part, int cs, int packed, int tiles) {
   const int S = C / cs;
   // the packed products where there are pairs to multiply (the entry
   // refuses `packed` elsewhere)
@@ -551,15 +922,12 @@ int launch_staged(cudaStream_t st, const TH* g, const uint8_t* argmax,
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)((long long)B * S), STAGED_THREADS, smem, st>>>(
+  kernel<<<(unsigned)((long long)B * S * tiles), STAGED_THREADS, smem, st>>>(
       g, argmax, h, nn_idx, src_ptr, src_edge, etype, out, dh, d_etype, part,
-      N, Nd, K, T, C, cs, gamma);
+      N, Nd, K, T, C, cs, tiles, gamma);
   err = cudaGetLastError();
   if (err != cudaSuccess || S == 1) return (int)err;
-  const long long n = (long long)B * Nd * K * T;
-  sum_slabs<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0, st>>>(
-      part, d_etype, n, S, Nd * K * T);
-  return (int)cudaGetLastError();
+  return add_slabs(st, part, d_etype, B, Nd, K, T, S);
 }
 
 // --------------------------------------------------------------------------
@@ -858,10 +1226,15 @@ extern "C" int typed_mp_bwd_staged(const void* g, const uint8_t* argmax,
                                    int Nd, int K, int T, int C,
                                    int aggregator, float gamma, int vec4,
                                    int ext, int bf16_mode, int packed,
-                                   float* part, int cs, void* stream) {
+                                   float* part, int cs, int tiles,
+                                   void* stream) {
+  if (tiles > 1) tiles = (Nd + (Nd + tiles - 1) / tiles - 1) /
+                         ((Nd + tiles - 1) / tiles);  // none empty
   if (refused(argmax, out, B, N, Nd, K, T, C, aggregator, vec4, ext) ||
       cs <= 0 || C % cs != 0 || C / cs > MAX_SLABS || (vec4 && cs % 4 != 0) ||
-      (C / cs > 1 && part == nullptr) || (long long)B * (C / cs) > INT_MAX ||
+      tiles < 1 || (tiles > 1 && !ext) ||
+      (C / cs > 1 && part == nullptr) ||
+      (long long)B * (C / cs) * tiles > INT_MAX ||
       packed < 0 || packed > 1 ||
       (packed && (!bf16_mode || !vec4 || aggregator == AGG_SOFTMAX)) ||
       (long long)B * Nd * K * T / THREADS >= INT_MAX ||
@@ -875,12 +1248,62 @@ extern "C" int typed_mp_bwd_staged(const void* g, const uint8_t* argmax,
                            static_cast<const bf16*>(h), nn_idx, src_ptr,
                            src_edge, etype, out, static_cast<bf16*>(dh),
                            d_etype, B, N, Nd, K, T, C, gamma, part, cs,
-                           packed);
+                           packed, tiles);
   return by_mode<Staged>(vec4, ext, aggregator, (cudaStream_t)stream,
                          static_cast<const float*>(g), argmax,
                          static_cast<const float*>(h), nn_idx, src_ptr,
                          src_edge, etype, out, static_cast<float*>(dh),
-                         d_etype, B, N, Nd, K, T, C, gamma, part, cs, 0);
+                         d_etype, B, N, Nd, K, T, C, gamma, part, cs, 0,
+                         tiles);
+}
+
+// The bf16 DIFF/NEIGHBOR design (ext_bwd_kernel): bf16 g, h and dh (B,
+// 2 N, T, C), Nd == N, the 2 N-row transposed table; max, sum or mean
+// (`argmax` needed for max).  `cs` channels per block, cs % 8 == 0 and
+// C / cs <= 8, in `tiles` tiles of destination rows; with S = C / cs > 1,
+// `part` is scratch for the slabs' partial sums of d_etype, as for
+// typed_mp_bwd_staged.  g, h and dh 16-byte aligned, argmax 8-byte.
+extern "C" int typed_mp_bwd_ext(const void* g, const uint8_t* argmax,
+                                const void* h, const int32_t* nn_idx,
+                                const int32_t* src_ptr,
+                                const int32_t* src_edge, const float* etype,
+                                void* dh, float* d_etype, int B, int N, int K,
+                                int T, int C, int aggregator, float* part,
+                                int cs, int tiles, void* stream) {
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(h) |
+        reinterpret_cast<uintptr_t>(dh)) & 15) == 0 &&
+      (reinterpret_cast<uintptr_t>(argmax) & 7) == 0;
+  if (tiles > 1) tiles = (N + (N + tiles - 1) / tiles - 1) /
+                         ((N + tiles - 1) / tiles);  // none empty
+  const size_t smem =
+      cs > 0 && tiles > 0 ? ext_bytes(N, (N + tiles - 1) / tiles, K, T, cs)
+                          : 0;
+  if (refused(argmax, nullptr, B, N, N, K, T, C, aggregator, 1, 1) ||
+      aggregator < AGG_MAX || aggregator > AGG_MEAN || !aligned || cs <= 0 ||
+      cs % 8 != 0 || ((cs / 8) & (cs / 8 - 1)) != 0 || C % cs != 0 ||
+      C / cs > MAX_SLABS || (C / cs > 1 && part == nullptr) ||
+      tiles < 1 || tiles > N || (long long)B * (C / cs) * tiles > INT_MAX ||
+      (long long)B * N * K * T / THREADS >= INT_MAX || smem > SMEM_PER_BLOCK)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bf16* gp = static_cast<const bf16*>(g);
+  const bf16* hp = static_cast<const bf16*>(h);
+  bf16* dp = static_cast<bf16*>(dh);
+  switch (aggregator) {
+    case AGG_MAX:
+      return launch_ext<AGG_MAX>(st, gp, argmax, hp, nn_idx, src_ptr,
+                                 src_edge, etype, dp, d_etype, part, B, N, K,
+                                 T, C, cs, tiles, smem);
+    case AGG_SUM:
+      return launch_ext<AGG_SUM>(st, gp, argmax, hp, nn_idx, src_ptr,
+                                 src_edge, etype, dp, d_etype, part, B, N, K,
+                                 T, C, cs, tiles, smem);
+    default:
+      return launch_ext<AGG_MEAN>(st, gp, argmax, hp, nn_idx, src_ptr,
+                                  src_edge, etype, dp, d_etype, part, B, N,
+                                  K, T, C, cs, tiles, smem);
+  }
 }
 
 // The kept route: the first kernels of the port, for any size.

@@ -1,8 +1,9 @@
 // Helpers shared by typed_mp_fwd.cu and typed_mp_bwd.cu: the aggregator
 // codes, loads and stores of 1 and 4 values of f32 or bf16 (converted to and
 // from f32 in registers; 8 bf16 for the bf16-only routes), the packed bf16
-// products (mul_rnd2), cp.async into shared memory, index division by one
-// multiply, and the row stride of a staged slab of h.
+// products (mul_rnd2) and pair rounding (rnd2), cp.async into shared memory
+// (in groups, too), index division by one multiply, and the row stride of
+// a staged slab of h.
 // ops/fused_mp.py:build rebuilds a library when this header changes.
 //
 // The storage type TH of h (and of out, g and dh) is float or bf16: the
@@ -10,8 +11,8 @@
 // value where the bf16 mode of the TPU kernel rounds it (to nearest even, as
 // torch's .to(torch.bfloat16)), and is the identity for f32, so the f32
 // instantiations compute what they computed before the bf16 mode existed.
-// The bf16-only routes round through rnd<bf16> and mul_rnd2 alone (a store
-// to bf16 rounds too: out, dh, and mean's g / K in the backward).
+// The bf16-only routes round through rnd<bf16>, mul_rnd2 and rnd2 alone (a
+// store to bf16 rounds too: out, dh, and mean's g / K in the backward).
 
 #pragma once
 
@@ -83,6 +84,12 @@ __device__ __forceinline__ float2 mul_rnd2(__nv_bfloat162 a,
 // the same with b = (w, w): w rounded to bf16 first, as rnd<bf16>(w)
 __device__ __forceinline__ float2 mul_rnd2(__nv_bfloat162 a, float w) {
   return mul_rnd2(a, __float2bfloat162_rn(w));
+}
+
+// a and b each rounded to bf16 and back, as rnd<bf16> rounds them, with one
+// cvt.rn.bf16x2.f32 for the pair
+__device__ __forceinline__ float2 rnd2(float a, float b) {
+  return unpack2(bits(__floats2bfloat162_rn(a, b)));
 }
 
 template <int VEC>
@@ -207,6 +214,16 @@ __device__ __forceinline__ void stage(T* dst, const T* src) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Close the group of the copies issued since the last one; then
+// cp_async_wait<N>() waits until at most the N latest groups are pending.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // q / d in one multiply, exact for q * d < 2^32 (every index here: shared

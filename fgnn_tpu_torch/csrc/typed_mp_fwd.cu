@@ -72,6 +72,24 @@
 //   same bits).  Indices split with one multiply (FastDiv).  Row tiles and
 //   G come from the shapes, so that the grid keeps most SMs busy at C=2 and
 //   a block fills at Nd=30.
+//   In the bf16 mode it has two designs (the C entry's `design`).  The kept
+//   one (kept=True in the wrapper) is the f32 mode's: the f32 plan
+//   (fwd_slab), 8-byte copies and loads of 4 channels, and etype read from
+//   L1 and rounded in every lane at each use; it took 1.18 times f32's time
+//   on the same launches (PERF.md): in bf16 each value is widened at
+//   each use, and each etype weight rounded in every lane that reads it.
+//   The bf16 design (design 1, planned
+//   by fwd_bf16_plan) rounds the block's rows of etype once per (d, k, t)
+//   into shared memory on their way in, copies the slab in 16-byte pieces,
+//   takes 8 channels a thread (16-byte loads) where the lanes of a row
+//   still carry two edges each, else 4, and gives a lane all of its edges
+//   at once (KC up to 4), so that only the last lane of a row has idle
+//   slots.  It keeps the kept kernel's order of arithmetic, so max's out
+//   and argmax are bit-equal to both kept routes.  Where its launch goes,
+//   phase by phase: python -m fgnn_tpu_torch.utils.phases (PERF.md).
+//   Copying the slab in two groups, the second behind the first types'
+//   messages, did not help, and neither did a slab widened to f32 as it is
+//   staged (loads through registers are slower than cp.async); both went.
 //
 // The first two routes have an f32 and a bf16 mode (the template argument
 // TH, the storage type of h and out), as the TPU kernel's mm_dtype; the
@@ -239,7 +257,9 @@ constexpr int SMS = 132;             // the H100's SMs
 // with the vector index fastest, one wavefront reads 128 / (Cs esz) rows of
 // Cs channels, and rows whose stride is Cs elements modulo 128 bytes start
 // on distinct bank groups whenever their indices differ modulo that count.
-// Other slabs take the backward's stride.
+// Other slabs take the backward's stride.  The bf16 design's 16-byte loads
+// keep this stride too: of the paddings of a row tried on the H100, this
+// one was the fastest at the hop shapes.
 __host__ __device__ inline int fwd_row_stride(int T, int cs, int esz) {
   const int w = 128 / esz;  // elements per 128 bytes
   return cs % 4 == 0 && cs < w ? (T * cs + w - 1) / w * w + cs
@@ -248,11 +268,12 @@ __host__ __device__ inline int fwd_row_stride(int T, int cs, int esz) {
 
 // Shared memory of one block, in bytes, each region 16-byte aligned: hs,
 // the slab of h (rows, T, cs) in rows of fwd_row_stride elements; nn
-// (nd K), the block's part of the table.
+// (nd K), the block's part of the table; with `et` (the bf16 design) ws,
+// the block's rows of etype (nd K T) rounded to bf16 and held as f32.
 inline size_t fwd_staged_bytes(int rows, int nd, int K, int T, int cs,
-                               int esz) {
+                               int esz, bool et) {
   return pad16((size_t)rows * fwd_row_stride(T, cs, esz) * esz) +
-         4 * pad4((size_t)nd * K);
+         4 * pad4((size_t)nd * K) + (et ? 4 * pad4((size_t)nd * K * T) : 0);
 }
 
 // The 4 types t0..t0+3 of an etype row w (types past T are never used).
@@ -276,12 +297,21 @@ __device__ __forceinline__ void etype_run(const float* w, int t0, int T,
 // time: for each type t it loads the self row once and the KC neighbour
 // rows together (so that their latencies overlap; the arithmetic then runs
 // for all KC slots), and forms m_k exactly as the kept kernel does (the two
-// rows added, then fmaf over ascending t from 0), with etype read from
-// global memory (through L1).  A lane folds its edges into its aggregate in
-// ascending k; the G lanes then combine in a fixed butterfly.  For max the
-// butterfly keeps the lower k on a tie, so out and the argmax are those of
-// one pass over k: bit-equal to the kept kernel.
-template <int AGG, int VEC, int KC, class TH>
+// rows added, then fmaf over ascending t from 0).  A lane folds its edges
+// into its aggregate in ascending k; the G lanes then combine in a fixed
+// butterfly.  For max the butterfly keeps the lower k on a tie, so out and
+// the argmax are those of one pass over k: bit-equal to the kept kernel.
+//
+// ET selects the bf16 design (typed_mp_fwd_staged's `design` 1, bf16
+// only): the block also stages its rows' etype and rounds it to bf16 once
+// per (d, k, t) in shared memory (ws); it copies the slab in 16-byte
+// pieces wherever a row of one type is whole 16-byte vectors, where a
+// thread takes 8 channels (VEC 8, 16-byte loads); and a lane carries all
+// of its edges at once (KC up to 4), so that no slot of a chunk is idle
+// but the last lane's.  Without ET (the design of the f32 mode, and the
+// kept bf16 route) every lane reads etype from global memory (through L1)
+// and rounds it at each use.
+template <int AGG, int VEC, int KC, class TH, bool ET>
 __global__ void __launch_bounds__(STAGED_THREADS)
 staged_fwd_kernel(const TH* __restrict__ h,
                   const int32_t* __restrict__ nn_idx,
@@ -309,11 +339,12 @@ staged_fwd_kernel(const TH* __restrict__ h,
   TH* hs = reinterpret_cast<TH*>(smem);
   int* nn = reinterpret_cast<int*>(reinterpret_cast<char*>(smem) +
                                    pad16((size_t)rows * RS * ESZ));
+  float* ws = reinterpret_cast<float*>(nn + pad4((size_t)nd * K));  // ET
 
-  // 1. stage the slab of h and the rows' part of the table
+  // 1. stage the slab of h and the rows' part of the table (and etype)
   const TH* hb = h + (size_t)b * rows * T * C + c0;
-  if (Cs == C && (T * C) % EPC == 0 && RS % EPC == 0 &&
-      (reinterpret_cast<uintptr_t>(hb) & 15) == 0) {
+  const bool h16 = RS % EPC == 0 && (reinterpret_cast<uintptr_t>(hb) & 15) == 0;
+  if (Cs == C && (T * C) % EPC == 0 && h16) {
     // the slab is the whole row: 16-byte copies at any C
     const int q4 = T * C / EPC;
     const FastDiv by_q4(q4);
@@ -321,6 +352,17 @@ staged_fwd_kernel(const TH* __restrict__ h,
       const int r = by_q4(q);
       const int o = EPC * (q - r * q4);
       cp_async(hs + (size_t)r * RS + o, hb + (size_t)r * T * C + o, 16);
+    }
+  } else if (ET && Cs % EPC == 0 && C % EPC == 0 && h16) {
+    // 16-byte pieces of each (row, type) of the slab
+    const int pv = Cs / EPC;
+    const FastDiv by_pv(pv);
+    for (int q = tid; q < rows * T * pv; q += nt) {
+      const int o = by_pv(q);  // o = r T + t
+      const int c = EPC * (q - o * pv);
+      const int r = by_t(o);
+      cp_async(hs + (size_t)r * RS + (o - r * T) * Cs + c,
+               hb + (size_t)o * C + c, 16);
     }
   } else {
     for (int q = tid; q < rows * T * cv; q += nt) {
@@ -333,6 +375,27 @@ staged_fwd_kernel(const TH* __restrict__ h,
   }
   for (int q = tid; q < nd * K; q += nt)
     cp_async(nn + q, nn_idx + (size_t)d0 * K + q, 4);
+  const float* eb = etype + ((size_t)b * Nd + d0) * K * T;
+  const bool et_vec = T % 4 == 0 && (reinterpret_cast<uintptr_t>(eb) & 15) == 0;
+  if (ET) {
+    // the rows' etype, rounded once per (d, k, t) on its way to shared
+    // memory while the slab's copies are in flight
+    const int ne = nd * K * T;
+    if (et_vec) {
+#pragma unroll 4
+      for (int q = tid; q < ne / 4; q += nt) {
+        float v[4];
+        Vec<4>::load(eb + 4 * q, v);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v[u] = rnd<TH>(v[u]);
+        *reinterpret_cast<float4*>(ws + 4 * q) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+    } else {
+#pragma unroll 4
+      for (int q = tid; q < ne; q += nt) ws[q] = rnd<TH>(__ldg(eb + q));
+    }
+  }
   cp_async_wait_all();
   __syncthreads();
 
@@ -341,8 +404,7 @@ staged_fwd_kernel(const TH* __restrict__ h,
   const int items = nd * cv * G;
   const int steps = (items + nt - 1) / nt;  // the same in every warp
   const int sx = vec_fast ? cv : 1;         // lane stride between the G lanes
-  const float* eb = etype + ((size_t)b * Nd + d0) * K * T;
-  const bool et_vec = T % 4 == 0 && (reinterpret_cast<uintptr_t>(eb) & 15) == 0;
+  const bool w_vec = ET ? T % 4 == 0 : et_vec;
   for (int it = 0; it < steps; ++it) {
     const int qq = it * nt + tid;
     const bool live = qq < items;  // whole groups of G lanes: items % G == 0
@@ -372,7 +434,7 @@ staged_fwd_kernel(const TH* __restrict__ h,
       for (int j = 0; j < KC; ++j) {
         const int e = dl * K + g + ((j0 + (j < jn ? j : 0)) << lg);
         nb_row[j] = (2 * nn[e] + 1) * RS + c;
-        w[j] = eb + (size_t)e * T;
+        w[j] = (ET ? ws : eb) + (size_t)e * T;
       }
       float m[KC][VEC];
 #pragma unroll
@@ -384,9 +446,17 @@ staged_fwd_kernel(const TH* __restrict__ h,
 #pragma unroll
         for (int j = 0; j < KC; ++j) {
           if (j < jn) {
-            etype_run(w[j], t0, T, et_vec, wv[j]);
+            if (ET && w_vec) {
+              Vec<4>::lds(w[j] + t0, wv[j]);
+            } else if (ET) {
 #pragma unroll
-            for (int u = 0; u < 4; ++u) wv[j][u] = rnd<TH>(wv[j][u]);
+              for (int u = 0; u < 4; ++u)
+                wv[j][u] = t0 + u < T ? w[j][t0 + u] : 0.f;
+            } else {
+              etype_run(w[j], t0, T, w_vec, wv[j]);
+#pragma unroll
+              for (int u = 0; u < 4; ++u) wv[j][u] = rnd<TH>(wv[j][u]);
+            }
           } else {
 #pragma unroll
             for (int u = 0; u < 4; ++u) wv[j][u] = 0.f;
@@ -455,13 +525,13 @@ staged_fwd_kernel(const TH* __restrict__ h,
   }
 }
 
-template <int AGG, int VEC, int KC, class TH>
+template <int AGG, int VEC, int KC, class TH, bool ET>
 int launch_staged(cudaStream_t st, unsigned blocks, int threads, size_t smem,
                   const TH* h, const int32_t* nn_idx, const float* etype,
                   TH* out, uint8_t* argmax, float* lse, int N, int K, int T,
                   int C, int cs, int tiles, int tile_rows, int lg,
                   int vec_fast, float gamma) {
-  auto kernel = staged_fwd_kernel<AGG, VEC, KC, TH>;
+  auto kernel = staged_fwd_kernel<AGG, VEC, KC, TH, ET>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
       cudaSharedmemCarveoutMaxShared);
@@ -475,24 +545,28 @@ int launch_staged(cudaStream_t st, unsigned blocks, int threads, size_t smem,
   return (int)cudaGetLastError();
 }
 
-template <int VEC, int KC, class TH, typename... A>
+template <int VEC, int KC, class TH, bool ET, typename... A>
 int dispatch_staged(int aggregator, A... a) {
   switch (aggregator) {
-    case AGG_MAX: return launch_staged<AGG_MAX, VEC, KC, TH>(a...);
-    case AGG_SUM: return launch_staged<AGG_SUM, VEC, KC, TH>(a...);
-    case AGG_MEAN: return launch_staged<AGG_MEAN, VEC, KC, TH>(a...);
-    case AGG_SOFTMAX: return launch_staged<AGG_SOFTMAX, VEC, KC, TH>(a...);
+    case AGG_MAX: return launch_staged<AGG_MAX, VEC, KC, TH, ET>(a...);
+    case AGG_SUM: return launch_staged<AGG_SUM, VEC, KC, TH, ET>(a...);
+    case AGG_MEAN: return launch_staged<AGG_MEAN, VEC, KC, TH, ET>(a...);
+    case AGG_SOFTMAX: return launch_staged<AGG_SOFTMAX, VEC, KC, TH, ET>(a...);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // KC, the edges a lane carries at once: the lane's edges, rounded up to 1,
-// 2 or MAX_KC (the arithmetic of the KC slots runs for every lane).
-template <int VEC, class TH, typename... A>
+// 2 or MAX_KC (3 too in the bf16 design; the arithmetic of the KC slots
+// runs for every lane).
+template <int VEC, class TH, bool ET, typename... A>
 int by_kc(int kc, int aggregator, A... a) {
-  if (kc == 1) return dispatch_staged<VEC, 1, TH>(aggregator, a...);
-  if (kc == 2) return dispatch_staged<VEC, 2, TH>(aggregator, a...);
-  return dispatch_staged<VEC, MAX_KC, TH>(aggregator, a...);
+  if (kc == 1) return dispatch_staged<VEC, 1, TH, ET>(aggregator, a...);
+  if (kc == 2) return dispatch_staged<VEC, 2, TH, ET>(aggregator, a...);
+  if constexpr (ET) {
+    if (kc == 3) return dispatch_staged<VEC, 3, TH, ET>(aggregator, a...);
+  }
+  return dispatch_staged<VEC, MAX_KC, TH, ET>(aggregator, a...);
 }
 
 // --------------------------------------------------------------------------
@@ -652,53 +726,100 @@ extern "C" int typed_mp_fwd(const void* h, const int32_t* nn_idx,
 
 // The staged route, DIFF/NEIGHBOR only (h (B, 2 N, T, C), Nd == N): `cs`
 // channels per block, a divisor of C whose slab of h, with the table of
-// all N rows, fits in a block's shared memory.  `vec4` asks for the
-// vector path: C % 4 == 0, cs % 4 == 0, 16-byte aligned h and out.  `bf16`
-// and `lse` as for typed_mp_fwd.  From the shapes alone it splits the rows
-// into tiles where the (sample, slab) blocks would leave most SMs idle, and
-// puts G lanes (1, 2, 4 or 8, at most K) on each (row, vector), as many as
-// keep one item per thread.
+// the block's rows (and, in the bf16 design, their etype), fits in a
+// block's shared memory.  `vec4` asks for the vector path: C % 4 == 0,
+// cs % 4 == 0, 16-byte aligned h, out and lse.  `bf16` and `lse` as for
+// typed_mp_fwd.  `design` 0 is the kept design of both modes: from the
+// shapes alone it splits the rows into tiles where the (sample, slab)
+// blocks would leave most SMs idle (`tiles` must be 0).  `design` 1, the
+// bf16 mode's design (ops/fused_mp.py:fwd_bf16_plan), takes `tiles` row
+// tiles, stages etype rounded once, and on the vector path runs 8 channels
+// a thread where cs % 8 == 0.  Both put G lanes (1, 2, 4 or 8, at most K)
+// on each (row, vector), as many as keep one item per thread.
 extern "C" int typed_mp_fwd_staged(const void* h, const int32_t* nn_idx,
                                    const float* etype, void* out,
                                    uint8_t* argmax, float* lse, int B, int N,
                                    int Nd, int K, int T, int C,
                                    int aggregator, float gamma, int vec4,
-                                   int bf16_mode, int cs, void* stream) {
+                                   int bf16_mode, int cs, int design,
+                                   int tiles, void* stream) {
   const int esz = bf16_mode ? 2 : 4;
   if (B <= 0 || N <= 0 || Nd != N || K <= 0 || K > 255 || T <= 0 || C <= 0 ||
       cs <= 0 || C % cs != 0 || (vec4 && (C % 4 != 0 || cs % 4 != 0)) ||
-      fwd_staged_bytes(2 * N, Nd, K, T, cs, esz) > SMEM_PER_BLOCK)
+      design < 0 || design > 1 || (design == 0 && tiles != 0) ||
+      (design == 1 && (!bf16_mode || tiles < 1 || tiles > Nd)) ||
+      (design == 0 &&
+       fwd_staged_bytes(2 * N, Nd, K, T, cs, esz, false) > SMEM_PER_BLOCK))
     return (int)cudaErrorInvalidValue;
   const long long bs = (long long)B * (C / cs);  // (sample, slab) blocks
-  int tiles = 2 * bs >= SMS
-                  ? 1
-                  : (int)std::min<long long>(Nd, (SMS + bs - 1) / bs);
+  if (design == 0)
+    tiles = 2 * bs >= SMS ? 1
+                          : (int)std::min<long long>(Nd, (SMS + bs - 1) / bs);
   const int tile_rows = (Nd + tiles - 1) / tiles;
   tiles = (Nd + tile_rows - 1) / tile_rows;
-  const int cv = cs / (vec4 ? 4 : 1);
-  int lg = 0;
-  while (lg < 3 && (2 << lg) <= K &&
-         (long long)tile_rows * cv * (2 << lg) <= STAGED_THREADS)
-    ++lg;
+  // lanes G = 1 << lg on each (row, vector): as many, up to 8 and at most
+  // `most`, as keep one item per thread
+  auto lanes = [&](int cv, int most) {
+    int lg = 0;
+    while (lg < 3 && (2 << lg) <= most &&
+           (long long)tile_rows * cv * (2 << lg) <= STAGED_THREADS)
+      ++lg;
+    return lg;
+  };
+  // the bf16 design takes 8 channels a thread where cs % 8 == 0, with
+  // lanes of at least two edges each, unless 4 channels (lanes of one edge
+  // or more) make more items
+  const int most8 = std::max(1, K / 2);
+  int vec = vec4 ? 4 : 1;
+  if (design == 1 && vec4 && cs % 8 == 0 &&
+      ((cs / 8) << lanes(cs / 8, most8)) >= ((cs / 4) << lanes(cs / 4, K)))
+    vec = 8;
+  const int cv = cs / vec;
+  const int lg = lanes(cv, vec == 8 ? most8 : K);
   const int vec_fast = (cv & (cv - 1)) == 0 && (cv << lg) <= 32;
   const int lane_edges = (K + (1 << lg) - 1) >> lg;
-  const int kc = lane_edges <= 2 ? lane_edges : MAX_KC;
+  // the bf16 design carries up to MAX_KC edges exactly, the kept one 1, 2
+  // or MAX_KC
+  const int kc = lane_edges <= (design == 1 ? MAX_KC : 2) ? lane_edges
+                                                         : MAX_KC;
   const long long items = (long long)tile_rows * cv * (1 << lg);
   const int threads = (int)std::max<long long>(
       128, std::min<long long>(STAGED_THREADS, (items + 31) / 32 * 32));
   const long long blocks = bs * tiles;
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  const size_t smem = fwd_staged_bytes(2 * N, tile_rows, K, T, cs, esz);
+  const size_t smem =
+      fwd_staged_bytes(2 * N, tile_rows, K, T, cs, esz, design == 1);
+  if (blocks > INT_MAX || smem > SMEM_PER_BLOCK)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned nb = (unsigned)blocks;
   return by_type(bf16_mode, h, out, [&](auto hp, auto op) {
     using TH = std::remove_const_t<std::remove_pointer_t<decltype(hp)>>;
-    return vec4 ? by_kc<4, TH>(kc, aggregator, s, nb, threads, smem, hp,
-                               nn_idx, etype, op, argmax, lse, N, K, T, C, cs,
-                               tiles, tile_rows, lg, vec_fast, gamma)
-                : by_kc<1, TH>(kc, aggregator, s, nb, threads, smem, hp,
-                               nn_idx, etype, op, argmax, lse, N, K, T, C, cs,
-                               tiles, tile_rows, lg, vec_fast, gamma);
+    if constexpr (std::is_same<TH, bf16>::value) {
+      if (design == 1) {
+        if (vec == 8)
+          return by_kc<8, TH, true>(kc, aggregator, s, nb, threads, smem, hp,
+                                    nn_idx, etype, op, argmax, lse, N, K, T,
+                                    C, cs, tiles, tile_rows, lg, vec_fast,
+                                    gamma);
+        return vec == 4
+                   ? by_kc<4, TH, true>(kc, aggregator, s, nb, threads, smem,
+                                        hp, nn_idx, etype, op, argmax, lse,
+                                        N, K, T, C, cs, tiles, tile_rows, lg,
+                                        vec_fast, gamma)
+                   : by_kc<1, TH, true>(kc, aggregator, s, nb, threads, smem,
+                                        hp, nn_idx, etype, op, argmax, lse,
+                                        N, K, T, C, cs, tiles, tile_rows, lg,
+                                        vec_fast, gamma);
+      }
+    }
+    return vec4 ? by_kc<4, TH, false>(kc, aggregator, s, nb, threads, smem,
+                                      hp, nn_idx, etype, op, argmax, lse, N,
+                                      K, T, C, cs, tiles, tile_rows, lg,
+                                      vec_fast, gamma)
+                : by_kc<1, TH, false>(kc, aggregator, s, nb, threads, smem,
+                                      hp, nn_idx, etype, op, argmax, lse, N,
+                                      K, T, C, cs, tiles, tile_rows, lg,
+                                      vec_fast, gamma);
   });
 }
 

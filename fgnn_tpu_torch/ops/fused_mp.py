@@ -19,7 +19,10 @@ replace its Pallas TPU kernels, in both of their modes,
   give every second SM a block).  The DIFF/NEIGHBOR mode has two routes, the staged
   kernel (``typed_mp_fwd_staged``, one block per sample, slab of channels
   and tile of rows out of shared memory), planned by ``fwd_slab`` from the
-  shapes alone, and the first kernel where no slab fits;
+  shapes alone, and the first kernel where no slab fits; in bf16 the
+  staged kernel runs its bf16 design (``fwd_bf16_plan``: etype rounded
+  once in shared memory, 8 channels a thread), and ``kept=True`` keeps the
+  f32 mode's design for it;
 * ``csrc/typed_mp_bwd.cu`` for ``_bwd_kernel``.  From the cotangent g of
   out, the per-edge cotangent ``dm[b, d, k, c]`` (max: g where the argmax
   is k; sum: g; mean: g / K; softmax: g * exp(gamma (m_k - out))), then
@@ -38,7 +41,12 @@ replace its Pallas TPU kernels, in both of their modes,
   the products of max, sum and mean on the vector path two at a time from
   bf16 pairs (``packed``, ``bwd_packed``), with the bits of its scalar
   products, which ``packed=False`` keeps reachable; softmax and the scalar
-  path run the scalar products.
+  path run the scalar products.  The DIFF/NEIGHBOR mode in bf16 runs its
+  design (``typed_mp_bwd_ext``, ``bwd_ext_plan``: the whole of C in tiles
+  of destination rows where it fits, single products for max's self rows)
+  for max, sum and mean on 16-byte vectors, and the staged kernel in tiles
+  of rows (``bwd_ext_tiles``) elsewhere; ``kept=True`` keeps the staged
+  kernel with the f32 mode's plan; dh has the same bits on every route.
 
 The DIFF/NEIGHBOR mode (``ext=True``) takes h (B, 2 N, T, C) with two rows
 per node, interleaved: the self row 2 n (x_n W_a) and the neighbour row
@@ -76,8 +84,9 @@ Beside each kernel, as every kernel of the port has them:
   ``KEPT_BWD_COUNTS`` and ``KEPT_EXT_BWD_COUNTS`` the kept ones); the
   ``bf16_launches`` of each counts the launches of the bf16 mode among
   its ``kernel_launches``; in the bf16 mode ``COUNTS`` counts the sample
-  route and ``BWD_COUNTS``/``EXT_BWD_COUNTS`` the packed products,
-  ``KEPT_BF16_COUNTS``, ``KEPT_BF16_BWD_COUNTS`` and
+  route, ``BWD_COUNTS`` the packed products, ``EXT_COUNTS`` and
+  ``EXT_BWD_COUNTS`` the DIFF/NEIGHBOR designs, ``KEPT_BF16_COUNTS``,
+  ``KEPT_BF16_BWD_COUNTS``, ``KEPT_BF16_EXT_COUNTS`` and
   ``KEPT_BF16_EXT_BWD_COUNTS`` the kept bf16 routes, each launch under the
   route that ran;
 * a wrapper (``typed_gather_mix_agg``, ``typed_gather_mix_agg_bwd``).  A
@@ -115,11 +124,14 @@ EXT_COUNTS = {"kernel_launches": 0, "bf16_launches": 0, "plain_calls": 0}
 EXT_BWD_COUNTS = {"kernel_launches": 0, "bf16_launches": 0,
                   "plain_calls": 0}
 KEPT_EXT_COUNTS = {"kernel_launches": 0, "bf16_launches": 0}
+# the DIFF/NEIGHBOR forward's kept bf16 staged route (kept=True)
+KEPT_BF16_EXT_COUNTS = {"kernel_launches": 0, "bf16_launches": 0}
 # the kept backward takes f32 only
 KEPT_BWD_COUNTS = {"kernel_launches": 0}
 KEPT_EXT_BWD_COUNTS = {"kernel_launches": 0}
 # the bf16 mode's kept routes: the first NO_EXTENSION forward kernel, and
-# the staged backward with scalar products, per mode
+# the staged backward with scalar products, per mode (for DIFF/NEIGHBOR
+# also with the packed products of kept=True)
 KEPT_BF16_COUNTS = {"kernel_launches": 0, "bf16_launches": 0}
 KEPT_BF16_BWD_COUNTS = {"kernel_launches": 0, "bf16_launches": 0}
 KEPT_BF16_EXT_BWD_COUNTS = {"kernel_launches": 0, "bf16_launches": 0}
@@ -136,9 +148,10 @@ _ARGTYPES = {
     # bf16 ext; stream
     "typed_mp_fwd": [_PTR] * 6 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 3
     + [_PTR],
-    # the same with the channels per block in place of ext
+    # the same with the channels per block in place of ext, then the
+    # design and its row tiles
     "typed_mp_fwd_staged": [_PTR] * 6 + [_INT] * 7 + [ctypes.c_float]
-    + [_INT] * 3 + [_PTR],
+    + [_INT] * 5 + [_PTR],
     # the same without vec4 bf16 ext
     "typed_mp_fwd_sample": [_PTR] * 6 + [_INT] * 7 + [ctypes.c_float]
     + [_PTR],
@@ -147,9 +160,13 @@ _ARGTYPES = {
     "typed_mp_bwd": [_PTR] * 10 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 2
     + [_PTR],
     # the same with bf16 and packed after ext, then scratch for the slabs'
-    # partial sums of d_etype and the channels per block before the stream
+    # partial sums of d_etype, the channels per block and the tiles of
+    # destination rows before the stream
     "typed_mp_bwd_staged": [_PTR] * 10 + [_INT] * 7 + [ctypes.c_float]
-    + [_INT] * 4 + [_PTR, _INT, _PTR],
+    + [_INT] * 4 + [_PTR, _INT, _INT, _PTR],
+    # g, argmax, h, nn_idx, src_ptr, src_edge, etype, dh, d_etype; B N K T
+    # C agg; the slabs' scratch; channels per block, row tiles; stream
+    "typed_mp_bwd_ext": [_PTR] * 9 + [_INT] * 6 + [_PTR, _INT, _INT, _PTR],
 }
 _libs = {}
 
@@ -166,7 +183,7 @@ def reset_counts() -> None:
     for counts in (COUNTS, BWD_COUNTS, EXT_COUNTS, EXT_BWD_COUNTS,
                    KEPT_EXT_COUNTS, KEPT_BWD_COUNTS, KEPT_EXT_BWD_COUNTS,
                    KEPT_BF16_COUNTS, KEPT_BF16_BWD_COUNTS,
-                   KEPT_BF16_EXT_BWD_COUNTS):
+                   KEPT_BF16_EXT_COUNTS, KEPT_BF16_EXT_BWD_COUNTS):
         for k in counts:
             counts[k] = 0
 
@@ -385,15 +402,16 @@ def _fwd_row_stride(T: int, cs: int, esz: int = 4) -> int:
 
 
 def fwd_bytes(rows: int, Nd: int, K: int, T: int, cs: int,
-              esz: int = 4) -> int:
+              esz: int = 4, et: bool = False) -> int:
     """Shared memory of one block of the staged forward kernel
-    (``csrc/typed_mp_fwd.cu``) over all Nd destination rows, each region
+    (``csrc/typed_mp_fwd.cu``) over Nd destination rows, each region
     16-byte aligned: its slab of h (rows, T, cs) in rows of
-    ``_fwd_row_stride`` elements of ``esz`` bytes (4: f32, 2: bf16), and
-    the table (Nd K) int32.  A block of a tile of rows needs less; etype
-    is read from global memory."""
+    ``_fwd_row_stride`` elements of ``esz`` bytes (4: f32, 2: bf16), the
+    table (Nd K) int32 and, for the bf16 design (``et``), the rows' etype
+    (Nd K T) rounded to bf16 and held as f32.  The kept design reads
+    etype from global memory; a block of a tile of rows needs less."""
     return (_pad16(rows * _fwd_row_stride(T, cs, esz), esz)
-            + 4 * _pad4(Nd * K))
+            + 4 * _pad4(Nd * K) + (4 * _pad4(Nd * K * T) if et else 0))
 
 
 def fwd_slabs(rows: int, Nd: int, K: int, T: int, C: int,
@@ -457,10 +475,42 @@ def fwd_sample(B: int, N: int, Nd: int, K: int, T: int, C: int,
             and sample_bytes(N, Nd, K, T, C) <= SMEM_PER_BLOCK)
 
 
+def fwd_bf16_slabs(rows: int, Nd: int, K: int, T: int, C: int) -> list:
+    """The slabs the bf16 DIFF/NEIGHBOR forward's design takes, widest
+    first: divisors of C, multiples of 8 channels where C % 8 == 0 (16-byte
+    vectors), else as ``fwd_slabs``, whose block over all Nd rows fits in
+    shared memory with the rows' etype (``fwd_bytes`` with ``et``)."""
+    step = 8 if C % 8 == 0 else 4 if C % 4 == 0 else 1
+    return [cs for cs in range(C, 0, -1)
+            if C % cs == 0 and cs % step == 0
+            and fwd_bytes(rows, Nd, K, T, cs, 2, True) <= SMEM_PER_BLOCK]
+
+
+def fwd_bf16_tiles(B: int, Nd: int, C: int, slab: int) -> int:
+    """Row tiles of the bf16 DIFF/NEIGHBOR forward's design with ``slab``
+    channels a block: the kept design's rule, as many as give every SM a
+    block where the (sample, slab) blocks would leave most SMs idle."""
+    bs = B * (C // slab)
+    return 1 if 2 * bs >= SMS else min(Nd, -(-SMS // bs))
+
+
+def fwd_bf16_plan(B: int, rows: int, Nd: int, K: int, T: int,
+                  C: int) -> tuple:
+    """(slab, row tiles) of the bf16 DIFF/NEIGHBOR forward's design
+    (``typed_mp_fwd_staged``'s design 1) for h (B, rows = 2 Nd, T, C) bf16,
+    from the shapes alone, or (0, 0) where no slab fits: the kept design's
+    rule (``_busiest``) over ``fwd_bf16_slabs``."""
+    slabs = fwd_bf16_slabs(rows, Nd, K, T, C)
+    if not slabs:
+        return 0, 0
+    cs = _busiest(slabs, B, C)
+    return cs, fwd_bf16_tiles(B, Nd, C, cs)
+
+
 def typed_gather_mix_agg(h, nn_idx, etype, aggregator: str,
                          gamma: float = 3.0, want_argmax: bool = False,
                          ext: bool = False, slab=None,
-                         want_lse: bool = False):
+                         want_lse: bool = False, kept: bool = False):
     """out (B, Nd, C) in h's dtype [, argmax (B, Nd, C) uint8 for max
     with ``want_argmax``, or the f32 log-sum-exp (B, Nd, C) for softmax
     with ``want_lse``: what the backward needs, out itself under f32].
@@ -474,11 +524,18 @@ def typed_gather_mix_agg(h, nn_idx, etype, aggregator: str,
     hold and time both routes).  A bf16 h selects the bf16 mode of either
     route.  NO_EXTENSION in the bf16 mode takes the sample route where
     ``fwd_sample`` plans it and h is 16-byte aligned, and ``slab=0`` the
-    kept kernel; in f32 it has the kept kernel only."""
+    kept kernel; in f32 it has the kept kernel only.  The DIFF/NEIGHBOR
+    mode in bf16 takes the staged kernel's bf16 design
+    (``fwd_bf16_plan``; a given ``slab`` keeps its ``fwd_bf16_tiles``), and
+    ``kept=True`` the staged kernel's design of the f32 mode with its plan
+    (``fwd_slab``), as the bf16 mode first ran it."""
     counts = EXT_COUNTS if ext else COUNTS
     if slab and not ext:
         raise ValueError("the staged forward takes the DIFF/NEIGHBOR mode "
                          "only")
+    if kept and not ext:
+        raise ValueError("kept selects the DIFF/NEIGHBOR mode's kept bf16 "
+                         "staged route")
     if want_lse and aggregator != "softmax":
         raise ValueError("the log-sum-exp exists for softmax only")
     if h.device.type == "cpu":
@@ -492,10 +549,29 @@ def typed_gather_mix_agg(h, nn_idx, etype, aggregator: str,
     Nd, K = nn_idx.shape
     N = rows // 2 if ext else rows
     bf16 = h.dtype == torch.bfloat16
+    if kept and not bf16:
+        raise ValueError("the kept bf16 staged route takes a bf16 h")
     sample = (not ext and slab is None and h.data_ptr() % 16 == 0
               and fwd_sample(B, N, Nd, K, T, C, h.element_size()))
-    slab = (checked_fwd_slab(slab, B, rows, Nd, K, T, C, aggregator,
-                             h.element_size()) if ext else 0)
+    design = tiles = 0
+    if ext and bf16 and not kept and slab != 0:
+        if slab is None:
+            slab, tiles = fwd_bf16_plan(B, rows, Nd, K, T, C)
+        else:
+            tiles = fwd_bf16_tiles(B, Nd, C, slab)
+            nbytes = fwd_bytes(rows, -(-Nd // tiles), K, T, slab, 2, True)
+            if not (0 < slab <= C and C % slab == 0
+                    and nbytes <= SMEM_PER_BLOCK):
+                raise ValueError(
+                    f"no bf16 forward slab of {slab} channels for C={C}: it "
+                    f"must divide C and fit {SMEM_PER_BLOCK} bytes (it "
+                    f"needs {nbytes})")
+        design = int(slab > 0)
+    elif ext:
+        slab = checked_fwd_slab(slab, B, rows, Nd, K, T, C, aggregator,
+                                h.element_size())
+    else:
+        slab = 0
     out = torch.empty((B, Nd, C), dtype=h.dtype, device=h.device)
     am = (torch.empty((B, Nd, C), dtype=torch.uint8, device=h.device)
           if want_argmax else None)
@@ -510,7 +586,9 @@ def typed_gather_mix_agg(h, nn_idx, etype, aggregator: str,
                 (B, N, Nd, K, T, C), *args[:-2])
     elif slab:
         _launch("typed_mp_fwd", "typed_mp_fwd_staged", h.device,
-                (B, N, Nd, K, T, C), *args, slab)
+                (B, N, Nd, K, T, C), *args, slab, design, tiles)
+        if bf16 and not design:
+            counts = KEPT_BF16_EXT_COUNTS
     else:
         _launch("typed_mp_fwd", "typed_mp_fwd", h.device,
                 (B, N, Nd, K, T, C), *args, int(ext))
@@ -645,6 +723,56 @@ def checked_slab(slab, B: int, rows: int, Nd: int, K: int, T: int, C: int,
     return slab
 
 
+def ext_bwd_bytes(N: int, td: int, K: int, T: int, cs: int) -> int:
+    """Shared memory of one block of the bf16 DIFF/NEIGHBOR backward's
+    design (``ext_bytes`` in ``csrc/typed_mp_bwd.cu``): ``staged_bytes``'
+    layout for max, sum and mean in bf16, with the slab of h cut to the N
+    neighbour rows and the tile's ``td`` self rows."""
+    E = N * K
+    return (_pad16((N + td) * _row_stride(T, cs, 2), 2)
+            + _pad16(N * cs, 2) + _pad16(N * cs, 1)
+            + 4 * (_pad4(E * _pad4(T)) + _pad4(E) + _pad4(2 * N + 1)
+                   + _pad4(2 * E)))
+
+
+def bwd_ext_tiles(B: int, Nd: int, C: int, slab: int) -> int:
+    """Tiles of destination rows of the bf16 DIFF/NEIGHBOR backward's design
+    with ``slab`` channels a block: as many as keep every (sample, slab,
+    tile) block on an SM of its own, at least 1 and at most Nd."""
+    return max(1, min(Nd, SMS // (B * (C // slab))))
+
+
+def bwd_ext_slabs(B: int, rows: int, Nd: int, K: int, T: int, C: int,
+                  aggregator: str) -> list:
+    """The slabs the bf16 DIFF/NEIGHBOR backward's design
+    (``typed_mp_bwd_ext``) takes for h (B, rows = 2 Nd, T, C), widest
+    first: for max, sum and mean, multiples of 8 channels that divide C
+    into at most MAX_SLABS parts, 8 times a power of two, whose block with
+    its ``bwd_ext_tiles`` fits in shared memory (``ext_bwd_bytes``)."""
+    if aggregator not in AGGREGATORS:
+        raise ValueError(f"unknown aggregator {aggregator!r}")
+    if aggregator == "softmax" or C % 8:
+        return []
+    return [cs for cs in range(C, 0, -8)
+            if C % cs == 0 and C // cs <= MAX_SLABS
+            and (cs // 8) & (cs // 8 - 1) == 0
+            and ext_bwd_bytes(Nd, -(-Nd // bwd_ext_tiles(B, Nd, C, cs)), K,
+                              T, cs) <= SMEM_PER_BLOCK]
+
+
+def bwd_ext_plan(B: int, rows: int, Nd: int, K: int, T: int, C: int,
+                 aggregator: str) -> tuple:
+    """(slab, tiles) of the bf16 DIFF/NEIGHBOR backward's design for h (B,
+    rows = 2 Nd, T, C) bf16, from the shapes alone: the widest of
+    ``bwd_ext_slabs`` and its ``bwd_ext_tiles`` (the whole of C, where it
+    fits, needs no partial sums of d_etype); (0, 0) where it has no slab
+    (softmax, C % 8 != 0, a graph too wide), and the staged kernel runs."""
+    slabs = bwd_ext_slabs(B, rows, Nd, K, T, C, aggregator)
+    if not slabs:
+        return 0, 0
+    return slabs[0], bwd_ext_tiles(B, Nd, C, slabs[0])
+
+
 def check_bwd_args(g, h, nn_idx, src_ptr, src_edge, etype, aggregator: str,
                    argmax=None, out=None, ext: bool = False):
     """Raise unless the backward kernel takes these arguments: the forward
@@ -687,7 +815,7 @@ def check_bwd_args(g, h, nn_idx, src_ptr, src_edge, etype, aggregator: str,
 def typed_gather_mix_agg_bwd(g, h, nn_idx, src_ptr, src_edge, etype,
                              aggregator: str, gamma: float = 3.0,
                              argmax=None, out=None, ext: bool = False,
-                             slab=None, packed=None):
+                             slab=None, packed=None, kept: bool = False):
     """(dh (B, N, T, C) in h's dtype, d_etype (B, Nd, K, T) f32).
 
     CPU tensors take the plain version; CUDA tensors launch a kernel or
@@ -703,8 +831,16 @@ def typed_gather_mix_agg_bwd(g, h, nn_idx, src_ptr, src_edge, etype,
     default), or, with False, the scalar products of the kept bf16 route;
     the two give the same bits.  A launch counts under the route that ran:
     softmax and the scalar path count as the kept route either way.  f32
-    has the scalar route only."""
+    has the scalar route only.  The DIFF/NEIGHBOR mode in bf16 takes the
+    bf16 design (``typed_mp_bwd_ext``) where ``bwd_ext_plan`` plans it (a
+    given ``slab`` of ``bwd_ext_slabs`` keeps its ``bwd_ext_tiles``), and
+    the staged kernel elsewhere, with ``kept=True`` and with
+    ``packed=False``; dh has the same bits on each, and every launch but
+    the design's counts as a kept bf16 route."""
     counts = EXT_BWD_COUNTS if ext else BWD_COUNTS
+    if kept and not ext:
+        raise ValueError("kept selects the DIFF/NEIGHBOR mode's kept bf16 "
+                         "staged route")
     if h.device.type == "cpu":
         counts["plain_calls"] += 1
         return typed_gather_mix_agg_bwd_plain(g, h, nn_idx, etype,
@@ -724,8 +860,24 @@ def typed_gather_mix_agg_bwd(g, h, nn_idx, src_ptr, src_edge, etype,
     bf16 = h.dtype == torch.bfloat16
     if packed and not bf16:
         raise ValueError("the packed products exist in the bf16 mode only")
+    if kept and not bf16:
+        raise ValueError("the kept bf16 staged route takes a bf16 h")
+    design = ext and bf16 and not kept and packed is not False
+    if (design and all(t.data_ptr() % 16 == 0 for t in (g, h))
+            and (argmax is None or argmax.data_ptr() % 8 == 0)):
+        plan = (bwd_ext_plan(B, rows, Nd, K, T, C, aggregator)
+                if slab is None else
+                (slab, bwd_ext_tiles(B, Nd, C, slab))
+                if slab in bwd_ext_slabs(B, rows, Nd, K, T, C, aggregator)
+                else (0, 0))
+        if plan[0]:
+            return _bwd_ext(g, h, nn_idx, src_ptr, src_edge, etype,
+                            aggregator, argmax, *plan)
     slab = checked_slab(slab, B, rows, Nd, K, T, C, aggregator,
                         h.element_size())
+    # elsewhere the design is the staged kernel in tiles of destination
+    # rows, where its (sample, slab) blocks leave SMs without a block
+    tiles = bwd_ext_tiles(B, Nd, C, slab) if design and slab else 1
     if bf16 and not slab:
         raise TypeError(
             f"the kept backward route (d_etype_kernel, dh_kernel) takes f32 "
@@ -748,10 +900,11 @@ def typed_gather_mix_agg_bwd(g, h, nn_idx, src_ptr, src_edge, etype,
                   and bwd_packed(C, slab, aggregator, h.element_size()))
         _launch("typed_mp_bwd", "typed_mp_bwd_staged", h.device,
                 (B, N, Nd, K, T, C), *args, int(bf16), int(packed),
-                _ptr(part), slab)
-        if bf16 and not packed:
-            counts = (KEPT_BF16_EXT_BWD_COUNTS if ext
-                      else KEPT_BF16_BWD_COUNTS)
+                _ptr(part), slab, tiles)
+        if bf16 and ext and tiles == 1:
+            counts = KEPT_BF16_EXT_BWD_COUNTS
+        elif bf16 and not ext and not packed:
+            counts = KEPT_BF16_BWD_COUNTS
     else:
         _launch("typed_mp_bwd", "typed_mp_bwd", h.device,
                 (B, N, Nd, K, T, C), *args)
@@ -759,6 +912,27 @@ def typed_gather_mix_agg_bwd(g, h, nn_idx, src_ptr, src_edge, etype,
     counts["kernel_launches"] += 1
     if bf16:
         counts["bf16_launches"] += 1
+    return dh, d_etype
+
+
+def _bwd_ext(g, h, nn_idx, src_ptr, src_edge, etype, aggregator: str,
+             argmax, slab: int, tiles: int):
+    """The bf16 DIFF/NEIGHBOR backward's design on checked arguments, with
+    ``slab`` channels a block in ``tiles`` tiles of destination rows."""
+    B, rows, T, C = h.shape
+    Nd, K = nn_idx.shape
+    dh = torch.empty_like(h)
+    d_etype = torch.empty_like(etype)
+    part = (etype.new_empty((B, C // slab) + etype.shape[1:])
+            if slab < C else None)
+    _launch("typed_mp_bwd", "typed_mp_bwd_ext", h.device,
+            (B, rows // 2, Nd, K, T, C), g.data_ptr(), _ptr(argmax),
+            h.data_ptr(), nn_idx.data_ptr(), src_ptr.data_ptr(),
+            src_edge.data_ptr(), etype.data_ptr(), dh.data_ptr(),
+            d_etype.data_ptr(), B, Nd, K, T, C, AGGREGATORS[aggregator],
+            _ptr(part), slab, tiles)
+    EXT_BWD_COUNTS["kernel_launches"] += 1
+    EXT_BWD_COUNTS["bf16_launches"] += 1
     return dh, d_etype
 
 

@@ -53,10 +53,11 @@ import torch
 
 # the port's __global__ functions (csrc/*.cu), by name: the kept, the
 # staged and the bf16 sample forward, the staged backward and its sum over
-# slabs, and the two of the kept backward
+# slabs, the bf16 DIFF/NEIGHBOR backward's design, and the two of the kept
+# backward
 PORT_KERNELS = ("typed_mp_fwd_kernel", "staged_fwd_kernel",
                 "sample_fwd_kernel", "staged_bwd_kernel", "sum_slabs",
-                "d_etype_kernel", "dh_kernel")
+                "ext_bwd_kernel", "d_etype_kernel", "dh_kernel")
 
 
 def _kernel_events(trace_path: str):
@@ -129,6 +130,7 @@ def _trace(fn, steps: int, wall_ms: float, per: str, top: int) -> dict:
         ("typed_mp_bwd_kept", fused_mp.KEPT_BWD_COUNTS),
         ("typed_mp_bwd_ext_kept", fused_mp.KEPT_EXT_BWD_COUNTS),
         ("typed_mp_fwd_bf16_kept", fused_mp.KEPT_BF16_COUNTS),
+        ("typed_mp_fwd_ext_bf16_kept", fused_mp.KEPT_BF16_EXT_COUNTS),
         ("typed_mp_bwd_bf16_kept", fused_mp.KEPT_BF16_BWD_COUNTS),
         ("typed_mp_bwd_ext_bf16_kept", fused_mp.KEPT_BF16_EXT_BWD_COUNTS))}
     with tempfile.TemporaryDirectory() as tmp:

@@ -115,3 +115,89 @@ def test_every_product_below_f32s_normal_range_rounds_alike():
         with np.errstate(under="ignore"):
             f32 = exact.astype(np.float32).astype(np.float64)
         assert np.array_equal(round_bf16(f32), round_bf16(exact)), E
+
+
+# --------------------------------------------------------------------------
+# the bf16 DIFF/NEIGHBOR backward's design (csrc/typed_mp_bwd.cu,
+# ext_bwd_kernel): rnd2 and the single self-row product of max
+
+
+def _cvt_rn_bf16x2(a, b):
+    """``cvt.rn.bf16x2.f32 d, b, a`` (``__floats2bfloat162_rn(a, b)``) on
+    float32 arrays, on their bits: each value rounded to nearest even in
+    its upper 16 bits, a in the low half of the word and b in the high."""
+    def rn(x):
+        u = x.view(np.uint32).astype(np.uint64)
+        r = (u + 0x7FFF + ((u >> 16) & 1)) >> 16
+        return r.astype(np.uint32)
+    return (rn(b) << 16) | rn(a)
+
+
+def _unpack2(w):
+    """``unpack2`` in csrc/typed_mp_common.cuh: the pair of f32 values a
+    word of two bf16 holds, the low half first."""
+    lo = (w << 16).astype(np.uint32).view(np.float32)
+    hi = (w & np.uint32(0xFFFF0000)).view(np.float32)
+    return lo, hi
+
+
+def test_rnd2_rounds_each_product_as_the_scalar_rounding():
+    """rnd2(x, y) of the two f32 products of a pair of d_etype terms, dm
+    (bf16) times hg (an f32 sum of two bf16 rows), gives each product
+    rounded to bf16 as rnd<bf16> (torch's rounding) gives it, in its own
+    lane: normal, subnormal and zero products of both signs, and products
+    near f32's largest finite value that stay finite."""
+    rng = np.random.default_rng(7)
+    n = 10 ** 6
+    dm = _bf16_values(rng.integers(0, 1 << 16, size=n, dtype=np.uint16))
+    rows = [_bf16_values(rng.integers(0, 1 << 16, size=n, dtype=np.uint16))
+            for _ in range(2)]
+    m = min(len(dm), *(len(r) for r in rows)) // 2 * 2
+    with np.errstate(over="ignore", invalid="ignore"):
+        hg = (rows[0][:m].astype(np.float32) + rows[1][:m].astype(np.float32))
+        p = dm[:m].astype(np.float32) * hg
+    p = p[np.isfinite(p)]
+    p = p[: len(p) // 2 * 2]
+    p = np.concatenate([p, np.float32([0.0, -0.0, 2.0 ** -140, -2.0 ** -133,
+                                       3.3e38, -3.3e38])])
+    x, y = p[0::2], p[1::2]
+    lo, hi = _unpack2(_cvt_rn_bf16x2(x, y))
+    import torch
+
+    for got, ref in ((lo, x), (hi, y)):
+        want = torch.from_numpy(ref).to(torch.bfloat16).float().numpy()
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def _f32_sum(terms):
+    acc = np.float32(0.0)
+    for t in terms:
+        acc = np.float32(acc + t)
+    return acc
+
+
+def test_max_self_row_skips_the_zero_products_bit_for_bit():
+    """dh of a self row 2 d under max: the kept route sums, over d's K
+    edges in ascending k from +0, the products rnd(dm_k w_k) with dm_k = g
+    at the argmax and +0 elsewhere; the design forms the one product at the
+    argmax and adds it to +0.  Bit for bit the same, the sign of a zero
+    result included (+0 + -0 is +0), for products below f32's normal range
+    and weights of either sign."""
+    rng = np.random.default_rng(8)
+    cases = 0
+    for _ in range(20000):
+        K = int(rng.integers(1, 10))
+        w = (rng.standard_normal(K) * np.exp2(rng.integers(-140, 20, K)))
+        w = round_bf16(w)
+        g = round_bf16(rng.standard_normal()
+                       * 2.0 ** float(rng.integers(-140, 20)))
+        w[rng.random(K) < 0.1] *= 0.0  # zeros of either sign
+        w = np.where(rng.random(K) < 0.05, -0.0, w)
+        g = -0.0 if rng.random() < 0.05 else g
+        am = int(rng.integers(0, K))
+        dm = np.where(np.arange(K) == am, g, 0.0)
+        full = _f32_sum(np.float32(round_bf16(d * x)) for d, x in zip(dm, w))
+        one = np.float32(np.float32(0.0) + np.float32(round_bf16(g * w[am])))
+        assert full.view(np.uint32) == one.view(np.uint32)
+        cases += int(abs(g * w[am]) < 2.0 ** -126)
+    assert cases > 1000

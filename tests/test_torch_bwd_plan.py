@@ -230,11 +230,166 @@ def test_packed_products_where_both_operands_are_bf16_pairs(agg, esz, C, cs,
 @pytest.mark.parametrize("name", ["hop_pw_c64", "hop_high_c64", "hop_pw_c2",
                                   "hop_high_c2"])
 def test_hop_path_packs_its_max_convs_and_not_its_softmax_convs(name):
-    """The hop step's bf16 backward: the 10 DIFF max convs (C=64) take the
-    packed products, the 2 softmax convs (C=2) the scalar ones, which the
-    wrapper counts as the kept bf16 route."""
+    """The hop step's bf16 backward: on the kept staged route the 10 DIFF
+    max convs (C=64) take the packed products and the 2 softmax convs
+    (C=2) the scalar ones; the bf16 design runs the max convs on
+    ext_bwd_kernel and the softmax convs on the staged kernel in tiles of
+    rows."""
     (shape,) = [s for s in chip_smoke.EXT_SHAPES if s[0] == name]
     _, B, N, K, T, C, agg, per_hop, _ = shape
     cs = fused_mp.bwd_slab(B, 2 * N, N, K, T, C, agg, 2)
     assert fused_mp.bwd_packed(C, cs, agg, 2) == (agg == "max")
-    assert chip_smoke.HOP_PACKED_PER_STEP == 10
+    slab, tiles = fused_mp.bwd_ext_plan(B, 2 * N, N, K, T, C, agg)
+    assert (slab > 0) == (agg == "max")
+    if agg != "max":
+        assert fused_mp.bwd_ext_tiles(B, N, C, cs) > 1
+    assert chip_smoke.HOP_EXT_PER_STEP == 10
+
+
+# --------------------------------------------------------------------------
+# the bf16 DIFF/NEIGHBOR backward's design: ext_bwd_kernel (max, sum and
+# mean on 16-byte vectors of 8 channels), elsewhere the staged kernel in
+# tiles of destination rows
+
+EXT = [(n, B, 2 * N, N, K, T, C) for n, B, N, K, T, C, _, _, _
+       in chip_smoke.EXT_SHAPES]
+
+
+@pytest.mark.parametrize("agg", AGGS)
+@pytest.mark.parametrize("shape", EXT, ids=[s[0] for s in EXT])
+def test_bf16_design_plans_every_extension_shape(shape, agg):
+    _, B, rows, Nd, K, T, C = shape
+    cs, tiles = fused_mp.bwd_ext_plan(B, rows, Nd, K, T, C, agg)
+    if agg == "softmax" or C % 8:
+        # the staged kernel in tiles of rows; the kept route's slab
+        assert (cs, tiles) == (0, 0)
+        slab = fused_mp.bwd_slab(B, rows, Nd, K, T, C, agg, 2)
+        assert 1 <= fused_mp.bwd_ext_tiles(B, Nd, C, slab) <= Nd
+        return
+    assert cs % 8 == 0 and C % cs == 0 and C // cs <= fused_mp.MAX_SLABS
+    assert cs == fused_mp.bwd_ext_slabs(B, rows, Nd, K, T, C, agg)[0]
+    assert tiles == fused_mp.bwd_ext_tiles(B, Nd, C, cs)
+    assert fused_mp.ext_bwd_bytes(Nd, -(-Nd // tiles), K, T, cs) <= 232448
+    assert 1 <= tiles <= Nd
+
+
+@pytest.mark.parametrize("name,cs,tiles,nbytes,blocks", [
+    # the whole of C in four tiles of rows, one block an SM and no partial
+    # sums of d_etype: the 60 (30) neighbour rows and the tile's 15 (8) self
+    # rows of 16 x 64 channels (128 bytes a type: no pad), g and the argmax
+    # of every row, f32 etype and the tables
+    ("hop_pw_c64", 64, 4, 75 * 1024 * 2 + 60 * 64 * 3 + 4 * (
+        120 * 16 + 120 + 124 + 240), 128),
+    ("hop_high_c64", 64, 4, 75 * 1024 * 2 + 60 * 64 * 3 + 4 * (
+        540 * 16 + 540 + 124 + 1080), 128),
+    ("fixed_diff_c64", 64, 4, 38 * 1024 * 2 + 30 * 64 * 3 + 4 * (
+        240 * 16 + 240 + 64 + 480), 128)])
+def test_bf16_design_path_shapes_plan(name, cs, tiles, nbytes, blocks):
+    (shape,) = [s for s in EXT if s[0] == name]
+    _, B, rows, Nd, K, T, C = shape
+    assert fused_mp.bwd_ext_plan(B, rows, Nd, K, T, C, "max") == (cs, tiles)
+    assert fused_mp.ext_bwd_bytes(Nd, -(-Nd // tiles), K, T, cs) == nbytes
+    assert B * (C // cs) * tiles == blocks
+
+
+def test_bf16_design_stages_the_neighbour_rows_and_the_tiles_self_rows():
+    # one tile: the slab of all 2 N rows, as the staged kernel's layout
+    for cs in (8, 16, 32):
+        assert fused_mp.ext_bwd_bytes(60, 60, 9, 16, cs) == \
+            fused_mp.staged_bytes(120, 60, 9, 16, cs, "max", 2)
+    # the whole of C at the hop table: all 2 N rows would not fit
+    assert fused_mp.staged_bytes(120, 60, 9, 16, 64, "max", 2) > 232448
+
+
+@pytest.mark.parametrize("name,slab,tiles", [
+    # the softmax convs at C=2: 32 one-slab blocks, in four tiles each
+    ("hop_pw_c2", 2, 4), ("hop_high_c2", 2, 4),
+    # the fixed chain's softmax conv: four slabs, already a block an SM
+    ("fixed_nbr_c64", 16, 1), ("ragged_c6", 6, 13)])
+def test_bf16_design_tiles_the_staged_kernel(name, slab, tiles):
+    (shape,) = [s for s in EXT if s[0] == name]
+    _, B, rows, Nd, K, T, C = shape
+    agg = "softmax" if name != "ragged_c6" else "max"
+    assert fused_mp.bwd_slab(B, rows, Nd, K, T, C, agg, 2) == slab
+    assert fused_mp.bwd_ext_tiles(B, Nd, C, slab) == tiles
+
+
+@pytest.mark.parametrize("C,slabs", [
+    # multiples of 8, 8 times a power of two, at most MAX_SLABS a sample
+    (64, [64, 32, 16, 8]), (24, [8]), (128, [128, 64, 32, 16]),
+    (48, [16, 8]),
+    (12, []), (2, [])])
+def test_bf16_design_slabs(C, slabs):
+    assert fused_mp.bwd_ext_slabs(32, 60, 30, 8, 16, C, "sum") == [
+        cs for cs in slabs
+        if fused_mp.ext_bwd_bytes(
+            30, -(-30 // fused_mp.bwd_ext_tiles(32, 30, C, cs)), 8, 16, cs)
+        <= fused_mp.SMEM_PER_BLOCK]
+    assert fused_mp.bwd_ext_slabs(32, 60, 30, 8, 16, C, "softmax") == []
+
+
+def test_f32_ext_backward_keeps_its_plan():
+    # the f32 mode has no design: its slab is the kept rule's, at every
+    # extension shape
+    for _, B, rows, Nd, K, T, C in EXT:
+        for agg in AGGS:
+            assert fused_mp.bwd_slab(B, rows, Nd, K, T, C, agg) == \
+                fused_mp._busiest(fused_mp.staged_slabs(
+                    rows, Nd, K, T, C, agg), B, C)
+
+
+@pytest.mark.parametrize("route", [dict(), dict(kept=True),
+                                   dict(packed=False), dict(slab=8)])
+@pytest.mark.parametrize("agg", AGGS)
+def test_cpu_bf16_ext_backward_is_the_plain_version_on_every_route(route,
+                                                                    agg):
+    rng = np.random.default_rng(5)
+    B, N, K, T, C = 2, 6, 3, 2, 8
+    h = torch.from_numpy(rng.standard_normal((B, 2 * N, T, C), np.float32))
+    h = h.to(torch.bfloat16)
+    table = GatherTable(rng.integers(0, N, (N, K)).astype(np.int32), N)
+    et = torch.from_numpy(rng.standard_normal((B, N, K, T), np.float32))
+    g = torch.from_numpy(rng.standard_normal((B, N, C), np.float32))
+    g = g.to(torch.bfloat16)
+    am = (torch.from_numpy(rng.integers(0, K, (B, N, C)).astype(np.uint8))
+          if agg == "max" else None)
+    out = (torch.from_numpy(rng.standard_normal((B, N, C), np.float32))
+           if agg == "softmax" else None)
+    fused_mp.reset_counts()
+    got = fused_mp.typed_gather_mix_agg_bwd(
+        g, h, table.idx, table.ext_ptr, table.ext_edge, et, agg, 3.0,
+        argmax=am, out=out, ext=True, **route)
+    ref = fused_mp.typed_gather_mix_agg_bwd_plain(
+        g, h, table.idx, et, agg, 3.0, argmax=am, out=out, ext=True)
+    assert fused_mp.EXT_BWD_COUNTS == {"kernel_launches": 0,
+                                       "bf16_launches": 0, "plain_calls": 1}
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def test_kept_backward_selects_the_extension_mode_only():
+    rng = np.random.default_rng(6)
+    h = torch.from_numpy(rng.standard_normal((2, 6, 2, 8), np.float32))
+    table = GatherTable(rng.integers(0, 6, (5, 3)).astype(np.int32), 6)
+    et = torch.from_numpy(rng.standard_normal((2, 5, 3, 2), np.float32))
+    g = torch.from_numpy(rng.standard_normal((2, 5, 8), np.float32))
+    with pytest.raises(ValueError, match="DIFF/NEIGHBOR mode's kept bf16"):
+        fused_mp.typed_gather_mix_agg_bwd(
+            g, h, table.idx, table.src_ptr, table.src_edge, et, "sum",
+            kept=True)
+
+
+def test_bf16_design_plan_reads_the_shapes_only():
+    plans = {fused_mp.bwd_ext_plan(32, 120, 60, 9, 16, 64, "max")
+             for _ in range(3)}
+    assert plans == {(64, 4)}
+    # max, sum and mean stage the same bytes: one plan
+    assert {fused_mp.bwd_ext_plan(32, 120, 60, 9, 16, 64, a)
+            for a in ("max", "sum", "mean")} == {(64, 4)}
+    # more samples take fewer tiles: at B=64 two tiles of the whole of C
+    # would not fit, so two slabs in one tile each; a graph too wide takes
+    # no design slab
+    assert fused_mp.bwd_ext_plan(64, 120, 60, 9, 16, 64, "max") == (32, 1)
+    assert fused_mp.bwd_ext_plan(256, 120, 60, 9, 16, 64, "max") == (32, 1)
+    assert fused_mp.bwd_ext_plan(2, 8192, 4096, 3, 4, 64, "max") == (0, 0)
+    with pytest.raises(ValueError, match="unknown aggregator"):
+        fused_mp.bwd_ext_plan(32, 120, 60, 9, 16, 64, "min")

@@ -786,3 +786,155 @@ def test_bf16_packed_route_refuses_f32(cuda):
         fused_mp.typed_gather_mix_agg_bwd(
             g, h, table.idx, table.src_ptr, table.src_edge, et, "max",
             argmax=am, packed=True)
+
+
+# --------------------------------------------------------------------------
+# the DIFF/NEIGHBOR mode's bf16 designs: the staged forward's bf16 design
+# (the kept staged route with kept=True, the first kernel with slab=0) and
+# the backward's (ext_bwd_kernel, or the staged kernel in tiles of rows;
+# the kept staged route with kept=True, its scalar products with
+# packed=False), at the shapes of chip_smoke.py's EXT_SHAPES
+
+# (B, N, K, T, C): the hop step's pw and hop tables at C=64 and C=2, the
+# fixed chain, a ragged shape on the scalar path
+BF16_EXT_SHAPES = [(32, 60, 2, 16, 64), (32, 60, 9, 16, 64),
+                   (32, 60, 2, 16, 2), (32, 60, 9, 16, 2),
+                   (32, 30, 8, 16, 64), (3, 13, 3, 5, 6)]
+FWD_ROUTES = {"new": {}, "kept": dict(kept=True), "first": dict(slab=0)}
+BWD_ROUTES = {"new": {}, "kept": dict(kept=True),
+              "scalar": dict(packed=False)}
+
+
+def _bf16_ext_bwd_design(shape, agg):
+    """Whether the backward's bf16 design runs apart from the kept route at
+    this shape: ext_bwd_kernel, or the staged kernel in more than one
+    tile."""
+    B, N, K, T, C = shape
+    slab = fused_mp.bwd_slab(B, 2 * N, N, K, T, C, agg, 2)
+    return (fused_mp.bwd_ext_plan(B, 2 * N, N, K, T, C, agg)[0] > 0
+            or fused_mp.bwd_ext_tiles(B, N, C, slab) > 1)
+
+
+@pytest.mark.parametrize("shape", BF16_EXT_SHAPES)
+@pytest.mark.parametrize("agg", ["max", "sum", "mean", "softmax"])
+def test_bf16_ext_designs_match_plain_and_kept(cuda, shape, agg):
+    """Each route against the plain version, two launches bit-equal and
+    counted under the route that ran; the forward's max (out and argmax)
+    bit-equal across the design, the kept staged route and the first
+    kernel; the backward's dh bit-equal across its routes for max, sum and
+    mean."""
+    g, h, table, et, _, _ = _typed_bwd_inputs(shape, cuda, agg,
+                                              torch.bfloat16, seed=7,
+                                              ext=True)
+    kw = dict(want_argmax=agg == "max", want_lse=agg == "softmax")
+    two = agg in ("max", "softmax")
+    ref = fused_mp.typed_gather_mix_agg_plain(h, table.idx, et, agg, 3.0,
+                                              ext=True, **kw)
+    fwd = {}
+    for route, extra in FWD_ROUTES.items():
+        fused_mp.reset_counts()
+        runs = [fused_mp.typed_gather_mix_agg(h, table.idx, et, agg, 3.0,
+                                              ext=True, **kw, **extra)
+                for _ in range(2)]
+        counts = {"new": fused_mp.EXT_COUNTS,
+                  "kept": fused_mp.KEPT_BF16_EXT_COUNTS,
+                  "first": fused_mp.KEPT_EXT_COUNTS}[route]
+        assert counts["bf16_launches"] == 2
+        torch.cuda.synchronize()
+        first, again = ((r if two else (r,)) for r in runs)
+        assert _same_bits(first, again)
+        _close(first[0], ref[0] if two else ref, torch.bfloat16)
+        fwd[route] = first
+    if agg == "max":
+        assert _same_bits(fwd["new"], fwd["kept"])
+        assert _same_bits(fwd["new"], fwd["first"])
+    am = fwd["new"][1] if agg == "max" else None
+    lse = fwd["new"][1] if agg == "softmax" else None
+    bref = fused_mp.typed_gather_mix_agg_bwd_plain(
+        g, h, table.idx, et, agg, 3.0, argmax=am, out=lse, ext=True)
+    bwd = {}
+    for route, extra in BWD_ROUTES.items():
+        fused_mp.reset_counts()
+        runs = [fused_mp.typed_gather_mix_agg_bwd(
+            g, h, table.idx, table.ext_ptr, table.ext_edge, et, agg, 3.0,
+            argmax=am, out=lse, ext=True, **extra) for _ in range(2)]
+        design = route == "new" and _bf16_ext_bwd_design(shape, agg)
+        counts = (fused_mp.EXT_BWD_COUNTS if design
+                  else fused_mp.KEPT_BF16_EXT_BWD_COUNTS)
+        assert counts["bf16_launches"] == 2
+        torch.cuda.synchronize()
+        assert _same_bits(runs[0], runs[1])
+        for got, want in zip(runs[0], bref):
+            _close(got, want, torch.bfloat16)
+        bwd[route] = runs[0]
+    if agg != "softmax":
+        assert _same_bits(bwd["new"][:1], bwd["kept"][:1])
+        assert _same_bits(bwd["new"][:1], bwd["scalar"][:1])
+
+
+def test_bf16_ext_design_all_ties_argmax_is_zero(cuda):
+    B, N, K, T, C = 8, 16, 9, 2, 16
+    h = torch.randn(1, 1, T, C).to(torch.bfloat16).expand(
+        B, 2 * N, T, C).contiguous().to(cuda)
+    idx = torch.zeros(N, K, dtype=torch.int32, device=cuda)
+    et = torch.ones(B, N, K, T, device=cuda)
+    for extra in FWD_ROUTES.values():
+        _, am = fused_mp.typed_gather_mix_agg(h, idx, et, "max",
+                                              want_argmax=True, ext=True,
+                                              **extra)
+        assert am.max().item() == 0
+
+
+@pytest.mark.parametrize("agg", ["max", "sum", "softmax"])
+def test_bf16_ext_design_every_slab_matches_plain(cuda, agg):
+    """Every slab of both designs at the hop table, each with its tiles."""
+    shape = BF16_EXT_SHAPES[1]
+    B, N, K, T, C = shape
+    g, h, table, et, am, lse = _typed_bwd_inputs(shape, cuda, agg,
+                                                 torch.bfloat16, seed=8,
+                                                 ext=True)
+    ref = fused_mp.typed_gather_mix_agg_plain(h, table.idx, et, agg, 3.0,
+                                              ext=True)
+    for slab in fused_mp.fwd_bf16_slabs(2 * N, N, K, T, C):
+        got = fused_mp.typed_gather_mix_agg(h, table.idx, et, agg, 3.0,
+                                            ext=True, slab=slab)
+        _close(got, ref, torch.bfloat16)
+    bref = fused_mp.typed_gather_mix_agg_bwd_plain(
+        g, h, table.idx, et, agg, 3.0, argmax=am, out=lse, ext=True)
+    slabs = (fused_mp.bwd_ext_slabs(B, 2 * N, N, K, T, C, agg)
+             or fused_mp.staged_slabs(2 * N, N, K, T, C, agg, 2))
+    for slab in slabs:
+        got = fused_mp.typed_gather_mix_agg_bwd(
+            g, h, table.idx, table.ext_ptr, table.ext_edge, et, agg, 3.0,
+            argmax=am, out=lse, ext=True, slab=slab)
+        torch.cuda.synchronize()
+        for a, b in zip(got, bref):
+            _close(a, b, torch.bfloat16)
+
+
+def test_bf16_ext_design_refuses_what_it_does_not_take(cuda):
+    """The C entries of both designs refuse arguments they do not take
+    rather than launch: the forward's design in f32 or with no tiles, the
+    backward's with a slab not of whole 16-byte vectors or softmax."""
+    g, h, table, et, am, _ = _typed_bwd_inputs(BF16_EXT_SHAPES[1], cuda,
+                                               "max", torch.bfloat16,
+                                               ext=True)
+    B, N, K, T, C = BF16_EXT_SHAPES[1]
+    out = torch.empty((B, N, C), dtype=torch.bfloat16, device=cuda)
+    for bf16, tiles in ((0, 1), (1, 0)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fused_mp._launch(
+                "typed_mp_fwd", "typed_mp_fwd_staged", cuda,
+                (B, N, N, K, T, C), h.data_ptr(), table.idx.data_ptr(),
+                et.data_ptr(), out.data_ptr(), None, None, B, N, N, K, T, C,
+                0, 3.0, 1, bf16, 16, 1, tiles)
+    dh, de = torch.empty_like(h), torch.empty_like(et)
+    part = et.new_empty((B, 8) + et.shape[1:])
+    for cs, agg in ((12, 0), (16, 3)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fused_mp._launch(
+                "typed_mp_bwd", "typed_mp_bwd_ext", cuda, (B, N, N, K, T, C),
+                g.data_ptr(), am.data_ptr(), h.data_ptr(),
+                table.idx.data_ptr(), table.ext_ptr.data_ptr(),
+                table.ext_edge.data_ptr(), et.data_ptr(), dh.data_ptr(),
+                de.data_ptr(), B, N, K, T, C, agg, part.data_ptr(), cs, 1)

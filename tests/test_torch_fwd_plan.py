@@ -329,3 +329,102 @@ def test_reset_counts_clears_the_kept_bf16_routes():
     assert all(c == {"kernel_launches": 0, "bf16_launches": 0} for c in (
         fused_mp.KEPT_BF16_COUNTS, fused_mp.KEPT_BF16_BWD_COUNTS,
         fused_mp.KEPT_BF16_EXT_BWD_COUNTS))
+
+
+# --------------------------------------------------------------------------
+# the bf16 DIFF/NEIGHBOR forward's design: etype rounded once in shared
+# memory, 8 channels a thread where whole 16-byte vectors allow, its own
+# slab and row tiles
+
+
+def _design_bytes(rows, Nd, K, T, cs, tiles):
+    return fused_mp.fwd_bytes(rows, -(-Nd // tiles), K, T, cs, 2, True)
+
+
+@pytest.mark.parametrize("shape", SMOKE, ids=[s[0] for s in SMOKE])
+def test_bf16_design_plans_every_extension_shape(shape):
+    _, B, rows, Nd, K, T, C, _ = shape
+    cs, tiles = fused_mp.fwd_bf16_plan(B, rows, Nd, K, T, C)
+    assert cs in fused_mp.fwd_bf16_slabs(rows, Nd, K, T, C)
+    assert 1 <= tiles <= Nd
+    assert _design_bytes(rows, Nd, K, T, cs, tiles) <= 232448
+    assert cs % (8 if C % 8 == 0 else 1) == 0
+
+
+@pytest.mark.parametrize("name,cs,tiles,nbytes,blocks", [
+    # four slabs of 16 channels, one tile: 128 blocks, rows of the kept
+    # design's stride; etype 4 words a (d, k, t) beside the slab; C=2: one
+    # slab, five tiles of 12 rows, rows of 16 x 2 channels padded by 16
+    # bytes
+    ("hop_pw_c64", 16, 1, 120 * 272 * 2 + 4 * 120 + 4 * 60 * 2 * 16, 128),
+    ("hop_high_c64", 16, 1, 120 * 272 * 2 + 4 * 540 + 4 * 60 * 9 * 16, 128),
+    ("hop_pw_c2", 2, 5, 120 * 40 * 2 + 4 * 24 + 4 * 12 * 2 * 16, 160),
+    ("hop_high_c2", 2, 5, 120 * 40 * 2 + 4 * 108 + 4 * 12 * 9 * 16, 160),
+    ("fixed_nbr_c64", 16, 1, 60 * 272 * 2 + 4 * 240 + 4 * 30 * 8 * 16, 128),
+    ("fixed_diff_c64", 16, 1, 60 * 272 * 2 + 4 * 240 + 4 * 30 * 8 * 16,
+     128)])
+def test_bf16_design_path_shapes_plan(name, cs, tiles, nbytes, blocks):
+    (shape,) = [s for s in SMOKE if s[0] == name]
+    _, B, rows, Nd, K, T, C, _ = shape
+    assert fused_mp.fwd_bf16_plan(B, rows, Nd, K, T, C) == (cs, tiles)
+    assert _design_bytes(rows, Nd, K, T, cs, tiles) == nbytes
+    assert B * (C // cs) * tiles == blocks
+
+
+@pytest.mark.parametrize("B,slab,tiles", [
+    # the kept design's rule: one tile where the (sample, slab) blocks give
+    # every second SM a block, else enough tiles for every SM
+    (32, 16, 1), (32, 32, 3), (32, 64, 5), (1, 2, 60), (3, 6, 44),
+    (256, 64, 1)])
+def test_bf16_design_tiles(B, slab, tiles):
+    assert fused_mp.fwd_bf16_tiles(B, 60, 64 if slab > 6 else slab, slab) \
+        == tiles
+
+
+def test_bf16_design_plan_reads_the_shapes_only():
+    plans = {fused_mp.fwd_bf16_plan(32, 120, 60, 9, 16, 64)
+             for _ in range(3)}
+    assert plans == {(16, 1)}
+    # a graph too wide for any slab: no design slab (the kept kernel)
+    assert fused_mp.fwd_bf16_plan(2, 8192, 4096, 3, 4, 64) == (0, 0)
+    assert fused_mp.fwd_bf16_slabs(8192, 4096, 3, 4, 64) == []
+
+
+@pytest.mark.parametrize("route", [dict(), dict(slab=0), dict(kept=True),
+                                   dict(slab=8)])
+@pytest.mark.parametrize("agg", AGGS)
+def test_cpu_bf16_ext_forward_is_the_plain_version_on_every_route(route,
+                                                                   agg):
+    h, table, et = _ext_inputs(4)
+    h = h.to(torch.bfloat16)
+    kw = dict(want_argmax=agg == "max", want_lse=agg == "softmax")
+    fused_mp.reset_counts()
+    got = fused_mp.typed_gather_mix_agg(h, table.idx, et, agg, 3.0,
+                                        ext=True, **kw, **route)
+    ref = fused_mp.typed_gather_mix_agg_plain(h, table.idx, et, agg, 3.0,
+                                              ext=True, **kw)
+    assert fused_mp.EXT_COUNTS == {"kernel_launches": 0,
+                                   "bf16_launches": 0, "plain_calls": 1}
+    assert fused_mp.KEPT_BF16_EXT_COUNTS == {"kernel_launches": 0,
+                                             "bf16_launches": 0}
+    two = agg in ("max", "softmax")
+    for a, b in zip(got if two else (got,), ref if two else (ref,)):
+        assert torch.equal(a, b)
+
+
+def test_kept_selects_the_extension_mode_only():
+    rng = np.random.default_rng(1)
+    h = torch.from_numpy(rng.standard_normal((2, 5, 2, 8), np.float32))
+    idx = torch.from_numpy(rng.integers(0, 5, (4, 3)).astype(np.int32))
+    et = torch.from_numpy(rng.standard_normal((2, 4, 3, 2), np.float32))
+    with pytest.raises(ValueError, match="DIFF/NEIGHBOR mode's kept bf16"):
+        fused_mp.typed_gather_mix_agg(h.to(torch.bfloat16), idx, et, "max",
+                                      kept=True)
+
+
+def test_reset_counts_clears_the_kept_bf16_ext_forward():
+    fused_mp.KEPT_BF16_EXT_COUNTS["kernel_launches"] = 4
+    fused_mp.KEPT_BF16_EXT_COUNTS["bf16_launches"] = 4
+    fused_mp.reset_counts()
+    assert fused_mp.KEPT_BF16_EXT_COUNTS == {"kernel_launches": 0,
+                                             "bf16_launches": 0}

@@ -84,18 +84,19 @@ def test_wrong_argmax_at_a_clear_gap_fails(small, monkeypatch, capsys):
 
 def test_unrounded_build_finds_each_rounding_once_in_the_shipped_header():
     """``--unrounded`` switches off every bf16 rounding of the kernels:
-    rnd<TH> and both forms of the packed mul_rnd2, each found exactly once
-    in csrc/typed_mp_common.cuh."""
+    rnd<TH>, both forms of the packed mul_rnd2 and the pair form rnd2,
+    each found exactly once in csrc/typed_mp_common.cuh."""
     with open(fused_mp.os.path.join(fused_mp._CSRC,
                                     "typed_mp_common.cuh")) as f:
         text = f.read()
-    assert len(chip_smoke.UNROUNDED) == 3
+    assert len(chip_smoke.UNROUNDED) == 4
     for rounded in chip_smoke.UNROUNDED:
         assert text.count(rounded) == 1
     bare = chip_smoke.unrounded_header(text)
     assert 'asm("mul.rn.bf16x2' not in bare
     assert "__float2bfloat162_rn(w)" not in bare
     assert "from_f32<TH>(v)" not in bare
+    assert "__floats2bfloat162_rn(a, b)" not in bare
     for unrounded in chip_smoke.UNROUNDED.values():
         assert unrounded in bare
 
@@ -108,3 +109,25 @@ def test_unrounded_build_refuses_a_header_without_a_rounding():
     for broken in (text.replace(rounded, ""), text + rounded):
         with pytest.raises(RuntimeError, match="found once"):
             chip_smoke.unrounded_header(broken)
+
+
+def test_ext_bf16_routes_name_the_wrappers_counters():
+    """``kernel_check_ext_bf16`` holds each bf16 DIFF/NEIGHBOR route to the
+    counter it names: every name is one of fused_mp's counters, reset by
+    ``reset_counts``, and every route's arguments are the wrappers'."""
+    import inspect
+
+    names = [c for _, _, c in chip_smoke.EXT_BF16_FWD_ROUTES
+             + chip_smoke.EXT_BF16_BWD_ROUTES if c]
+    names += ["EXT_BWD_COUNTS"]  # the backward design's, where it runs
+    for name in names:
+        counts = getattr(fused_mp, name)
+        counts["bf16_launches"] = 5
+        fused_mp.reset_counts()
+        assert counts["bf16_launches"] == 0
+    for routes, fn in ((chip_smoke.EXT_BF16_FWD_ROUTES,
+                        fused_mp.typed_gather_mix_agg),
+                       (chip_smoke.EXT_BF16_BWD_ROUTES,
+                        fused_mp.typed_gather_mix_agg_bwd)):
+        params = inspect.signature(fn).parameters
+        assert all(k in params for _, extra, _ in routes for k in extra)
