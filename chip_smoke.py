@@ -97,6 +97,26 @@ Phases, one JSON line each:
   syn_train_path   ``python -m fgnn_tpu_torch.data.generate rpgm`` writes 640
                    hop samples; 20 steps and a 4-batch eval from them
                    (``--train-path``, ``--test-path``)
+  syn_coo          the hop trainer over flat disjoint unions (the COO IR,
+                   PyTorch ops): ``train_and_eval("hop", ...)`` with ``--coo
+                   --mixed-lengths 24,30,36`` at the reference width, 10
+                   steps at B=32 and 2 eval batches (inline synthesis, as
+                   the ragged modes force); no typed-mp kernel and no plain
+                   version; finite losses, samples/s, accuracies; the COO
+                   step on a staged batch (ms, kernels per step, device
+                   busy, peak memory); then 6 steps with ``--length-dist
+                   0.5,0.3,0.2`` (the buckets each step saw) and 5 with
+                   ``--bf16``, finite losses
+  syn_coo_vs_dense at uniform length 30 (``--coo``), B=32, from the weights
+                   SYN_WARM_STEPS dense card steps leave, the COO and dense
+                   hop models on one state dict: logits within
+                   COO_LOGITS_TOL of the largest (train and eval mode),
+                   losses within LOSS_RTOL; two COO steps bit-equal (loss,
+                   every gradient, the running statistics); the card's COO
+                   step against the port's CPU COO step (loss LOSS_RTOL,
+                   each gradient GRAD_REL_L2 relative L2); the COO and
+                   dense steps timed in turns (dense, COO, COO, dense),
+                   kernels and device busy per step
   kernel_check_bf16     the bf16 mode of the NO_EXTENSION forward (the
                    sample route and the kept kernel, slab=0) and of the
                    staged backward (packed products and the kept scalar
@@ -287,6 +307,25 @@ BP_ONE_SIDED = 0.01
 BP_WARM_STEPS = 10
 # syn_train_path: the hop samples the writer CLI writes (20 steps of 32)
 SYN_PATH_SAMPLES = 640
+# The COO path (--coo, ROADMAP item 5): the hop trainer over flat disjoint
+# unions.  With --mixed-lengths 24,30,36 at B=32 each batch is 32
+# composite samples of three chains (COO_WIDTH nodes each): 2880
+# variables, 2880 factors of each type, 11520 pairwise and 51840 hop
+# edges.  The JAX package runs these ops as jax.ops.segment_* (no Pallas
+# kernel), and so does the port with PyTorch ops: no typed-mp kernel may
+# run on this path.  10 steps and 2 eval batches, then 6 steps with
+# --length-dist and 5 with --bf16.
+COO_LENGTHS = "24,30,36"
+COO_WIDTH = sum(int(x) for x in COO_LENGTHS.split(","))   # 90
+COO_DIST = "0.5,0.3,0.2"
+COO_STEPS = 10
+COO_EVAL_BATCHES = 2
+COO_BUCKET_STEPS = 6
+COO_BF16_STEPS = 5
+# COO against dense logits on one state dict at uniform length: the same
+# f32 arithmetic in other orders (segment sums against the kernels'), so
+# 1e-4 of the largest logit, as the CPU tests hold the JAX pair
+COO_LOGITS_TOL = 1e-4
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # The bf16 compute policy (--bf16).  Every conv whose x is bf16 runs the
@@ -1677,6 +1716,217 @@ def phase_syn_train_path(torch, fused_mp, dev, tmp):
     return res
 
 
+# --------------------------------------------------------------------------
+# the COO path (ROADMAP item 5): PyTorch ops, no typed-mp kernel
+
+
+def _fused_total(fused_mp):
+    """Every typed-mp kernel launch and plain call counted since the last
+    reset, over all routes."""
+    return sum(c["kernel_launches"] + c.get("plain_calls", 0) for c in (
+        fused_mp.COUNTS, fused_mp.BWD_COUNTS, fused_mp.EXT_COUNTS,
+        fused_mp.EXT_BWD_COUNTS, fused_mp.KEPT_EXT_COUNTS,
+        fused_mp.KEPT_BWD_COUNTS, fused_mp.KEPT_EXT_BWD_COUNTS,
+        fused_mp.KEPT_BF16_COUNTS, fused_mp.KEPT_BF16_BWD_COUNTS,
+        fused_mp.KEPT_BF16_EXT_COUNTS, fused_mp.KEPT_BF16_EXT_BWD_COUNTS))
+
+
+@contextlib.contextmanager
+def _steps_recorded(synthetic):
+    """Within the block, each ``train_step`` of the trainer appends (the
+    batch's sample width, its loss on the device) to the yielded list."""
+    real, seen = synthetic.train_step, []
+
+    def step(wl, optimizer, batch, device):
+        m = real(wl, optimizer, batch, device)
+        seen.append((int(batch["label"].shape[1]), m["loss"]))
+        return m
+
+    synthetic.train_step = step
+    try:
+        yield seen
+    finally:
+        synthetic.train_step = real
+
+
+def phase_syn_coo(torch, fused_mp, dev, tmp):
+    """``train_and_eval("hop", ...)`` with ``--coo --mixed-lengths`` at the
+    reference width, then with ``--length-dist`` and with ``--bf16``: no
+    typed-mp kernel and no plain version runs, finite losses; samples/s,
+    and the step alone on a staged batch (ms, kernels per step)."""
+    from fgnn_tpu_torch.data import batches
+    from fgnn_tpu_torch.models import init_weights
+    from fgnn_tpu_torch.train import synthetic
+    from fgnn_tpu_torch.train.common import make_optimizer
+    from fgnn_tpu_torch.utils.profiling import kernels_per_call
+
+    def run(name, steps, eval_batches, *flags):
+        args = _syn_args("hop", tmp, steps, eval_batches, "--coo",
+                         "--mixed-lengths", COO_LENGTHS, *flags, name=name)
+        with _steps_recorded(synthetic) as seen:
+            res = _run_syn(torch, fused_mp, dev, "hop", args, steps,
+                           eval_batches, 0)
+        require(_fused_total(fused_mp) == 0,
+                f"{name}: no typed-mp kernel and no plain version")
+        losses = [float(loss) for _, loss in seen]
+        require(len(losses) == steps
+                and all(math.isfinite(v) for v in losses),
+                f"{name}: {steps} finite losses ({losses})")
+        return args, res, [w for w, _ in seen], losses
+
+    args, res, widths, losses = run("hop_coo", COO_STEPS, COO_EVAL_BATCHES)
+    require(set(widths) == {COO_WIDTH}, f"composite samples of {COO_WIDTH}")
+    wl = synthetic.SynWorkload("hop", args)
+    init_weights(wl.model, 1)
+    wl.to(dev)
+    opt = make_optimizer(wl.model.parameters(), synthetic.BASE_LR,
+                         weight_decay=0.0)
+    staged = wl.stage(next(batches(wl.dataset, SYN_BATCH, 1)), dev)
+
+    def step():
+        synthetic.train_step(wl, opt, staged, dev)
+
+    fused_mp.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(step, 20, torch)
+    kernels, busy_ms = kernels_per_call(step, 3)
+    require(_fused_total(fused_mp) == 0, "the COO step: no typed-mp kernel")
+    pw, high = wl.static["coo_pw"], wl.static["coo_high"]
+    shapes = {"variables": int(staged["node_feature"].shape[0]),
+              "factors_per_type": pw.num_nodes
+              - int(staged["node_feature"].shape[0]),
+              "pw_edges": pw.n_edges, "hop_edges": high.n_edges,
+              "samples": pw.num_segments}
+    # each joint node receives K edges: 2 (pairwise), 9 (hop)
+    nv = COO_WIDTH * SYN_BATCH
+    require(shapes == {"variables": nv, "factors_per_type": nv,
+                       "pw_edges": 2 * 2 * nv, "hop_edges": 9 * 2 * nv,
+                       "samples": 3 * SYN_BATCH}, f"the COO shapes {shapes}")
+
+    _, bucketed, bucket_widths, bucket_losses = run(
+        "hop_coo_bucketed", COO_BUCKET_STEPS, 1, "--length-dist", COO_DIST)
+    require(set(bucket_widths) <= {int(x) for x in COO_LENGTHS.split(",")},
+            f"buckets {bucket_widths}")
+    _, b16, _, b16_losses = run("hop_coo_bf16", COO_BF16_STEPS, 1, "--bf16")
+    emit("syn_coo", batch_size=SYN_BATCH, mixed_lengths=COO_LENGTHS,
+         shapes=shapes, **res, step_losses=losses,
+         coo_train_step_ms=step_ms,
+         step_samples_per_s=SYN_BATCH / step_ms * 1e3,
+         kernels_per_step=kernels, device_busy_ms_per_step=busy_ms,
+         step_peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         length_dist=COO_DIST, buckets_by_step=bucket_widths,
+         bucketed_losses=bucket_losses,
+         bucketed_samples_per_s=bucketed["samples_per_s"],
+         bf16_losses=b16_losses, bf16_samples_per_s=b16["samples_per_s"])
+    return res
+
+
+def phase_syn_coo_vs_dense(torch, fused_mp, dev):
+    """At uniform length 30 (``--coo`` alone), B=32, reference width, from
+    the weights SYN_WARM_STEPS dense card steps leave: the COO and the
+    dense hop models on one state dict give the same logits (train and
+    eval mode) and losses; two COO steps give the same bits; the card's
+    COO step against the port's CPU COO step; step times in turns."""
+    from fgnn_tpu_torch.data import batches
+    from fgnn_tpu_torch.models import init_weights
+    from fgnn_tpu_torch.train.common import make_optimizer
+    from fgnn_tpu_torch.train.synthetic import BASE_LR, SynWorkload, \
+        parse_args, train_step
+    from fgnn_tpu_torch.utils.profiling import kernels_per_call
+
+    data_seed, init_seed = SYN_VS_CPU_SEEDS[0]
+    common = ["--seed", str(data_seed), "--batch-size", str(SYN_BATCH)]
+    flags = {False: parse_args(common, "hop"),
+             True: parse_args(["--coo", *common], "hop")}
+    dense = SynWorkload("hop", flags[False])
+    init_weights(dense.model, init_seed)
+    dense.to(dev)
+    data = batches(dense.dataset, SYN_BATCH, SYN_WARM_STEPS + 1)
+    opt = make_optimizer(dense.model.parameters(), BASE_LR, weight_decay=0.0)
+    for _ in range(SYN_WARM_STEPS):
+        train_step(dense, opt, next(data), dev)
+    start = {k: v.cpu() for k, v in dense.model.state_dict().items()}
+    batch = next(data)
+
+    def make(coo, where):
+        wl = SynWorkload("hop", flags[coo])
+        wl.model.load_state_dict(start)
+        return wl.to(where)
+
+    logits_err = {}
+    with torch.no_grad():
+        for mode in ("eval", "train"):
+            d, c = make(False, dev), make(True, dev)
+            d.model.train(mode == "train")
+            c.model.train(mode == "train")
+            want = d.logits(d.stage(batch, dev))
+            got = c.logits(c.stage(batch, dev)).reshape(want.shape)
+            logits_err[mode] = ((got - want).abs().max()
+                                / want.abs().max()).item()
+    require(max(logits_err.values()) <= COO_LOGITS_TOL,
+            f"COO against dense logits: {logits_err}")
+
+    def step(coo, where):
+        wl = make(coo, where)
+        o = make_optimizer(wl.model.parameters(), BASE_LR, weight_decay=0.0)
+        m = train_step(wl, o, batch, where)
+        return (float(m["loss"]),
+                {n: None if p.grad is None else p.grad.detach().cpu()
+                 for n, p in wl.model.named_parameters()},
+                {k: v.cpu() for k, v in wl.model.state_dict().items()
+                 if "running_" in k})
+
+    fused_mp.reset_counts()
+    first, second = step(True, dev), step(True, dev)
+    require(_fused_total(fused_mp) == 0, "the COO step: no typed-mp kernel")
+    same = (first[0] == second[0]
+            and all((a is None and b is None) or torch.equal(a, b)
+                    for a, b in zip(first[1].values(), second[1].values()))
+            and all(torch.equal(first[2][k], second[2][k])
+                    for k in first[2]))
+    require(same, "two COO steps give the same bits: loss, gradients, "
+                  "running statistics")
+    dense_loss = step(False, dev)[0]
+    require(abs(first[0] - dense_loss) <= LOSS_RTOL * abs(dense_loss),
+            f"COO loss {first[0]} against dense {dense_loss}")
+    cpu = step(True, "cpu")
+    require(abs(first[0] - cpu[0]) <= LOSS_RTOL * abs(cpu[0]),
+            f"COO loss: card {first[0]} against CPU {cpu[0]}")
+    rel, noise, floor, bad = _grad_errors(torch, first[1], cpu[1])
+    bad += ([f"{n}: relative L2 error {v}" for n, v in rel.items()
+             if v > GRAD_REL_L2]
+            + [f"{n}: max abs err {v} > {floor}" for n, v in noise.items()
+               if v > floor])
+
+    # the two steps timed in turns (dense, COO, COO, dense)
+    d, c = make(False, dev), make(True, dev)
+    od = make_optimizer(d.model.parameters(), BASE_LR, weight_decay=0.0)
+    oc = make_optimizer(c.model.parameters(), BASE_LR, weight_decay=0.0)
+    sd, sc = d.stage(batch, dev), c.stage(batch, dev)
+    steps = {"dense": lambda: train_step(d, od, sd, dev),
+             "coo": lambda: train_step(c, oc, sc, dev)}
+    turns = [(name, cuda_ms(steps[name], 20, torch))
+             for name in ("dense", "coo", "coo", "dense")]
+    ms = {name: sum(t for n, t in turns if n == name) / 2 for name in steps}
+    traced = {name: kernels_per_call(fn, 3) for name, fn in steps.items()}
+    worst = sorted(rel, key=rel.get, reverse=True)[:5]
+    emit("syn_coo_vs_dense", seeds=[data_seed, init_seed],
+         warm_steps=SYN_WARM_STEPS, batch_size=SYN_BATCH,
+         logits_rel_err=logits_err, logits_tol=COO_LOGITS_TOL,
+         loss_coo=first[0], loss_dense=dense_loss, loss_cpu=cpu[0],
+         same_bits=same, card_vs_cpu_rel_l2_worst=max(rel.values()),
+         worst_tensors={n: rel[n] for n in worst},
+         tensors_rel_l2=len(rel), tensors_at_noise_floor=len(noise),
+         noise_floor=floor, tol_rel_l2=GRAD_REL_L2,
+         turns_ms=turns, coo_step_ms=ms["coo"], dense_step_ms=ms["dense"],
+         kernels_per_step={n: k for n, (k, _) in traced.items()},
+         device_busy_ms_per_step={n: b for n, (_, b) in traced.items()},
+         failed=bad)
+    require(not bad, "the card's COO gradients within GRAD_REL_L2 of the "
+                     "CPU's")
+    return ms
+
+
 def phase_syn_fixed(torch, fused_mp, dev, tmp):
     args = _syn_args("fixed", tmp, FIXED_STEPS, 1)
     require(args.model_name == "mp_nn", "the fixed workload runs mp_nn")
@@ -2632,6 +2882,8 @@ def main():
         fixed = phase_syn_fixed(torch, fused_mp, dev, tmp)
         syn_pool, syn_inline = phase_syn_workers(torch, fused_mp, dev, tmp)
         syn_path = phase_syn_train_path(torch, fused_mp, dev, tmp)
+        phase_syn_coo(torch, fused_mp, dev, tmp)
+        phase_syn_coo_vs_dense(torch, fused_mp, dev)
         ldpc_b16, hop_b16 = phase_train_bf16(torch, fused_mp, dev, tmp)
 
     def per_call(rows, key, per):

@@ -11,6 +11,8 @@ from .ldpc_datasets import (
 )
 from .ldpc_graph import LDPCStructure, default_structure
 from .rpgm import (
+    BucketedHopData,
+    MixedLengthHopData,
     RandomPGM,
     RandomPGMHop,
     RandomPGMNoHop,
@@ -35,7 +37,7 @@ __all__ = [
     "ContinuousCodesSP", "Codes", "batch_to_features", "gen_sample",
     "generate_eval_set",
     "RandomPGM", "RandomPGMNoHop", "RandomPGMPw", "RandomPGMPwNoHop",
-    "RandomPGMHop", "batches",
+    "RandomPGMHop", "MixedLengthHopData", "BucketedHopData", "batches",
     "chain_knn_table", "pw_factor_table", "high_factor_table",
     "global_factor_table",
 ]

@@ -21,8 +21,13 @@ Each sample carries BOTH the exact MAP assignment (label) and the LP
 relaxation assignment (lp_label baseline).  Layout is channels-last:
 node features (L, 2), pairwise edge features (L, 3, 4) etc.
 
-``MixedLengthHopData`` and ``BucketedHopData`` serve the COO batching modes
-and are not ported yet (ROADMAP.md, port queue item 5).
+Two generators of chains of mixed lengths serve the COO batching modes
+(``graph.build_joint_coo``, the hop trainer's ``--coo``):
+
+  * :class:`MixedLengthHopData` — each sample one chain per configured
+    length, concatenated (``--mixed-lengths``);
+  * :class:`BucketedHopData`  — each batch one length, drawn per batch
+    from a distribution (``--length-dist``).
 """
 
 from __future__ import annotations
@@ -193,3 +198,74 @@ def batches(dataset, batch_size: int, n_batches: int) -> Iterator[dict]:
     for _ in range(n_batches):
         items = [dataset.sample() for _ in range(batch_size)]
         yield {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+
+class MixedLengthHopData:
+    """Chains of mixed lengths for COO disjoint-union batching.
+
+    Each ``sample()`` is one composite group: one oracle-labelled chain
+    per configured length, concatenated along the node axis, so
+    ``batches()`` stacks fixed (B, sum_L, ...) arrays whose flat form is a
+    ragged batch with no padding.  Part i draws from its own generator,
+    seeded ``seed + 1000 * i``.
+    """
+
+    def __init__(self, lengths, hop_order: int = 9,
+                 ret_efeature_pw: bool = False, seed: Optional[int] = None):
+        self.lengths = tuple(int(x) for x in lengths)
+        if not self.lengths:
+            raise ValueError("need at least one chain length")
+        self.parts = [
+            RandomPGMHop(L, hop_order=hop_order,
+                         ret_efeature_pw=ret_efeature_pw,
+                         seed=None if seed is None else seed + 1000 * i)
+            for i, L in enumerate(self.lengths)
+        ]
+
+    @property
+    def total_nodes(self) -> int:
+        return sum(self.lengths)
+
+    def sample(self) -> dict:
+        items = [p.sample() for p in self.parts]
+        return {k: np.concatenate([it[k] for it in items])
+                for k in items[0]}
+
+
+class BucketedHopData:
+    """Chain lengths drawn from a distribution, in bucketed batches.
+
+    ``batches(batch_size, n)`` draws each batch's length from
+    ``(lengths, probs)`` (``RandomState(seed)``) and fills the batch with
+    chains of that length from the length's own generator (seeded
+    ``seed + 1000 * i``): homogeneous (B, L, ...) batches, no padding.
+    """
+
+    def __init__(self, lengths, probs=None, hop_order: int = 9,
+                 ret_efeature_pw: bool = False, seed: Optional[int] = None):
+        self.lengths = tuple(int(x) for x in lengths)
+        if not self.lengths:
+            raise ValueError("need at least one chain length")
+        if probs is None:
+            probs = [1.0 / len(self.lengths)] * len(self.lengths)
+        probs = np.asarray(list(probs), np.float64)
+        if probs.size != len(self.lengths):
+            raise ValueError("--length-dist must give one probability per "
+                             "length")
+        self.probs = probs / probs.sum()
+        self.parts = {
+            L: RandomPGMHop(L, hop_order=hop_order,
+                            ret_efeature_pw=ret_efeature_pw,
+                            seed=None if seed is None else seed + 1000 * i)
+            for i, L in enumerate(self.lengths)
+        }
+        self.rng = np.random.RandomState(seed)
+
+    def batches(self, batch_size: int,
+                n: Optional[int] = None) -> Iterator[dict]:
+        count = 0
+        while n is None or count < n:
+            L = int(self.rng.choice(self.lengths, p=self.probs))
+            items = [self.parts[L].sample() for _ in range(batch_size)]
+            yield {k: np.stack([it[k] for it in items]) for k in items[0]}
+            count += 1

@@ -11,7 +11,12 @@ from .containers import (
 from .factor_nn import FactorNN
 from .factor_mpnn import FactorMPNN
 from .ldpc_model import LDPCModel, SigmaBRegressor
-from .synthetic import SynFixedModel, SynHopFactorModel, SynPwFactorModel
+from .synthetic import (
+    SynFixedModel,
+    SynHopFactorModel,
+    SynHopFactorModelCoo,
+    SynPwFactorModel,
+)
 from .from_jax import load_flax_variables
 
 __all__ = [
@@ -20,5 +25,5 @@ __all__ = [
     "FactorNN", "LDPCModel", "SigmaBRegressor", "load_flax_variables",
     "IIDBlock", "MPSequential", "ParallelNet", "MPEnsemble",
     "GlobalPooling", "FactorMPNN", "SynFixedModel",
-    "SynPwFactorModel", "SynHopFactorModel",
+    "SynPwFactorModel", "SynHopFactorModel", "SynHopFactorModelCoo",
 ]

@@ -1,5 +1,5 @@
 """FactorMPNN: the concat ("joint graph") factor-graph network
-(counterpart of ``fgnn_tpu/models/factor_mpnn.py``, dense tables).
+(counterpart of ``fgnn_tpu/models/factor_mpnn.py``).
 
 Per layer and per factor type, the node features and that type's factor
 features are concatenated along the node axis into one joint [variables ;
@@ -23,6 +23,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..ops.segment import CooGraph
 from ..ops.typed_mp import Extension
 from .base import IIDMap, IIDMapBN
 from .mp_conv import MPConv, MPConvResidual
@@ -34,14 +35,16 @@ MAX_MPNN_DIM = 64
 
 class _PointwiseFallback(nn.Module):
     """Dense + InstanceNorm + ReLU, the branch without message passing.
-    The flax module's InstanceNorm ``in`` has no parameters."""
+    The flax module's InstanceNorm ``in`` has no parameters.  ``seg``
+    (a flat disjoint union's nodes by sample) makes the InstanceNorm's
+    statistics per sample."""
 
     def __init__(self, nin: int, features: int):
         super().__init__()
         self.conv = Dense(nin, features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(instance_norm(self.conv(x)))
+    def forward(self, x: torch.Tensor, seg=None) -> torch.Tensor:
+        return torch.relu(instance_norm(self.conv(x), seg=seg))
 
 
 class _FinalMerge(nn.Module):
@@ -68,7 +71,13 @@ class FactorMPNN(nn.Module):
                         graph ],
                etypes [ (B, N_vars + N_fac_j, K_j, netype_j) ])
     returns (node features after the last merge (B, N_vars, dims[-1]),
-    the per-type factor features)."""
+    the per-type factor features).
+
+    Flat (disjoint-union) mode: node_features (N_vars_flat, node_dim),
+    factor features (N_fac_flat_j, dim_j), each table a ``CooGraph`` over
+    that type's joint [all vars ; all factors_j] numbering
+    (``graph.build_joint_coo``) and each etype (E_j, netype_j).  The same
+    parameters serve both modes."""
 
     def __init__(self, node_feature_dim: int,
                  factor_feature_dims: Sequence[int],
@@ -108,7 +117,8 @@ class FactorMPNN(nn.Module):
                 joint = torch.cat([x, fs[j]], dim=-2)
                 mod = getattr(self, f"mp_nn_{midx}_{j}")
                 if isinstance(mod, _PointwiseFallback):
-                    joint = mod(joint)
+                    joint = mod(joint, tables[j].bins if isinstance(
+                        tables[j], CooGraph) else None)
                 else:
                     joint = mod(joint, tables[j], etypes[j])
                 cn.append(joint[..., :nnode, :])

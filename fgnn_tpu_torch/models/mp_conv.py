@@ -1,5 +1,10 @@
 """MPConv: the module around the typed-edge conv (counterpart of
-``fgnn_tpu/models/mp_conv.py``, dense-table branch).
+``fgnn_tpu/models/mp_conv.py``, its dense-table and COO branches).
+
+Given a ``GatherTable`` the conv runs ``typed_mp_conv`` on (B, N, C)
+features; given an ``ops.segment.CooGraph`` (a flat disjoint union) it runs
+``typed_mp_conv_coo`` on (N_flat, C) features and (E, T) edge weights,
+with the extension mapped as the JAX package's ``_COO_EXT``.
 
 The JAX modules default to ``ORIG_WITH_DIFF``; the port's default is
 ``NO_EXTENSION``, the LDPC models' mode, and the synthetic models
@@ -12,8 +17,13 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.typed_mp import Extension, GatherTable, typed_mp_conv
+from ..ops.segment import CooGraph, typed_mp_conv_coo
+from ..ops.typed_mp import Extension, typed_mp_conv
 from .norm import BatchNorm, Dense, leaky_relu, uniform_
+
+_COO_EXT = {Extension.NO_EXTENSION: "none",
+            Extension.ORIG_WITH_DIFF: "diff",
+            Extension.ORIG_WITH_NEIGHBOR: "neighbor"}
 
 
 class MPConv(nn.Module):
@@ -37,11 +47,16 @@ class MPConv(nn.Module):
         uniform_(self.filters, -0.01, 0.01, generator)
         uniform_(self.bias, 0.0, 0.05, generator)
 
-    def forward(self, x: torch.Tensor, table: GatherTable,
-                etype: torch.Tensor) -> torch.Tensor:
-        y = typed_mp_conv(x, table, etype, self.filters, self.nout,
-                          extension=self.extension,
-                          aggregator=self.aggregator, bias=self.bias)
+    def forward(self, x: torch.Tensor, table, etype: torch.Tensor
+                ) -> torch.Tensor:
+        if isinstance(table, CooGraph):
+            y = typed_mp_conv_coo(x, table, etype, self.filters, self.nout,
+                                  aggregator=self.aggregator, bias=self.bias,
+                                  extension=_COO_EXT[self.extension])
+        else:
+            y = typed_mp_conv(x, table, etype, self.filters, self.nout,
+                              extension=self.extension,
+                              aggregator=self.aggregator, bias=self.bias)
         return torch.relu(self.bn(y))
 
 
@@ -63,8 +78,9 @@ class MPConvResidual(nn.Module):
         self.conv2 = Dense(nmed, nout)
         self.bn2 = BatchNorm(nout)
 
-    def forward(self, x: torch.Tensor, table: GatherTable,
-                etype: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, table, etype: torch.Tensor
+                ) -> torch.Tensor:
+        """``table``: a ``GatherTable`` or a ``CooGraph``, passed through."""
         h = leaky_relu(self.bn1(self.conv1(x)))
         h = self.mp_conv(h, table, etype)
         h = leaky_relu(self.bn2(self.conv2(h)))

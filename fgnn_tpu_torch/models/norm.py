@@ -14,7 +14,11 @@ Counterpart of ``fgnn_tpu/models/norm.py``, layout ``(B, N, C)``:
   selects batch or running statistics.  The output is in x's dtype:
   statistics, scale and shift are cast to it, as the flax module does.
 * ``instance_norm``: per (b, c) over N, no affine, no running stats;
-  statistics in f32, the result in x's dtype.
+  statistics in f32, the result in x's dtype.  On a flat disjoint union
+  (x (N_flat, C)) it takes the nodes grouped by sample
+  (``ops.segment.segment_bins``, a ``CooGraph``'s ``bins``): statistics
+  per (sample, channel), padding nodes in a bin of their own, counts
+  floored at 1, through the deterministic segment sum.
 
 Every module with parameters has ``init_(generator)``, which draws them
 from the same distributions as the JAX init; ``init_weights`` walks a
@@ -24,11 +28,13 @@ model with one seeded ``torch.Generator``.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.segment import Segments, gather, segment_sum
 from .policy import cast_compute
 
 
@@ -103,14 +109,22 @@ class BatchNorm(nn.Module):
                 + self.bias.to(dt))
 
 
-def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def instance_norm(x: torch.Tensor, eps: float = 1e-5,
+                  seg: Optional[Segments] = None) -> torch.Tensor:
     """torch.nn.InstanceNorm2d defaults on (B, N, C): per (b, c) over N.
 
-    On a (B, 1, C) input the output is all zeros, as in the JAX package."""
+    On a (B, 1, C) input the output is all zeros, as in the JAX package.
+    With ``seg`` (the nodes of a flat x (N_flat, C) grouped by sample, the
+    last bin the padding) the statistics are per (sample, c)."""
     xf = _stats(x)
-    mean = xf.mean(dim=-2, keepdim=True)
-    var = (xf - mean).square().mean(dim=-2, keepdim=True)
-    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    if seg is None:
+        mean = xf.mean(dim=-2, keepdim=True)
+        var = (xf - mean).square().mean(dim=-2, keepdim=True)
+        return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    cnt = seg.count.to(xf.dtype).clamp_min(1.0)[:, None]
+    dev = xf - gather(segment_sum(xf, seg) / cnt, seg)
+    var = segment_sum(dev.square(), seg) / cnt
+    return (dev * torch.rsqrt(gather(var, seg) + eps)).to(x.dtype)
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:

@@ -7,13 +7,14 @@
   dummy global factor.
 * ``SynHopFactorModel``: FactorMPNN with learned pairwise and learned
   budget (hop) factors.
+* ``SynHopFactorModelCoo``: the hop model over a flat disjoint union of
+  chains of any lengths (``graph.build_joint_coo``), with the same
+  parameters.
 
 Each holds its edge-weight MLPs (``emodel*``) beside the network.  The
 tables are ``GatherTable``s the caller builds once (``train/synthetic.py``);
 the per-edge features are the tables' static (N, K, C) features, whose
 edge weights are shared by every sample of a batch.
-``SynHopFactorModelCoo`` waits for the COO IR (ROADMAP.md, port queue
-item 5).
 """
 
 from __future__ import annotations
@@ -139,4 +140,24 @@ class SynHopFactorModel(torch.nn.Module):
             node_feature, [pws, hops], [table_pw, table_high],
             [_shared(self.emodel_pw(ef_pw), B),
              _shared(self.emodel_high(ef_high), B)])
+        return out
+
+
+class SynHopFactorModelCoo(SynHopFactorModel):
+    """The flat disjoint-union form of ``SynHopFactorModel``: its
+    parameters and state-dict keys are the dense model's, so weights load
+    both ways (and the JAX COO model's flax tree through
+    ``load_flax_variables``).
+
+    forward(node_feature (NV, 2), pws (NF, 4), hops (NF, hop_order),
+    coo_pw, ef_pw (E_pw, 3), coo_high, ef_high (E_hi, 2)): the features
+    flat over the vars-first union numbering, each ``CooGraph`` over its
+    type's joint numbering with per-edge features in its edge order
+    (``graph.build_joint_coo``) -> flat logits (NV, 2)."""
+
+    def forward(self, node_feature, pws, hops, coo_pw, ef_pw, coo_high,
+                ef_high):
+        out, _ = self.fmpnn(
+            node_feature, [pws, hops], [coo_pw, coo_high],
+            [self.emodel_pw(ef_pw), self.emodel_high(ef_high)])
         return out

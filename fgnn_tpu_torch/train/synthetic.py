@@ -1,10 +1,12 @@
 """Synthetic chain-MRF MAP trainers (counterpart of
-``fgnn_tpu/train/synthetic.py``, its dense-table path).
+``fgnn_tpu/train/synthetic.py``).
 
 One engine, three workloads:
   * fixed: ``SynFixedModel`` over the variable chain
   * pw:    ``SynPwFactorModel``, learned pairwise factors
-  * hop:   ``SynHopFactorModel``, learned pairwise and budget factors
+  * hop:   ``SynHopFactorModel``, learned pairwise and budget factors;
+           with ``--coo`` ``SynHopFactorModelCoo``, each batch one flat
+           disjoint union of its chains (``graph.build_joint_coo``)
 
 The JAX trainer's recipe: Adam (no weight decay) at lr 3e-3 times 0.98 per
 epoch, gradients clipped to global norm 1.0 (optax's rule,
@@ -22,9 +24,14 @@ in the JAX trainer's order for one seed, from one of three sources:
 * ``--workers 0``: inline, from one generator: one batch for the init,
   the epochs' batches, then the eval batches.
 
-The eval batches come from ``--test-path`` in file order, or else inline
-from a generator of the seed (after the training batches when those were
-inline too).  The train loop stages each batch on the device from a
+The ragged ``--coo`` modes synthesise inline, whatever ``--workers``
+says, from their own generators (``data.rpgm``): ``--mixed-lengths
+24,30,36`` puts one chain of each length into every sample
+(``MixedLengthHopData``), and ``--length-dist 0.5,0.3,0.2`` draws each
+batch's length from that distribution (``BucketedHopData``, one table set
+per length).  The eval batches come from ``--test-path`` in file order, or
+else inline from a generator of the seed (after the training batches when
+those were inline too).  The train loop stages each batch on the device from a
 prefetch thread (``data.loader.device_prefetch``).  Besides the JAX
 trainer's scalars (``syn_train/loss``,
 ``acc``, ``lp_acc`` every 10 steps, ``syn_test/acc``, ``lp_acc``) the run's
@@ -34,6 +41,8 @@ trainer's scalars (``syn_train/loss``,
     python -m fgnn_tpu_torch.train.syn_hop_factor --work-dir runs
     python -m fgnn_tpu_torch.train.syn_hop_factor --device cpu \\
         --train-size 64 --test-size 32 --train-epoches 1
+    python -m fgnn_tpu_torch.train.syn_hop_factor --coo \\
+        --mixed-lengths 24,30,36 [--length-dist 0.5,0.3,0.2]
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  ``--bf16`` trains and
 tests under the bf16 compute policy (``models/policy.py``), as the JAX
@@ -59,6 +68,8 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..data import (
+    BucketedHopData,
+    MixedLengthHopData,
     PoolBatcher,
     RandomPGM,
     RandomPGMHop,
@@ -73,11 +84,13 @@ from ..data import (
 from ..models import (
     SynFixedModel,
     SynHopFactorModel,
+    SynHopFactorModelCoo,
     SynPwFactorModel,
     init_weights,
 )
 from ..data.generate import NpzRPGMData
 from ..data.loader import to_device
+from ..graph import build_joint_coo
 from ..models.policy import bf16_policy
 from ..ops.typed_mp import GatherTable
 from ..utils.logging import MetricsWriter, init_logger
@@ -97,9 +110,6 @@ LR_DECAY = 0.98
 # flag -> (its value when unused, the ROADMAP.md port-queue item it waits for)
 UNPORTED = {
     "mesh": ("", "item 6 (parallel/)"),
-    "coo": (False, "item 5 (COO IR)"),
-    "mixed_lengths": ("", "item 5 (COO IR)"),
-    "length_dist": ("", "item 5 (COO IR)"),
 }
 
 log = logging.getLogger(__name__)
@@ -130,13 +140,31 @@ def make_syn_dataset(workload: str, args):
     raise ValueError(f"unknown workload {workload!r}")
 
 
+def _joint_tables(lengths, hop_order: int) -> dict:
+    """The COO model's graph arguments for a batch of chains of
+    ``lengths``, in order: each type's joint CooGraph and edge features."""
+    pw = [pw_factor_table(L) for L in lengths]
+    high = [high_factor_table(L, hop_order) for L in lengths]
+    coo_pw, ef_pw, _ = build_joint_coo([t for t, _ in pw],
+                                       [e for _, e in pw], lengths)
+    coo_high, ef_high, _ = build_joint_coo([t for t, _ in high],
+                                           [e for _, e in high], lengths)
+    return {"coo_pw": coo_pw, "ef_pw": ef_pw, "coo_high": coo_high,
+            "ef_high": ef_high}
+
+
 class SynWorkload:
     """Model, dataset and the static tables of one workload.
 
-    Each static table is a ``GatherTable`` built once, here; ``to(device)``
-    moves the tables and their edge features with the model.  ``static``
-    holds the model's table and edge-feature arguments; ``batch_keys``
-    maps the model's per-sample arguments to the batch's keys."""
+    Each static table is a ``GatherTable`` (a ``CooGraph`` under ``--coo``)
+    built once, here; ``to(device)`` moves the tables and their edge
+    features with the model.  ``static`` holds the model's table and
+    edge-feature arguments; ``batch_keys`` maps the model's per-sample
+    arguments to the batch's keys.  Under ``--coo`` (workload
+    ``hop_coo``) ``buckets`` holds one such set per sample width (the
+    nodes of one sample: L, the sum of ``--mixed-lengths``, or each
+    length of ``--length-dist``), each a disjoint union of B samples in
+    batch-major order, and a batch takes the set of its width."""
 
     def __init__(self, workload: str, args):
         L = args.chain_length
@@ -144,6 +172,10 @@ class SynWorkload:
         dim_kw = {"dims": tuple(dims)} if dims else {}
         self.workload = workload
         self.dataset = make_syn_dataset(workload, args)
+        self.buckets = None
+        if workload == "hop" and getattr(args, "coo", False):
+            self._init_coo(args, dim_kw)
+            return
         if workload == "fixed":
             self.model = SynFixedModel(variant=args.model_name)
             nn_idx, ef = chain_knn_table(L, args.neighbour)
@@ -169,23 +201,67 @@ class SynWorkload:
             "table_high": GatherTable(nn_high, nn_high.shape[0]),
             "ef_high": torch.from_numpy(ef_high)}
 
+    def _init_coo(self, args, dim_kw) -> None:
+        """``--coo``: flat disjoint-union batches through the COO IR, with
+        the dense model's parameters.  ``--mixed-lengths`` gives every
+        batch chains of each length (composite samples), ``--length-dist``
+        draws each batch's length; both with no padding."""
+        B = args.batch_size
+        mixed = getattr(args, "mixed_lengths", "")
+        lengths = ([int(x) for x in mixed.split(",") if x] if mixed
+                   else [args.chain_length])
+        dist = getattr(args, "length_dist", "")
+        if dist:
+            self.dataset = BucketedHopData(
+                lengths, [float(x) for x in dist.split(",") if x],
+                hop_order=args.hop_order, ret_efeature_pw=False,
+                seed=args.seed)
+            self.buckets = {L: _joint_tables([L] * B, args.hop_order)
+                            for L in lengths}
+        else:
+            if mixed:
+                self.dataset = MixedLengthHopData(
+                    lengths, hop_order=args.hop_order,
+                    ret_efeature_pw=False, seed=args.seed)
+            # composite order, batch-major
+            self.buckets = {sum(lengths): _joint_tables(lengths * B,
+                                                        args.hop_order)}
+        self.static = next(iter(self.buckets.values()))
+        self.model = SynHopFactorModelCoo(hop_order=args.hop_order,
+                                          **dim_kw)
+        self.workload = "hop_coo"
+        self.batch_keys = {"node_feature": "node_feature", "pws": "pws",
+                           "hops": "efeature_hop"}
+
     def to(self, device) -> "SynWorkload":
         self.model = self.model.to(device)
-        self.static = {k: v.to(device) for k, v in self.static.items()}
+        if self.buckets is None:
+            self.static = {k: v.to(device) for k, v in self.static.items()}
+        else:
+            self.buckets = {n: {k: v.to(device) for k, v in s.items()}
+                            for n, s in self.buckets.items()}
+            self.static = next(iter(self.buckets.values()))
         return self
 
     def stage(self, batch: dict, device) -> dict:
         """The model's arguments and the labels of a numpy batch, on
-        ``device``."""
+        ``device``; under ``--coo`` the model's arguments flat over the
+        batch's samples, the labels (B, width)."""
         keep = {arg: batch[key] for arg, key in self.batch_keys.items()}
+        if self.buckets is not None:
+            keep = {k: v.reshape((-1,) + v.shape[2:])
+                    for k, v in keep.items()}
         for key in ("label", "lp_label"):
             keep[key] = batch[key]
         return to_device(keep, device, non_blocking=True)
 
     def logits(self, staged: dict) -> torch.Tensor:
-        """(B, L, 2) logits of a staged batch."""
+        """(B, L, 2) logits of a staged batch; under ``--coo`` flat,
+        (B * width, 2), over the tables of the batch's width."""
+        static = (self.static if self.buckets is None
+                  else self.buckets[staged["label"].shape[1]])
         return self.model(**{a: staged[a] for a in self.batch_keys},
-                          **self.static)
+                          **static)
 
 
 def train_step(wl: SynWorkload, optimizer: torch.optim.Optimizer,
@@ -198,7 +274,8 @@ def train_step(wl: SynWorkload, optimizer: torch.optim.Optimizer,
         batch = wl.stage(batch, device)
     model = wl.model.train()
     logits = wl.logits(batch)
-    label = batch["label"].long()
+    # the labels in the logits' layout: (B, L), or flat under --coo
+    label = batch["label"].long().reshape(logits.shape[:-1])
     loss = F.cross_entropy(logits.reshape(-1, 2), label.reshape(-1))
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
@@ -206,16 +283,18 @@ def train_step(wl: SynWorkload, optimizer: torch.optim.Optimizer,
     optimizer.step()
     with torch.no_grad():
         acc = (logits.argmax(dim=-1) == label).float().mean()
-        lp_acc = (batch["lp_label"].long() == label).float().mean()
+        lp_acc = (batch["lp_label"].long().reshape(logits.shape[:-1])
+                  == label).float().mean()
     return {"loss": loss.detach(), "acc": acc, "lp_acc": lp_acc}
 
 
 def eval_step(wl: SynWorkload, batch: dict, device) -> torch.Tensor:
-    """MAP predictions (B, L) of a numpy batch, on the running statistics
-    (the JAX ``make_eval_step``), left on ``device``."""
+    """MAP predictions of a numpy batch in its labels' shape, on the
+    running statistics (the JAX ``make_eval_step``), left on ``device``."""
     wl.model.eval()
     with torch.inference_mode():
-        return wl.logits(wl.stage(batch, device)).argmax(dim=-1)
+        return wl.logits(wl.stage(batch, device)).argmax(dim=-1).reshape(
+            batch["label"].shape)
 
 
 def train_and_eval(workload: str, args, *, device=None):
@@ -248,12 +327,20 @@ def _npz_source(args):
                        len(npz) // args.batch_size)
 
 
+def _batches(wl: SynWorkload, batch_size: int, n: int):
+    """n fresh batches of the workload's generator: its own ``batches``
+    where it has one (``BucketedHopData``), else stacked samples."""
+    if hasattr(wl.dataset, "batches"):
+        return wl.dataset.batches(batch_size, n)
+    return batches(wl.dataset, batch_size, n)
+
+
 def _eval_source(args, wl):
     """(batches, count) of the test: ``--test-path`` in file order, or
     fresh batches from the workload's generator."""
     n = max(args.test_size // args.batch_size, 1)
     if not getattr(args, "test_path", ""):
-        return batches(wl.dataset, args.batch_size, n), n
+        return _batches(wl, args.batch_size, n), n
     npz = NpzRPGMData(args.test_path, size=args.test_size)
     n = min(n, len(npz) // args.batch_size)
     if n < 1:
@@ -278,19 +365,28 @@ def _train_and_eval(workload: str, args, dev):
     # (data.loader.PoolBatcher).
     steps_per_epoch = args.train_size // args.batch_size
     pool = batch_source = None
+    workers = getattr(args, "workers", 0)
+    if getattr(args, "mixed_lengths", "") or getattr(args, "length_dist",
+                                                     ""):
+        # the ragged modes own their sampler; a worker pool would
+        # synthesise chains of one length and defeat them
+        if workers:
+            log.info("--mixed-lengths/--length-dist: inline synthesis "
+                     "(worker pool does not apply)")
+        workers = 0
     if getattr(args, "train_path", ""):
         batch_source, steps_per_epoch = _npz_source(args)
-    elif getattr(args, "workers", 0):
+    elif workers:
         pool = PoolBatcher(functools.partial(make_syn_dataset, workload,
                                              args),
-                           args.batch_size, n_workers=args.workers,
+                           args.batch_size, n_workers=workers,
                            seed=args.seed)
         batch_source = pool.batches
     try:
         wl = SynWorkload(workload, args)
         if batch_source is None:
             def batch_source(n):
-                return batches(wl.dataset, args.batch_size, n)
+                return _batches(wl, args.batch_size, n)
         return _run(wl, workload, args, dev, work, batch_source,
                     steps_per_epoch)
     finally:
@@ -354,7 +450,7 @@ def _run(wl, workload, args, dev, work, batch_source, steps_per_epoch):
             preds.append(eval_step(wl, batch, dev))
             hosts.append(batch)
         accs, lp_accs = [], []
-        for pred, batch in zip(torch.stack(preds).cpu().numpy(), hosts):
+        for pred, batch in zip([p.cpu().numpy() for p in preds], hosts):
             accs.append((pred == batch["label"]).mean())
             lp_accs.append((batch["lp_label"] == batch["label"]).mean())
         acc, lp_acc = float(np.mean(accs)), float(np.mean(lp_accs))
@@ -401,11 +497,18 @@ def parse_args(argv=None, workload: str = "fixed"):
     p.add_argument("--mesh", type=str, default="",
                    help="DPxTP device mesh: not ported yet")
     p.add_argument("--coo", action="store_true", default=False,
-                   help="(hop) COO disjoint-union batching: not ported yet")
+                   help="(hop) batch via the FactorGraph COO disjoint union "
+                        "instead of dense (B, N, K) tables")
     p.add_argument("--mixed-lengths", "--mixed_lengths", type=str, default="",
-                   help="(hop --coo) chain lengths: not ported yet")
+                   help="(hop --coo) comma list of chain lengths; every "
+                        "batch holds batch-size groups with one chain per "
+                        "length, flat-batched with zero padding")
     p.add_argument("--length-dist", "--length_dist", type=str, default="",
-                   help="(hop --coo) length distribution: not ported yet")
+                   help="(hop --coo, with --mixed-lengths) comma list of "
+                        "probabilities, one per length: chains draw their "
+                        "length from this distribution and batches are "
+                        "BUCKETED per length (one compile per bucket, "
+                        "zero padding)")
     return p.parse_args(argv)
 
 

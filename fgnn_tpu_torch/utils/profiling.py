@@ -3,6 +3,8 @@
     python -m fgnn_tpu_torch.utils.profiling [--batch-size 256] [--steps 10]
     python -m fgnn_tpu_torch.utils.profiling --train [--batch-size 256]
     python -m fgnn_tpu_torch.utils.profiling --syn hop [--batch-size 32]
+    python -m fgnn_tpu_torch.utils.profiling --syn hop --coo \
+        [--mixed-lengths 24,30,36]
     python -m fgnn_tpu_torch.utils.profiling --train --bf16
     python -m fgnn_tpu_torch.utils.profiling --train --bp-features
 
@@ -34,7 +36,9 @@ JSON object:
 (``models/policy.py``), as the trainers' flag.  ``--bp-features`` runs the
 LDPC forward or step with the sum-product features (the 50-loop batched
 decode on the card, ``ops/bp.py``, inside each one), as ``train.ldpc``'s
-flag.
+flag.  ``--coo`` (with ``--syn hop``) profiles the step of the COO model
+over a flat disjoint union, ``--mixed-lengths`` its composite batches, as
+the trainer's flags.
 
 Needs a CUDA device; it does not run on the CPU.
 """
@@ -247,10 +251,12 @@ def profile_train(batch_size: int = 256, steps: int = 10, seed: int = 0,
 
 
 def profile_syn(workload: str = "hop", batch_size: int = 32,
-                steps: int = 10, seed: int = 0, top: int = 12) -> dict:
+                steps: int = 10, seed: int = 0, top: int = 12,
+                coo: bool = False, mixed_lengths: str = "") -> dict:
     """One train step of ``train.synthetic.train_step`` (the JAX trainer's
-    defaults: chain 30, hop order 9, the reference dims) on a batch staged
-    on the card, under the caller's compute policy, TF32 off."""
+    defaults: chain 30, hop order 9, the reference dims; with ``coo`` the
+    trainer's ``--coo [--mixed-lengths]``) on a batch staged on the card,
+    under the caller's compute policy, TF32 off."""
     from ..data import batches
     from ..models import init_weights
     from ..train.common import make_optimizer
@@ -258,7 +264,10 @@ def profile_syn(workload: str = "hop", batch_size: int = 32,
         train_step
 
     dev = _device()
-    wl = SynWorkload(workload, parse_args(["--seed", str(seed)], workload))
+    flags = ["--seed", str(seed), "--batch-size", str(batch_size)]
+    if coo:
+        flags += ["--coo", "--mixed-lengths", mixed_lengths]
+    wl = SynWorkload(workload, parse_args(flags, workload))
     init_weights(wl.model, seed)
     wl.to(dev)
     opt = make_optimizer(wl.model.parameters(), BASE_LR, weight_decay=0.0)
@@ -274,8 +283,9 @@ def profile_syn(workload: str = "hop", batch_size: int = 32,
 
     wall_ms = _host_ms(step, steps)
     return {
-        "device": torch.cuda.get_device_name(0), "workload": workload,
-        "batch_size": batch_size, "steps": steps,
+        "device": torch.cuda.get_device_name(0), "workload": wl.workload,
+        "mixed_lengths": mixed_lengths, "batch_size": batch_size,
+        "steps": steps,
         "batch_build_ms": batch_build_ms, "inputs_ms": inputs_ms,
         "wall_ms": wall_ms,
         **_trace(step, steps, wall_ms, "step", top),
@@ -294,6 +304,12 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bf16", action="store_true",
                    help="the bf16 compute policy, as the trainers' flag")
+    p.add_argument("--coo", action="store_true",
+                   help="(--syn hop) the COO model over a flat disjoint "
+                        "union, as the trainer's flag")
+    p.add_argument("--mixed-lengths", type=str, default="",
+                   help="(--syn hop --coo) comma list of chain lengths, "
+                        "as the trainer's flag")
     p.add_argument("--bp-features", action="store_true",
                    help="(LDPC) the sum-product features, as train.ldpc's "
                         "flag")
@@ -303,7 +319,8 @@ def main(argv=None):
     with bf16_policy(args.bf16):
         if args.syn:
             out = profile_syn(args.syn, args.batch_size or 32, args.steps,
-                              args.seed)
+                              args.seed, coo=args.coo,
+                              mixed_lengths=args.mixed_lengths)
         else:
             fn = profile_train if args.train else profile_decode
             out = fn(args.batch_size or 256, args.steps, args.seed,

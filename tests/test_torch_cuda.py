@@ -938,3 +938,89 @@ def test_bf16_ext_design_refuses_what_it_does_not_take(cuda):
                 table.idx.data_ptr(), table.ext_ptr.data_ptr(),
                 table.ext_edge.data_ptr(), et.data_ptr(), dh.data_ptr(),
                 de.data_ptr(), B, N, K, T, C, agg, part.data_ptr(), cs, 1)
+
+
+# --------------------------------------------------------------------------
+# the COO IR (ops/segment.py): PyTorch ops, deterministic by construction
+
+
+def _coo_case(dev, extension, masked, seed=0):
+    """A ragged graph over 40 nodes (in-degrees 0 to 9, node 3 receives
+    none; with ``masked`` node 7 only masked edges) and its inputs."""
+    from fgnn_tpu_torch.ops.segment import CooGraph
+
+    g = torch.Generator().manual_seed(seed)
+    n, e, t, cin, nout = 40, 200, 16, 24, 32
+    dst = torch.randint(0, n, (e,), generator=g)
+    dst[dst == 3] = 4
+    src = torch.randint(0, n, (e,), generator=g)
+    mask = torch.rand(e, generator=g) > 0.2
+    if masked:
+        mask[dst == 7] = False
+    graph = CooGraph(src, dst, mask if masked else None, num_nodes=n)
+    cin_eff = cin if extension == "none" else 2 * cin
+    inputs = [torch.randn(n, cin, generator=g),
+              torch.randn(e, t, generator=g),
+              torch.randn(cin_eff, nout * t, generator=g) * 0.2,
+              torch.randn(nout, generator=g)]
+    return graph.to(dev), [a.to(dev).requires_grad_() for a in inputs], nout
+
+
+def _coo_run(graph, inputs, nout, extension, agg):
+    from fgnn_tpu_torch.ops.segment import typed_mp_conv_coo
+
+    x, et, w, b = inputs
+    out = typed_mp_conv_coo(x, graph, et, w, nout, aggregator=agg, bias=b,
+                            extension=extension)
+    g = torch.Generator().manual_seed(9)
+    cot = torch.randn(out.shape, generator=g).to(out.device)
+    # the all-masked softmax rows sit at -1e30: their cotangent is 0
+    grads = torch.autograd.grad(out, inputs, cot)
+    return [out.detach()] + [gr.detach() for gr in grads]
+
+
+@pytest.mark.parametrize("extension", ["none", "diff", "neighbor"])
+@pytest.mark.parametrize("agg", ["max", "sum", "mean", "softmax"])
+def test_coo_conv_on_the_card_matches_the_cpu(cuda, extension, agg):
+    """Forward and gradients of the COO conv on the card against the same
+    op on the CPU: 1e-5 of the largest reference value; no typed-mp
+    kernel runs."""
+    cpu = _coo_case("cpu", extension, True)
+    card = _coo_case(cuda, extension, True)
+    fused_mp.reset_counts()
+    got = _coo_run(*card, extension, agg)
+    ref = _coo_run(*cpu, extension, agg)
+    assert all(c["kernel_launches"] == c["plain_calls"] == 0 for c in (
+        fused_mp.COUNTS, fused_mp.EXT_COUNTS, fused_mp.BWD_COUNTS,
+        fused_mp.EXT_BWD_COUNTS))
+    for name, a, r in zip(("out", "dx", "d_etype", "d_filters", "d_bias"),
+                          got, ref):
+        a = a.cpu()
+        if name == "out" and agg == "softmax":
+            keep = r > -1e29
+            a, r = a[keep], r[keep]
+        scale = r.abs().max().item()
+        assert (a - r).abs().max().item() <= 1e-5 * scale, name
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("agg", ["max", "sum", "mean", "softmax"])
+def test_coo_conv_launches_give_the_same_bits(cuda, masked, agg):
+    """Two runs of the COO conv (DIFF) and of the per-sample InstanceNorm
+    on the card give the same bits, forward and backward."""
+    from fgnn_tpu_torch.models.norm import instance_norm
+    from fgnn_tpu_torch.ops.segment import segment_bins
+
+    graph, inputs, nout = _coo_case(cuda, "diff", masked, seed=4)
+    first = _coo_run(graph, inputs, nout, "diff", agg)
+    second = _coo_run(graph, inputs, nout, "diff", agg)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    seg = segment_bins(torch.arange(40) % 5 - 1, 4).to(cuda)
+    x = torch.randn(40, 64, device=cuda, requires_grad=True)
+    runs = []
+    for _ in range(2):
+        y = instance_norm(x, seg=seg)
+        runs.append((y, torch.autograd.grad(y, x, torch.ones_like(y))[0]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])

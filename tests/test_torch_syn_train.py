@@ -391,10 +391,7 @@ def test_cli_without_device_needs_cuda(tmp_path):
                            "--workers", "0", "--work-dir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--mesh", "8x1"], "item 6"), (["--coo"], "item 5"),
-    (["--mixed-lengths", "24,30"], "item 5"),
-    (["--length-dist", "0.5,0.5"], "item 5")])
+@pytest.mark.parametrize("flag,item", [(["--mesh", "8x1"], "item 6")])
 def test_unported_flags_raise(tmp_path, flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, port queue "
                                                   f"{item}"):
@@ -429,5 +426,6 @@ def test_syn_modules_import_no_jax():
     assert out.stdout.strip().endswith(" []")
     for mod in ("data.rpgm", "data.rpgm_oracle", "data.tables",
                 "models.containers", "models.factor_mpnn",
-                "models.synthetic", "train.synthetic"):
+                "models.synthetic", "train.synthetic", "graph",
+                "ops.segment"):
         assert f"fgnn_tpu_torch.{mod}" in out.stdout, mod
