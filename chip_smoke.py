@@ -112,11 +112,28 @@ Phases, one JSON line each:
                    hop models on one state dict: logits within
                    COO_LOGITS_TOL of the largest (train and eval mode),
                    losses within LOSS_RTOL; two COO steps bit-equal (loss,
-                   every gradient, the running statistics); the card's COO
-                   step against the port's CPU COO step (loss LOSS_RTOL,
-                   each gradient GRAD_REL_L2 relative L2); the COO and
+                   every gradient, the running statistics); the COO and
                    dense steps timed in turns (dense, COO, COO, dense),
-                   kernels and device busy per step
+                   kernels and device busy per step; then at each seed
+                   pair of SYN_VS_CPU_SEEDS the card's COO step against
+                   the port's CPU COO step and f64 as syn_train_vs_cpu
+                   holds the dense step (a ``syn_coo_vs_cpu`` line each;
+                   a COO max's decision is its set of edges at the max,
+                   among which amax splits the gradient), the readings
+                   by seed and the worst
+  jax_checkpoint   the JAX package's checkpoints: the committed fixture
+                   (``fgnn_tpu_torch/testdata/``, LDPC and a hop model in
+                   both optimizer layouts, written by the JAX trainers)
+                   read through ``read_checkpoint`` on the card, eval
+                   logits within JAX_LOGITS_TOL of JAX's and one step of
+                   the restored Adam within JAX_STEP_TOL of optax's; then
+                   the reference-width decoder after JAX_WARM_STEPS card
+                   steps written as a JAX payload in each layout
+                   (``jax_payload``, the leaf map inverted) and restored
+                   through ``restore_jax_payload`` into a fresh model and
+                   Adam: ``evaluate`` over the decode grid gives the same
+                   BER matrix, logits and one more step bit-equal, through
+                   the typed-mp kernels and no plain version
   kernel_check_bf16     the bf16 mode of the NO_EXTENSION forward (the
                    sample route and the kept kernel, slab=0) and of the
                    staged backward (packed products and the kept scalar
@@ -327,6 +344,27 @@ COO_BF16_STEPS = 5
 # 1e-4 of the largest logit, as the CPU tests hold the JAX pair
 COO_LOGITS_TOL = 1e-4
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# The JAX package's checkpoints (jax_checkpoint): the committed fixture,
+# written by tests/test_torch_jax_ckpt.py's write_fixture from the JAX
+# trainers at these widths (one layer; the fixed 64-wide bottlenecks and
+# 128-wide regressor keep a checkpoint near 0.8 MB): LDPC, and a hop model
+# with the synthetic trainers' clip chain, each after 2 steps with the
+# optimizer in each layout, with each one's eval batch, logits, a gradient
+# tree and the params after one optax step on it.  The card's logits against JAX's to
+# JAX_LOGITS_TOL (f32 in other orders, as the CPU tests hold the models);
+# the restored Adam's step against optax's to JAX_STEP_TOL (one update of
+# at most lr per element, as tests/test_torch_train.py holds the optimizer).
+JAX_FIXTURE_DIR = os.path.join("fgnn_tpu_torch", "testdata")
+JAX_FIXTURE = "jax_fixture.npz"
+JAX_FIXTURE_LDPC = {"dim_mapping_list": (8, 8), "skip_link": {}}
+JAX_FIXTURE_HOP = {"chain_length": 12, "hop_order": 5, "dims": (8, 2)}
+JAX_LOGITS_TOL = 1e-4
+JAX_STEP_TOL = 1e-6
+# the full-width round trip: this many card train steps from a seeded
+# reference-width decoder before its payload is written
+JAX_WARM_STEPS = 10
+# every leaf name of a flax tree the port's models carry
+FLAX_LEAVES = ("kernel", "bias", "scale", "mean", "var", "filters")
 
 # The bf16 compute policy (--bf16).  Every conv whose x is bf16 runs the
 # kernels' bf16 mode.  Of the 16 type-0 convs of an LDPC forward, 15 get a
@@ -1407,19 +1445,26 @@ def phase_syn_train(torch, fused_mp, dev, tmp):
 
 @contextlib.contextmanager
 def _branches(torch, fused_mp, record=None, kinks=None, replay=None):
-    """Within the block, every ReLU and leaky ReLU of the port's models and
-    every max conv's first-win argmax is a decision, taken in call order.
-    With ``record`` each call appends (kind, decision) to it: the mask of
-    positive inputs, or the argmax.  With ``kinks`` it also appends each
-    element's distance from its kink over the largest magnitude of the
-    call's input: |x| for a (leaky) ReLU, and for the argmax the gap from
-    the top message to each message (B, Nd, K, C).  With ``replay``, a list
-    of (where, decision) per call, each call takes the replayed decision
-    where ``where`` holds and its own elsewhere."""
+    """Within the block, every ReLU and leaky ReLU of the port's models,
+    every max conv's first-win argmax and every COO max's set of maxima is
+    a decision, taken in call order.  With ``record`` each call appends
+    (kind, decision) to it: the mask of positive inputs, the argmax, or
+    the mask of a COO segment's edges at its max (``amax``, whose gradient
+    splits among them).  With ``kinks`` it also appends each element's
+    distance from its kink over the largest magnitude of the call's input:
+    |x| for a (leaky) ReLU, and for the argmax and the COO max the gap from
+    the top message to each message (B, Nd, K, C), or (n, W, C) over the
+    segments' padded edge tables.  With ``replay``, a list of (where,
+    decision) per call, each call takes the replayed decision where
+    ``where`` holds and its own elsewhere: a COO max then averages the
+    edges of its set, which routes the gradient as amax does."""
     import torch.nn.functional as F
+
+    from fgnn_tpu_torch.ops import segment
 
     relu, leaky = torch.relu, F.leaky_relu
     wrapped = fused_mp.typed_gather_mix_agg
+    seg_max = segment.segment_max
 
     def scaled(d, x):
         return (d / x.abs().max().clamp_min(1e-300)).cpu()
@@ -1471,13 +1516,37 @@ def _branches(torch, fused_mp, record=None, kinks=None, replay=None):
         out = msgs.gather(2, am[:, :, None].long()).squeeze(2)
         return out.to(h.dtype), am
 
+    def coo_max(data, seg):
+        with torch.no_grad():
+            padded = segment._padded(data.reshape(data.shape[0], -1), seg,
+                                     float("-inf"))
+            top = padded.amax(dim=1, keepdim=True)
+            at_top = padded == top
+        if replay is None:
+            out = seg_max(data, seg)
+
+            def gaps():
+                finite = torch.where(torch.isfinite(padded), padded,
+                                     torch.zeros_like(padded))
+                return scaled(top - padded, finite)
+
+            decide("amax", at_top, gaps)
+            return out
+        taken = decide("amax", at_top, None).view(seg.n, seg.width,
+                                                  *data.shape[1:])
+        rows = segment._Pad.apply(data, seg, float("-inf"))
+        return (torch.where(taken, rows, torch.zeros_like(rows)).sum(dim=1)
+                / taken.sum(dim=1).clamp_min(1))
+
     torch.relu, F.leaky_relu = relu_, leaky_
     fused_mp.typed_gather_mix_agg = routed
+    segment.segment_max = coo_max
     try:
         yield
     finally:
         torch.relu, F.leaky_relu = relu, leaky
         fused_mp.typed_gather_mix_agg = wrapped
+        segment.segment_max = seg_max
 
 
 def _flips(torch, side, base, kinks=None):
@@ -1520,7 +1589,11 @@ def phase_syn_train_vs_cpu(torch, dev):
          tol_rel_l2=GRAD_REL_L2, kink_tol=KINK_TOL)
 
 
-def _syn_train_vs_cpu(torch, dev, data_seed, init_seed):
+def _syn_train_vs_cpu(torch, dev, data_seed, init_seed, coo=False):
+    """One hop step from the weights SYN_WARM_STEPS dense card steps leave,
+    on the card, on the CPU and in f64 (with ``coo``, through the COO
+    model at uniform length, ``--coo``): the readings of
+    ``syn_train_vs_cpu`` (``syn_coo_vs_cpu``) at one seed pair."""
     from fgnn_tpu_torch.data import batches
     from fgnn_tpu_torch.models import init_weights
     from fgnn_tpu_torch.train.common import make_optimizer
@@ -1528,8 +1601,12 @@ def _syn_train_vs_cpu(torch, dev, data_seed, init_seed):
     from fgnn_tpu_torch.train.synthetic import BASE_LR, SynWorkload, \
         parse_args, train_step
 
-    args = parse_args(["--seed", str(data_seed)], "hop")
-    wl = SynWorkload("hop", args)
+    dense = parse_args(["--seed", str(data_seed),
+                        "--batch-size", str(SYN_BATCH)], "hop")
+    args = parse_args(["--coo", "--seed", str(data_seed),
+                       "--batch-size", str(SYN_BATCH)], "hop") \
+        if coo else dense
+    wl = SynWorkload("hop", dense)
     init_weights(wl.model, init_seed)
     wl.to(dev)
     data = batches(wl.dataset, SYN_BATCH, SYN_WARM_STEPS + 1)
@@ -1544,8 +1621,15 @@ def _syn_train_vs_cpu(torch, dev, data_seed, init_seed):
         wl.model.load_state_dict(start)
         wl.to(where)
         wl.model.to(dtype)
-        wl.static = {k: v.to(dtype) if k.startswith("ef") else v
-                     for k, v in wl.static.items()}
+
+        def cast(tables):
+            return {k: v.to(dtype) if k.startswith("ef") else v
+                    for k, v in tables.items()}
+
+        if wl.buckets is None:
+            wl.static = cast(wl.static)
+        else:
+            wl.buckets = {n: cast(t) for n, t in wl.buckets.items()}
         staged = {k: v.to(dtype) if v.is_floating_point() else v
                   for k, v in wl.stage(batch, where).items()}
         opt = make_optimizer(wl.model.parameters(), BASE_LR,
@@ -1597,7 +1681,8 @@ def _syn_train_vs_cpu(torch, dev, data_seed, init_seed):
     free = {side: max(_grad_errors(torch, g, runs["f64"][1])[0].values())
             for side, g in (("card", gg), ("cpu", cg))}
     worst = sorted(card, key=card.get, reverse=True)[:5]
-    emit("syn_train_vs_cpu", seeds=[data_seed, init_seed],
+    emit("syn_coo_vs_cpu" if coo else "syn_train_vs_cpu",
+         seeds=[data_seed, init_seed],
          warm_steps=SYN_WARM_STEPS, loss=gm["loss"],
          loss_cpu=cm["loss"], acc=gm["acc"], acc_cpu=cm["acc"],
          lp_acc=gm["lp_acc"], tensors_rel_l2=len(card),
@@ -1825,8 +1910,10 @@ def phase_syn_coo_vs_dense(torch, fused_mp, dev):
     """At uniform length 30 (``--coo`` alone), B=32, reference width, from
     the weights SYN_WARM_STEPS dense card steps leave: the COO and the
     dense hop models on one state dict give the same logits (train and
-    eval mode) and losses; two COO steps give the same bits; the card's
-    COO step against the port's CPU COO step; step times in turns."""
+    eval mode) and losses; two COO steps give the same bits; step times in
+    turns (all at the first seed pair); the card's COO step against the
+    port's CPU COO step and f64, with the decisions at their kinks
+    replayed, at every seed pair of SYN_VS_CPU_SEEDS."""
     from fgnn_tpu_torch.data import batches
     from fgnn_tpu_torch.models import init_weights
     from fgnn_tpu_torch.train.common import make_optimizer
@@ -1889,14 +1976,11 @@ def phase_syn_coo_vs_dense(torch, fused_mp, dev):
     dense_loss = step(False, dev)[0]
     require(abs(first[0] - dense_loss) <= LOSS_RTOL * abs(dense_loss),
             f"COO loss {first[0]} against dense {dense_loss}")
-    cpu = step(True, "cpu")
-    require(abs(first[0] - cpu[0]) <= LOSS_RTOL * abs(cpu[0]),
-            f"COO loss: card {first[0]} against CPU {cpu[0]}")
-    rel, noise, floor, bad = _grad_errors(torch, first[1], cpu[1])
-    bad += ([f"{n}: relative L2 error {v}" for n, v in rel.items()
-             if v > GRAD_REL_L2]
-            + [f"{n}: max abs err {v} > {floor}" for n, v in noise.items()
-               if v > floor])
+    # the card's COO step against the CPU's and f64 at every seed pair,
+    # each f32 run held to an f64 run that flips its decisions at their
+    # kinks (a syn_coo_vs_cpu line each; a failed reading raises there)
+    readings = [_syn_train_vs_cpu(torch, dev, d, i, coo=True)
+                for d, i in SYN_VS_CPU_SEEDS]
 
     # the two steps timed in turns (dense, COO, COO, dense)
     d, c = make(False, dev), make(True, dev)
@@ -1909,21 +1993,20 @@ def phase_syn_coo_vs_dense(torch, fused_mp, dev):
              for name in ("dense", "coo", "coo", "dense")]
     ms = {name: sum(t for n, t in turns if n == name) / 2 for name in steps}
     traced = {name: kernels_per_call(fn, 3) for name, fn in steps.items()}
-    worst = sorted(rel, key=rel.get, reverse=True)[:5]
+    by_seed = {key: [r[i] for r in readings] for i, key in enumerate(
+        ("card_vs_f64", "cpu_vs_f64", "card_vs_cpu"))}
     emit("syn_coo_vs_dense", seeds=[data_seed, init_seed],
          warm_steps=SYN_WARM_STEPS, batch_size=SYN_BATCH,
          logits_rel_err=logits_err, logits_tol=COO_LOGITS_TOL,
-         loss_coo=first[0], loss_dense=dense_loss, loss_cpu=cpu[0],
-         same_bits=same, card_vs_cpu_rel_l2_worst=max(rel.values()),
-         worst_tensors={n: rel[n] for n in worst},
-         tensors_rel_l2=len(rel), tensors_at_noise_floor=len(noise),
-         noise_floor=floor, tol_rel_l2=GRAD_REL_L2,
+         loss_coo=first[0], loss_dense=dense_loss, same_bits=same,
+         vs_cpu_seeds=[list(p) for p in SYN_VS_CPU_SEEDS],
+         **{f"{k}_rel_l2_worst_by_seed": v for k, v in by_seed.items()},
+         **{f"{k}_rel_l2_worst": max(v) for k, v in by_seed.items()},
+         flipped_by_seed=[r[3] for r in readings],
+         tol_rel_l2=GRAD_REL_L2, kink_tol=KINK_TOL,
          turns_ms=turns, coo_step_ms=ms["coo"], dense_step_ms=ms["dense"],
          kernels_per_step={n: k for n, (k, _) in traced.items()},
-         device_busy_ms_per_step={n: b for n, (_, b) in traced.items()},
-         failed=bad)
-    require(not bad, "the card's COO gradients within GRAD_REL_L2 of the "
-                     "CPU's")
+         device_busy_ms_per_step={n: b for n, (_, b) in traced.items()})
     return ms
 
 
@@ -1935,6 +2018,273 @@ def phase_syn_fixed(torch, fused_mp, dev, tmp):
     emit("syn_fixed", batch_size=SYN_BATCH, model_name=args.model_name,
          **res)
     return res
+
+
+# --------------------------------------------------------------------------
+# the JAX package's checkpoints (ROADMAP item 7)
+
+
+def _fixture_tree(stored, prefix):
+    """The (flax path, array) pairs stored under ``prefix/``."""
+    return [(tuple(k[len(prefix) + 1:].split("/")), v)
+            for k, v in stored.items() if k.startswith(prefix + "/")]
+
+
+def check_jax_fixture(torch, dev):
+    """The committed JAX checkpoints on ``dev``: each read through
+    ``read_checkpoint`` into a fresh model and Adam, its eval logits
+    against the JAX package's, then one step of the restored Adam on the
+    stored gradients (the hop model's clipped as the trainer clips them)
+    against optax's step.  Returns the readings by checkpoint."""
+    import numpy as np
+
+    from fgnn_tpu_torch.models import LDPCModel
+    from fgnn_tpu_torch.models.from_jax import flax_tensors
+    from fgnn_tpu_torch.train import synthetic
+    from fgnn_tpu_torch.train.common import (
+        clip_grad_norm,
+        make_optimizer,
+        read_checkpoint,
+        set_lr,
+    )
+    from fgnn_tpu_torch.train.jax_checkpoint import restore_jax_payload
+    from fgnn_tpu_torch.train.ldpc import decode_logits
+
+    root = os.path.join(ROOT, JAX_FIXTURE_DIR)
+    with np.load(os.path.join(root, JAX_FIXTURE)) as f:
+        stored = dict(f)
+    readings = {}
+    for name in ("ldpc_tree", "ldpc_flat", "hop_tree", "hop_flat"):
+        kind = name.split("_")[0]
+        batch = {p[0]: v for p, v in _fixture_tree(stored, f"{kind}/batch")}
+        if kind == "ldpc":
+            model = LDPCModel(**JAX_FIXTURE_LDPC).to(dev)
+        else:
+            hop = JAX_FIXTURE_HOP
+            args = synthetic.parse_args(
+                ["--chain-length", str(hop["chain_length"]), "--hop-order",
+                 str(hop["hop_order"]), "--batch-size",
+                 str(len(batch["label"]))], "hop")
+            args.dims = hop["dims"]
+            wl = synthetic.SynWorkload("hop", args).to(dev)
+            model = wl.model
+        opt = make_optimizer(model.parameters(), 1.0, weight_decay=(
+            1e-8 if kind == "ldpc" else 0.0))
+        payload = read_checkpoint(os.path.join(root, f"{name}.pkl"))
+        epoch, gcnt = restore_jax_payload(payload, model, opt)
+        model.eval()
+        with torch.no_grad():
+            logits = (decode_logits(model, batch, dev) if kind == "ldpc"
+                      else wl.logits(wl.stage(batch, dev)))
+        want = torch.from_numpy(stored[f"{name}/logits"])
+        require(tuple(logits.shape) == tuple(want.shape),
+                f"{name}: logits {tuple(logits.shape)}")
+        logits_err = (logits.cpu() - want).abs().max().item()
+
+        set_lr(opt, float(stored["step_lr"]))
+        params = dict(model.named_parameters())
+        for n, g in flax_tensors(model, "params", _fixture_tree(
+                stored, f"{kind}/grad")).items():
+            params[n].grad = g.to(dev)
+        if kind == "hop":
+            clip_grad_norm(model.parameters(), 1.0)
+        opt.step()
+        after = flax_tensors(model, "params",
+                             _fixture_tree(stored, f"{name}/after"))
+        require(sorted(after) == sorted(params), f"{name}: every parameter")
+        step_err = max((params[n].detach().cpu() - v).abs().max().item()
+                       for n, v in after.items())
+        readings[name] = dict(layout=payload["opt_layout"], epoch=epoch,
+                              gcnt=gcnt, logits_max_abs_err=logits_err,
+                              step_max_abs_err=step_err)
+        require(logits_err <= JAX_LOGITS_TOL,
+                f"{name}: logits {logits_err} from JAX's > {JAX_LOGITS_TOL}")
+        require(step_err <= JAX_STEP_TOL,
+                f"{name}: Adam step {step_err} from optax's > "
+                f"{JAX_STEP_TOL}")
+    return readings
+
+
+def _ravel(tree):
+    """A flax tree's leaves in ``optax.flatten``'s order (the keys sorted
+    at every level), as one vector."""
+    import numpy as np
+
+    parts = []
+    for key in sorted(tree):
+        val = tree[key]
+        parts.append(_ravel(val) if isinstance(val, dict)
+                     else np.asarray(val).reshape(-1))
+    return np.concatenate(parts)
+
+
+def jax_payload(torch, model, optimizer, layout, epoch, gcnt):
+    """The JAX trainer's checkpoint payload of a port model and its torch
+    Adam, in ``layout``: each port tensor back at the flax path that
+    ``flax_leaf`` maps to it (found among FLAX_LEAVES), transposed back
+    where the map transposes, and the Adam moments in the parameters'
+    tree, or raveled into one vector each (``"flat"``)."""
+    import numpy as np
+
+    from fgnn_tpu_torch.models.from_jax import flax_leaf
+    from fgnn_tpu_torch.train import jax_checkpoint as jck
+
+    state = model.state_dict()
+    paths = {}
+    for key in state:
+        mod_path = key.rsplit(".", 1)[0] if "." in key else ""
+        prefix = tuple(mod_path.split(".")) if mod_path else ()
+        for collection in ("params", "batch_stats"):
+            for leaf in FLAX_LEAVES:
+                try:
+                    hit = flax_leaf(model, collection, prefix + (leaf,),
+                                    state)
+                except KeyError:
+                    continue
+                if hit[0] == key:
+                    paths[key] = (collection, prefix + (leaf,), hit[1])
+        require(key in paths, f"{key}: a flax leaf maps to it")
+
+    def put(tree, path, tensor, transpose):
+        arr = tensor.detach().cpu().numpy()
+        for p in path[:-1]:
+            tree = tree.setdefault(p, {})
+        tree[path[-1]] = np.ascontiguousarray(arr.T if transpose else arr)
+
+    trees = {"params": {}, "batch_stats": {}}
+    for key, (collection, path, tr) in paths.items():
+        put(trees[collection], path, state[key], tr)
+    names = dict(model.named_parameters())
+    moments = {"exp_avg": {}, "exp_avg_sq": {}}
+    steps = set()
+    for key, (collection, path, tr) in paths.items():
+        if collection == "params":
+            # a parameter whose gradient was always None (no path to the
+            # loss) has no torch state; optax's moments of it are zeros
+            p = names[key]
+            st = optimizer.state.get(p) or {}
+            if st:
+                steps.add(float(st["step"]))
+            for m in moments:
+                put(moments[m], path, st.get(m, torch.zeros_like(p)), tr)
+    require(len(steps) == 1, f"one Adam step count ({steps})")
+    count = np.asarray(int(steps.pop()), np.int32)
+    mu, nu = moments["exp_avg"], moments["exp_avg_sq"]
+    if layout == "flat":
+        mu, nu = _ravel(mu), _ravel(nu)
+    adam = jck.ScaleByAdamState(count, mu, nu)
+    hyper = {k: np.asarray(v, np.float32) for k, v in (
+        ("b1", 0.9), ("b2", 0.999), ("eps", 1e-8), ("eps_root", 0.0),
+        ("learning_rate", optimizer.param_groups[0]["lr"]))}
+    opt_state = (jck.EmptyState(), jck.InjectStatefulHyperparamsState(
+        count, hyper, {}, (adam, jck.EmptyState())))
+    return {"format_version": jck.JAX_FORMAT_VERSION, "opt_layout": layout,
+            **trees, "opt_state": opt_state, "gcnt": gcnt, "epoch": epoch,
+            "extra": {}}
+
+
+def phase_jax_checkpoint(torch, fused_mp, dev, grid):
+    """(a) the committed JAX checkpoints on the card (``check_jax_fixture``);
+    (b) the reference-width LDPC decoder after JAX_WARM_STEPS card steps,
+    written as a JAX payload in each layout and restored through
+    ``restore_jax_payload`` into a fresh model and Adam on the card:
+    ``evaluate`` over the decode grid gives the source's BER matrix, the
+    logits of a batch are bit-equal, and one more train step from each
+    gives the same loss, parameters and Adam state to the bit, through the
+    typed-mp kernels and no plain version."""
+    from fgnn_tpu_torch.data import Codes, ContinuousCodesSP
+    from fgnn_tpu_torch.models import LDPCModel, init_weights
+    from fgnn_tpu_torch.train.common import make_optimizer
+    from fgnn_tpu_torch.train.jax_checkpoint import restore_jax_payload
+    from fgnn_tpu_torch.train.ldpc import (
+        BASE_LR,
+        decode_logits,
+        evaluate,
+        parse_args,
+        stage_batch,
+        train_step,
+    )
+
+    fused_mp.reset_counts()
+    fixture = check_jax_fixture(torch, dev)
+    fixture_launches = _fused_total(fused_mp)
+
+    model = init_weights(LDPCModel(), seed=3).to(dev)
+    opt = make_optimizer(model.parameters(), BASE_LR)
+    for b in ContinuousCodesSP(length=JAX_WARM_STEPS * BATCH,
+                               seed=41).batches(BATCH):
+        train_step(model, opt, b, dev)
+    n_params = len(list(model.parameters()))
+    elements = sum(p.numel() for p in model.parameters())
+    args = parse_args(["--test-path", grid, "--batch-size", str(BATCH)])
+    n_batches = len(Codes(grid)) // BATCH
+    first = next(Codes(grid).batches(BATCH))
+    step_batch = stage_batch(model, next(ContinuousCodesSP(
+        length=BATCH, seed=42).batches(BATCH)), dev)
+    _, _, ber_src, err_src = _count_decode(
+        torch, fused_mp, evaluate, args, model.eval(), dev, n_batches)
+
+    layouts, launched = {}, {"fwd": 0, "bwd": 0, "plain": 0}
+    for layout in ("tree", "flat"):
+        t0 = time.perf_counter()
+        payload = jax_payload(torch, model, opt, layout, 7, 70)
+        write_s = time.perf_counter() - t0
+        fresh = LDPCModel().to(dev)
+        fresh_opt = make_optimizer(fresh.parameters(), BASE_LR)
+        t0 = time.perf_counter()
+        require(restore_jax_payload(payload, fresh, fresh_opt) == (7, 70),
+                f"{layout}: epoch and gcnt")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same_state = all(torch.equal(v, fresh.state_dict()[k])
+                         for k, v in model.state_dict().items())
+        _, _, ber, err = _count_decode(torch, fused_mp, evaluate, args,
+                                       fresh.eval(), dev, n_batches)
+        same_logits = torch.equal(decode_logits(model.eval(), first, dev),
+                                  decode_logits(fresh, first, dev))
+        # one more step from each: the source's copy and the restored
+        src = copy.deepcopy(model)
+        src_opt = make_optimizer(src.parameters(), BASE_LR)
+        src_opt.load_state_dict(opt.state_dict())
+        m_src = train_step(src, src_opt, step_batch, dev)
+        m_new = train_step(fresh, fresh_opt, step_batch, dev)
+        same_step = (torch.equal(m_src["loss"], m_new["loss"])
+                     and all(torch.equal(v, fresh.state_dict()[k])
+                             for k, v in src.state_dict().items())
+                     and all(torch.equal(src_opt.state[p][k],
+                                         fresh_opt.state[q][k])
+                             for p, q in zip(src.parameters(),
+                                             fresh.parameters())
+                             for k in src_opt.state[p]))
+        # the counts since _count_decode reset them: the decode, the
+        # logits and the two steps
+        launched["fwd"] += fused_mp.COUNTS["kernel_launches"]
+        launched["bwd"] += fused_mp.BWD_COUNTS["kernel_launches"]
+        launched["plain"] += (fused_mp.COUNTS["plain_calls"]
+                              + fused_mp.BWD_COUNTS["plain_calls"])
+        layouts[layout] = dict(
+            payload_seconds=write_s, restore_seconds=restore_s,
+            state_bit_equal=same_state, ber_total=float(ber),
+            ber_matrix_equal=bool((err == err_src).all()),
+            logits_bit_equal=same_logits, step_loss=float(m_new["loss"]),
+            step_bit_equal=same_step)
+        require(same_state and layouts[layout]["ber_matrix_equal"]
+                and ber == ber_src and same_logits and same_step,
+                f"{layout}: the restored decoder is the source's "
+                f"({layouts[layout]})")
+    require(launched["fwd"] > 0 and launched["bwd"] > 0,
+            "the restored decoders ran the forward and backward kernels")
+    require(launched["plain"] == 0, "no plain version on the card")
+    emit("jax_checkpoint", fixture=fixture,
+         fixture_typed_mp_launches=fixture_launches,
+         logits_tol=JAX_LOGITS_TOL, step_tol=JAX_STEP_TOL,
+         full_width={"params": n_params, "elements": elements,
+                     "batch_size": BATCH, "warm_steps": JAX_WARM_STEPS,
+                     "eval_batches": n_batches, "ber_total": float(ber_src),
+                     "layouts": layouts},
+         fwd_launches=launched["fwd"], bwd_launches=launched["bwd"],
+         plain_calls=launched["plain"])
+    return launched
 
 
 # --------------------------------------------------------------------------
@@ -2874,6 +3224,7 @@ def main():
         fwd_train, bwd_train, train_ms = phase_train(torch, fused_mp, dev,
                                                      tmp)
         phase_train_vs_cpu(torch, dev)
+        phase_jax_checkpoint(torch, fused_mp, dev, grid)
         fwd_bpf, bwd_bpf, eval_bpf = phase_train_bp_features(
             torch, fused_mp, dev, tmp, grid, train_ms)
         phase_train_vs_cpu(torch, dev, bp_features=True)

@@ -18,6 +18,12 @@ from .synthetic import (
     SynPwFactorModel,
 )
 from .from_jax import load_flax_variables
+from .torch_import import (
+    import_factor_nn,
+    import_ldpc_model,
+    import_mlp,
+    load_reference_state_dict,
+)
 
 __all__ = [
     "BatchNorm", "Dense", "init_weights", "instance_norm", "leaky_relu",
@@ -26,4 +32,6 @@ __all__ = [
     "IIDBlock", "MPSequential", "ParallelNet", "MPEnsemble",
     "GlobalPooling", "FactorMPNN", "SynFixedModel",
     "SynPwFactorModel", "SynHopFactorModel", "SynHopFactorModelCoo",
+    "import_factor_nn", "import_mlp", "import_ldpc_model",
+    "load_reference_state_dict",
 ]

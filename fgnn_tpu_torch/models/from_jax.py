@@ -11,8 +11,11 @@ its parameters or buffers:
 
 The load is strict: a flax leaf that finds no port tensor, a shape that
 differs, or a port parameter or buffer left unfilled raises ``KeyError`` or
-``ValueError``.  The tree is nested mappings of numpy arrays (or anything
-``np.asarray`` takes); nothing of JAX is imported.
+``ValueError``.  ``flax_leaf`` is the map of one leaf and
+``flax_tensors`` that of a tree, which the import of a JAX checkpoint's
+Adam moments (``train/jax_checkpoint.py``) shares.
+The tree is nested mappings of numpy arrays (or anything ``np.asarray``
+takes); nothing of JAX is imported.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from torch import nn
 from .mp_conv import MPConv
 from .norm import BatchNorm, Dense
 
+_COLLECTIONS = ("params", "batch_stats")
 _LEAF_NAMES = {
     ("params", Dense): {"kernel": "weight", "bias": "bias"},
     ("params", BatchNorm): {"scale": "weight", "bias": "bias"},
@@ -34,12 +38,64 @@ _LEAF_NAMES = {
 }
 
 
-def _leaves(tree: Mapping, prefix=()):
+def flax_leaves(tree: Mapping, prefix=()):
+    """(path, value) of every leaf of a nested mapping, in its order."""
     for key, val in tree.items():
         if isinstance(val, Mapping):
-            yield from _leaves(val, prefix + (key,))
+            yield from flax_leaves(val, prefix + (key,))
         else:
             yield prefix + (key,), val
+
+
+def flax_leaf(module: nn.Module, collection: str, path,
+              state: Mapping = None):
+    """The port tensor of the flax leaf ``collection/path``: (its key in
+    ``module.state_dict()``, whether the flax array is its transpose).
+    Raises ``KeyError`` where the leaf has no counterpart."""
+    if state is None:
+        state = module.state_dict()
+    mod_path, leaf = ".".join(path[:-1]), path[-1]
+    name = f"{collection}/{'/'.join(path)}"
+    try:
+        sub = module.get_submodule(mod_path)
+    except AttributeError:
+        raise KeyError(f"flax leaf {name}: no port module "
+                       f"{mod_path!r}") from None
+    names = next((v for (c, cls), v in _LEAF_NAMES.items()
+                  if c == collection and isinstance(sub, cls)), {})
+    if leaf not in names:
+        raise KeyError(f"flax leaf {name} has no counterpart in "
+                       f"{type(sub).__name__}")
+    key = f"{mod_path}.{names[leaf]}" if mod_path else names[leaf]
+    if key not in state:
+        raise KeyError(f"flax leaf {name}: port tensor {key} does not "
+                       "exist")
+    return key, isinstance(sub, Dense) and leaf == "kernel"
+
+
+def flax_tensors(module: nn.Module, collection: str, tree,
+                 state: Mapping = None) -> dict:
+    """Every leaf of a flax tree of ``collection`` (a nested mapping, or
+    (path, value) pairs) as port key -> f32 CPU tensor in the port's
+    layout, each checked against the shape of its port tensor.  The Adam
+    moments of the parameters (``train/jax_checkpoint.py``) take the
+    parameters' map."""
+    if collection not in _COLLECTIONS:
+        raise KeyError(f"unexpected flax collection {collection!r}")
+    if state is None:
+        state = module.state_dict()
+    out = {}
+    for path, value in (flax_leaves(tree) if isinstance(tree, Mapping)
+                        else tree):
+        key, transpose = flax_leaf(module, collection, path, state)
+        arr = np.asarray(value, dtype=np.float32)
+        if transpose:
+            arr = arr.T
+        if tuple(arr.shape) != tuple(state[key].shape):
+            raise ValueError(f"{key}: flax shape {arr.shape}, port shape "
+                             f"{tuple(state[key].shape)}")
+        out[key] = torch.from_numpy(np.array(arr))
+    return out
 
 
 def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
@@ -47,32 +103,10 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
     state = module.state_dict()
     unfilled = set(state)
     for collection, tree in variables.items():
-        if collection not in ("params", "batch_stats"):
-            raise KeyError(f"unexpected flax collection {collection!r}")
-        for path, value in _leaves(tree):
-            mod_path, leaf = ".".join(path[:-1]), path[-1]
-            try:
-                sub = module.get_submodule(mod_path)
-            except AttributeError:
-                raise KeyError(f"flax leaf {collection}/{'/'.join(path)}: no "
-                               f"port module {mod_path!r}") from None
-            names = next((v for (c, cls), v in _LEAF_NAMES.items()
-                          if c == collection and isinstance(sub, cls)), {})
-            if leaf not in names:
-                raise KeyError(f"flax leaf {collection}/{'/'.join(path)} has "
-                               f"no counterpart in {type(sub).__name__}")
-            key = f"{mod_path}.{names[leaf]}" if mod_path else names[leaf]
-            if key not in state:
-                raise KeyError(f"flax leaf {collection}/{'/'.join(path)}: "
-                               f"port tensor {key} does not exist")
-            arr = np.asarray(value, dtype=np.float32)
-            if isinstance(sub, Dense) and leaf == "kernel":
-                arr = arr.T
-            if tuple(arr.shape) != tuple(state[key].shape):
-                raise ValueError(f"{key}: flax shape {arr.shape}, port shape "
-                                 f"{tuple(state[key].shape)}")
+        for key, value in flax_tensors(module, collection, tree,
+                                       state).items():
             with torch.no_grad():
-                state[key].copy_(torch.from_numpy(np.array(arr)))
+                state[key].copy_(value)
             unfilled.discard(key)
     if unfilled:
         raise KeyError(f"port tensors left unfilled by the flax tree: "

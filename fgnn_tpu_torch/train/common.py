@@ -12,8 +12,10 @@ checkpoints.
   ``base * Schedules.exp_decay(0.98)(epoch)``.
 * A checkpoint is a ``torch.save`` of {format_version, model, optimizer,
   epoch, gcnt} (state dicts), written atomically, resumed with
-  ``load_checkpoint``.  JAX pickle checkpoints are not read (ROADMAP.md,
-  port queue item 7).
+  ``load_checkpoint``.  ``read_checkpoint`` and ``load_checkpoint`` also
+  take the JAX package's pickle checkpoints (``jax_checkpoint.py``: its
+  params, batch_stats and Adam state, in either optimizer layout); a
+  params-only JAX file decodes but does not resume.
 """
 
 from __future__ import annotations
@@ -23,6 +25,9 @@ import os
 import pickle
 
 import torch
+
+from .jax_checkpoint import is_jax_checkpoint, read_jax_checkpoint, \
+    restore_jax_payload
 
 CKPT_FORMAT_VERSION = 1
 
@@ -46,6 +51,17 @@ class Schedules:
                 return max(1e-2, epoch / start)
             return max(0.99 ** (epoch - start), 1e-6)
         return f
+
+
+def check_ported(args, unported: dict) -> None:
+    """Raise for any flag of the JAX trainer that the port does not carry
+    yet (``unported``: flag -> (its value when unused, the ROADMAP.md
+    port-queue item it waits for)): none is silently ignored."""
+    for flag, (unused, item) in unported.items():
+        if getattr(args, flag, unused) != unused:
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported yet: ROADMAP.md, "
+                f"port queue {item}")
 
 
 def make_optimizer(params, base_lr: float, weight_decay: float = 1e-8):
@@ -77,17 +93,20 @@ def is_train_checkpoint(payload) -> bool:
 
 
 def read_checkpoint(path: str):
-    """What ``torch.save`` wrote at ``path`` (tensors and plain values
-    only): a trainer checkpoint of this format version, or a bare state
-    dict.  Raises ``ValueError`` for anything else, such as a JAX pickle
-    checkpoint."""
+    """The checkpoint at ``path``: a ``torch.save`` zip (tensors and plain
+    values only) holding a port trainer checkpoint of this format version
+    or a bare state dict, or else a JAX pickle checkpoint
+    (``jax_checkpoint.read_jax_checkpoint``: a dict with ``params``).
+    Raises ``ValueError`` for anything else."""
+    with open(path, "rb") as f:
+        zipped = f.read(2) == b"PK"
+    if not zipped:
+        return read_jax_checkpoint(path)
     try:
         payload = torch.load(path, map_location="cpu", weights_only=True)
     except (pickle.UnpicklingError, RuntimeError) as e:
-        raise ValueError(
-            f"{path} is not a port checkpoint (a torch.save of a state "
-            "dict); JAX pickle checkpoints are ROADMAP.md, port queue "
-            "item 7") from e
+        raise ValueError(f"{path} is not a port checkpoint (a torch.save "
+                         "of a state dict)") from e
     if is_train_checkpoint(payload) \
             and payload["format_version"] != CKPT_FORMAT_VERSION:
         raise ValueError(f"{path} has format version "
@@ -112,13 +131,18 @@ def save_checkpoint(path: str, model: torch.nn.Module,
 
 def load_checkpoint(path: str, model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer):
-    """Restore model and optimizer in place; returns (epoch, gcnt)."""
+    """Restore model and optimizer in place from a port trainer checkpoint
+    or a JAX trainer's; returns (epoch, gcnt)."""
     payload = read_checkpoint(path)
-    if not is_train_checkpoint(payload):
+    if is_jax_checkpoint(payload):
+        epoch, gcnt = restore_jax_payload(payload, model, optimizer)
+    elif is_train_checkpoint(payload):
+        model.load_state_dict(payload["model"])
+        optimizer.load_state_dict(payload["optimizer"])
+        epoch, gcnt = payload["epoch"], payload["gcnt"]
+    else:
         raise ValueError(f"{path} holds no optimizer state: resume needs a "
-                         "checkpoint written by the trainer")
-    model.load_state_dict(payload["model"])
-    optimizer.load_state_dict(payload["optimizer"])
-    log.info("restored checkpoint from %s (epoch %d)", path,
-             payload["epoch"])
-    return payload["epoch"], payload["gcnt"]
+                         "checkpoint written by a trainer")
+    log.info("restored checkpoint from %s (epoch %d)", path, epoch)
+    return epoch, gcnt
+

@@ -13,14 +13,15 @@ schedule, weight decay 1e-8, loss = BCE-with-logits over the 48 info bits
         --test-path dataset/ldpc_valid.npz
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  For training,
-``--model-path`` names a trainer checkpoint to resume from when it exists.
-For decoding it is a port checkpoint: a trainer checkpoint, or a
-``torch.save`` of ``LDPCModel.state_dict()`` (for example after
-``models.load_flax_variables``); without it the decoder runs a seeded
-random init.  ``--bf16`` runs decoding or training under the bf16 compute
-policy (``models/policy.py``: bf16 activations and typed-mp kernels, f32
-parameters, optimizer state and normalisation statistics), as the JAX
-trainer's flag.
+``--model-path`` names a trainer checkpoint to resume from when it exists:
+the port's, or the JAX trainer's pickle (its params, batch_stats and Adam
+state, either optimizer layout; ``jax_checkpoint.py``).  For decoding it
+is any of those, a JAX pickle of params and batch_stats alone, or a
+``torch.save`` of ``LDPCModel.state_dict()``; without it the decoder runs
+a seeded random init.  ``--bf16`` runs decoding or training under the
+bf16 compute policy (``models/policy.py``: bf16 activations and typed-mp
+kernels, f32 parameters, optimizer state and normalisation statistics),
+as the JAX trainer's flag.
 
 Also as the JAX trainer: a missing eval grid is written with the
 classical sum-product decoder's error matrix (``--eval-bp-baseline``, on
@@ -32,8 +33,9 @@ convergence flag to the node features (a model of node-feature width 4).
 ``--workers N`` synthesises the training samples in N worker processes
 (``data.loader.PoolBatcher``, default 0: inline); the train loop stages
 batches on the device from a prefetch thread (``device_prefetch``) and
-the decoder synthesises its batches in one (``prefetch``).  ``--mesh`` is
-not ported yet (ROADMAP.md, port queue item 6).
+the decoder synthesises its batches in one (``prefetch``).  ``--mesh``
+raises: it is not ported yet (``UNPORTED``; ROADMAP.md, port queue item
+6).
 """
 
 from __future__ import annotations
@@ -68,6 +70,7 @@ from ..ops.bp import BPGraphArrays, bp_decode_batch
 from ..utils.logging import MetricsWriter, init_logger
 from .common import (
     Schedules,
+    check_ported,
     is_train_checkpoint,
     load_checkpoint as load_train_checkpoint,
     make_optimizer,
@@ -75,6 +78,7 @@ from .common import (
     save_checkpoint,
     set_lr,
 )
+from .jax_checkpoint import is_jax_checkpoint, restore_jax_payload
 
 N_INFO = 48
 BASE_LR = 1e-2
@@ -82,6 +86,10 @@ SNRS = (0, 1, 2, 3, 4)
 SIGMA_BS = (0, 1, 2, 3, 4, 5)
 _INPUTS = ("node_feature", "hop_feature", "efeature_f2v", "efeature_v2f")
 BP_FEATURE_LOOPS = 50
+# flag -> (its value when unused, the ROADMAP.md port-queue item it waits for)
+UNPORTED = {
+    "mesh": ("", "item 6 (parallel/)"),
+}
 
 log = logging.getLogger(__name__)
 
@@ -171,11 +179,15 @@ def decode_step(model: LDPCModel, batch: dict, device,
 
 
 def load_checkpoint(path: str, model: LDPCModel) -> LDPCModel:
-    """Load a trainer checkpoint's model, or a bare state dict."""
-    state = read_checkpoint(path)
-    if is_train_checkpoint(state):
-        state = state["model"]
-    model.load_state_dict(state)
+    """Load a trainer checkpoint's model (the port's, or a JAX trainer's
+    params and batch_stats, either optimizer layout), or a bare state
+    dict."""
+    payload = read_checkpoint(path)
+    if is_jax_checkpoint(payload):
+        restore_jax_payload(payload, model)
+    else:
+        model.load_state_dict(payload["model"] if is_train_checkpoint(
+            payload) else payload)
     return model
 
 
@@ -308,6 +320,7 @@ def train(args, model: LDPCModel, writer: MetricsWriter, model_dir: str, *,
     synthesised by ``args.workers`` processes (0: inline), under the bf16
     compute policy when ``args.bf16``.  Saves ``ldpc_latest.ckpt`` after
     each epoch and ``ldpc_final.ckpt`` at the end, in ``model_dir``."""
+    check_ported(args, UNPORTED)
     dev = resolve_device(device)
     # The pool forks before this process's first CUDA call, as the JAX
     # trainer forks before its backend starts (data.loader.PoolBatcher).
@@ -385,9 +398,9 @@ def parse_args(argv=None):
     p.add_argument("--train", action="store_true", default=False)
     p.add_argument("--n-epochs", "--n_epochs", type=int, default=10)
     p.add_argument("--model-path", "--model_path", type=str, default="",
-                   help="decoding: a port checkpoint (empty = seeded "
-                        "random init); training: the checkpoint to resume "
-                        "from when it exists")
+                   help="decoding: a port or JAX checkpoint (empty = "
+                        "seeded random init); training: the port or JAX "
+                        "trainer checkpoint to resume from when it exists")
     p.add_argument("--model-name", "--model_name", type=str,
                    default="FactorNN")
     p.add_argument("--snr", type=int, default=None)
@@ -416,12 +429,15 @@ def parse_args(argv=None):
                         "BP convergence flag to the node features")
     p.add_argument("--bf16", action="store_true", default=False,
                    help="bfloat16 compute policy (f32 params/stats)")
+    p.add_argument("--mesh", type=str, default="",
+                   help="DPxTP device mesh: not ported yet")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
+    check_ported(args, UNPORTED)
     dev = resolve_device(args.device)
     if not args.train:
         logging.basicConfig(level=logging.INFO,

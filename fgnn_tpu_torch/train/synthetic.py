@@ -46,10 +46,12 @@ trainer's scalars (``syn_train/loss``,
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  ``--bf16`` trains and
 tests under the bf16 compute policy (``models/policy.py``), as the JAX
-trainer's flag.  ``--model-path`` names a trainer checkpoint
-(``latest.ckpt``, a ``torch.save``) to resume from when it exists.  The
-flags of the JAX trainer that the port does not carry yet raise
-(``UNPORTED``).
+trainer's flag.  ``--model-path`` names a trainer checkpoint to resume
+from when it exists: the port's (``latest.ckpt``, a ``torch.save``) or the
+JAX trainer's pickle of the same workload, either optimizer layout
+(``jax_checkpoint.py``); a JAX hop checkpoint also resumes ``--coo``,
+whose model has the dense model's parameters.  The flags of the JAX
+trainer that the port does not carry yet raise (``UNPORTED``).
 """
 
 from __future__ import annotations
@@ -96,6 +98,7 @@ from ..ops.typed_mp import GatherTable
 from ..utils.logging import MetricsWriter, init_logger
 from .common import (
     Schedules,
+    check_ported,
     clip_grad_norm,
     load_checkpoint,
     make_optimizer,
@@ -113,16 +116,6 @@ UNPORTED = {
 }
 
 log = logging.getLogger(__name__)
-
-
-def check_ported(args) -> None:
-    """Raise for any flag of the JAX trainer that the port does not carry
-    yet: none is silently ignored."""
-    for flag, (unused, item) in UNPORTED.items():
-        if getattr(args, flag, unused) != unused:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet: ROADMAP.md, "
-                f"port queue {item}")
 
 
 def make_syn_dataset(workload: str, args):
@@ -305,7 +298,7 @@ def train_and_eval(workload: str, args, *, device=None):
     ``max(test_size // batch_size, 1)`` batches (of ``args.test_path``, or
     fresh), all under the bf16 compute policy when ``args.bf16``.  Returns
     (acc, lp_acc) against the exact MAP labels."""
-    check_ported(args)
+    check_ported(args, UNPORTED)
     dev = resolve_device(device if device is not None
                          else getattr(args, "device", None))
     with bf16_policy(getattr(args, "bf16", False)):
@@ -471,7 +464,9 @@ def parse_args(argv=None, workload: str = "fixed"):
     p.add_argument("--hop-cap", "--hop_cap", type=int, default=5)
     p.add_argument("--hop-order", "--hop_order", type=int, default=9)
     p.add_argument("--train-epoches", "--train_epoches", type=int, default=10)
-    p.add_argument("--model-path", "--model_path", type=str, default="")
+    p.add_argument("--model-path", "--model_path", type=str, default="",
+                   help="the port or JAX trainer checkpoint to resume from "
+                        "when it exists")
     p.add_argument("--model-name", "--model_name", type=str,
                    default="mp_nn" if workload == "fixed" else "mp_nn_factor")
     p.add_argument("--neighbour", type=int, default=8)

@@ -343,10 +343,13 @@ def test_port_checkpoint_roundtrip_and_jax_pickle_refused(tmp_path):
         assert torch.equal(v, loaded.state_dict()[k]), k
     import pickle
 
+    # a pickle (JAX checkpoints are pickles) naming a global outside the
+    # JAX checkpoint reader's allow-list
     jax_ckpt = str(tmp_path / "jax.ckpt")
     with open(jax_ckpt, "wb") as f:
         pickle.dump({"params": {}, "opt_state": Namespace(a=1)}, f)
-    with pytest.raises(ValueError, match="port queue item 7"):
+    with pytest.raises(ValueError, match="refusing to unpickle the global "
+                                         "argparse.Namespace"):
         t_ldpc.load_checkpoint(jax_ckpt, tm.LDPCModel(**SMALL))
 
 
@@ -399,10 +402,16 @@ def test_port_sources_import_no_jax():
 
 
 def test_import_leaves_no_jax_module():
+    # importing the port, and loading a JAX checkpoint (the committed
+    # fixture, a pickle that names optax classes), imports no JAX module
+    ckpt = os.path.join(REPO, "fgnn_tpu_torch", "testdata", "ldpc_flat.pkl")
     code = ("import sys, fgnn_tpu_torch.train.ldpc, "
             "fgnn_tpu_torch.train.syn_hop_factor, "
             "fgnn_tpu_torch.data.generate, fgnn_tpu_torch.data.reference_io"
             "\n"
+            "from fgnn_tpu_torch.train import common\n"
+            f"assert common.read_checkpoint({ckpt!r})['opt_layout'] == "
+            "'flat'\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax') or m == 'fgnn_tpu' "
             "or m.startswith('fgnn_tpu.')]\n"
@@ -419,5 +428,6 @@ def test_import_leaves_no_jax_module():
     assert bad == "[]"
     for mod in ("data.bp_ref", "data.ldpc_cpp", "data.loader",
                 "data.generate", "data.reference_io", "ops.bp",
-                "models.containers", "train.synthetic"):
+                "models.containers", "train.synthetic",
+                "train.jax_checkpoint"):
         assert f"'fgnn_tpu_torch.{mod}'" in loaded, mod

@@ -1,4 +1,5 @@
-"""The kink check of ``chip_smoke.py`` syn_train_vs_cpu, on the CPU.
+"""The kink check of ``chip_smoke.py`` syn_train_vs_cpu (and of
+syn_coo_vs_dense's COO step), on the CPU.
 
 The phase holds each f32 hop train step to an f64 run that flips only the
 ReLU and max decisions the f32 run took otherwise, and requires each of
@@ -37,6 +38,23 @@ def test_sound_step_passes_with_flips_at_their_kinks(small, capsys):
     line = _emitted(capsys)
     assert line["failed"] == []
     assert sum(flipped["card"].values()) > 0
+    assert max(line["flipped_kink_distance_worst"].values()) \
+        <= chip_smoke.KINK_TOL
+    assert max(card, cpu, card_vs_cpu) <= chip_smoke.GRAD_REL_L2
+
+
+def test_coo_step_passes_with_flips_at_their_kinks(small, capsys):
+    """The COO model (``--coo``, uniform length): its max decisions are
+    the sets of edges at each segment's max (amax's), recorded and
+    replayed beside the ReLUs'."""
+    card, cpu, card_vs_cpu, flipped = chip_smoke._syn_train_vs_cpu(
+        torch, "cpu", 21, 22, coo=True)
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("{")]
+    (line,) = [ln for ln in lines if ln["phase"] == "syn_coo_vs_cpu"]
+    assert line["failed"] == []
+    assert flipped["card"]["amax"] > 0
+    assert "argmax" not in flipped["card"]   # no typed-mp kernel
     assert max(line["flipped_kink_distance_worst"].values()) \
         <= chip_smoke.KINK_TOL
     assert max(card, cpu, card_vs_cpu) <= chip_smoke.GRAD_REL_L2

@@ -41,6 +41,7 @@ from fgnn_tpu_torch import models as tm
 from fgnn_tpu_torch.data import generate as t_generate
 from fgnn_tpu_torch.ops import fused_mp
 from fgnn_tpu_torch.train import common as t_common
+from fgnn_tpu_torch.train import ldpc as t_ldpc
 from fgnn_tpu_torch.train import synthetic as t_syn
 from test_torch_syn_models import _seeded_variables
 
@@ -391,12 +392,16 @@ def test_cli_without_device_needs_cuda(tmp_path):
                            "--workers", "0", "--work-dir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("flag,item", [(["--mesh", "8x1"], "item 6")])
-def test_unported_flags_raise(tmp_path, flag, item):
+@pytest.mark.parametrize("cli,flag,item", [
+    pytest.param("hop", ["--mesh", "8x1"], "item 6", id="flag0-item 6"),
+    pytest.param("ldpc", ["--mesh", "8x1"], "item 6",
+                 id="ldpc-flag0-item 6")])
+def test_unported_flags_raise(tmp_path, cli, flag, item):
+    main, argv = ((t_ldpc.main, ["--train"]) if cli == "ldpc"
+                  else (partial(t_syn.main, "hop"), ["--workers", "0"]))
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, port queue "
                                                   f"{item}"):
-        t_syn.main("hop", ["--device", "cpu", "--workers", "0",
-                           "--work-dir", str(tmp_path), *flag])
+        main(argv + ["--device", "cpu", "--work-dir", str(tmp_path), *flag])
     assert not os.listdir(tmp_path)
 
 

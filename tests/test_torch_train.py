@@ -301,9 +301,9 @@ def test_cli_defaults_match_jax():
     turns it off), --workers and --bp-features as the JAX parser reads
     them."""
     t, j = vars(t_ldpc.parse_args([])), vars(j_ldpc.parse_args([]))
-    # every flag of the JAX CLI but --mesh (port queue item 6), and the
-    # port's --device
-    assert set(t) == set(j) - {"mesh"} | {"device"}
+    # every flag of the JAX CLI (--mesh raises: port queue item 6), and
+    # the port's --device
+    assert set(t) == set(j) | {"device"}
     for k in set(t) - {"device"}:
         assert t[k] == j[k], k
     for argv in (["--eval-bp-baseline", "0"], ["--eval-bp-baseline", "1"],
