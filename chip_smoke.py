@@ -178,6 +178,37 @@ Phases, one JSON line each:
                    ext_bwd_kernel and its 2 softmax backwards on the staged
                    kernel in tiles of rows; f32 parameters; step times
 
+  mesh_nccl_1      ``train.ldpc.train --mesh 1x1`` through NCCL at world
+                   size 1 (one rank spawned by ``parallel.launch.run_ranks``),
+                   MESH_STEPS steps at B=256 from ``train``'s seeded init,
+                   and the same run unmeshed in that rank: losses,
+                   parameters and running statistics bit-equal; 16 forward
+                   and 15 backward launches a step
+  mesh_dp          2 ranks on cuda:0 over gloo (NCCL takes one card per
+                   rank), ``--mesh 2x1`` and ``--mesh 1x2`` at the reference
+                   width, global B=256, MESH_STEPS steps each, against the
+                   unmeshed run of ``mesh_nccl_1``: each step's loss within
+                   LOSS_RTOL of one process's on the same weights and
+                   batch, the trajectories within LOSS_RTOL over
+                   MESH_TRAJECTORY_STEPS steps (printed beyond), first-step
+                   gradients within GRAD_REL_L2 (``train_vs_cpu``'s rule),
+                   on each rank 16 forward and 15 backward launches a step
+                   and no plain version; step ms
+                   per rank, the collectives of one step replayed alone
+                   (gloo's host staging on one card, not NVLink), the
+                   shards each rank holds under 1x2
+  mesh_halo        2 ranks over gloo: the halo conv (``parallel.halo``) of
+                   the decoder's v2f conv at full width over 1024 words as
+                   one flat graph, max and softmax, against
+                   ``typed_mp_conv_coo`` on one rank (out, x and filter
+                   gradients at tests/test_halo.py's tolerances), and the
+                   edge-partitioned conv's forward for the four
+                   aggregators; H, comm_rows_per_device, ms of each conv
+  mesh_cards       where the machine has 2 cards or more, mesh_dp's check
+                   through NCCL, one rank per card: ``--mesh {n}x1``, n =
+                   min(count, 4), and ``2x2`` at four; on one card it
+                   prints the count and that it did not run
+
 The phases that train the synthetic workloads without naming
 ``--workers`` pass ``--workers 0``: inline synthesis, as they ran before the
 pool was ported.  Then the ``{"kernels": [...]}`` line and, last, the
@@ -1822,8 +1853,8 @@ def _steps_recorded(synthetic):
     batch's sample width, its loss on the device) to the yielded list."""
     real, seen = synthetic.train_step, []
 
-    def step(wl, optimizer, batch, device):
-        m = real(wl, optimizer, batch, device)
+    def step(wl, optimizer, batch, device, **kw):
+        m = real(wl, optimizer, batch, device, **kw)
         seen.append((int(batch["label"].shape[1]), m["loss"]))
         return m
 
@@ -3096,6 +3127,490 @@ def phase_train_bf16(torch, fused_mp, dev, tmp):
     return ldpc_res, hop
 
 
+# --------------------------------------------------------------------------
+# The mesh paths (parallel/, --mesh DPxTP).  Ranks are processes spawned by
+# parallel.launch.run_ranks, each running a function of this module.  One
+# card cannot hold two NCCL ranks, so ranks that share cuda:0 run over
+# gloo, which stages every collective through the host: their collective
+# times are gloo's host copies, not NVLink's.
+
+MESH_STEPS = 5
+MESH_SPECS = ("2x1", "1x2")
+# A data-parallel run sums its gradients in another order than one process,
+# and Adam turns that noise into lr-sized updates wherever a gradient is
+# near zero (and flips the sign of the noise-level gradients that are zero
+# in exact arithmetic), so two correct runs drift apart step by step.  Each
+# step's loss is held to one process's on the SAME weights and batch at
+# every step; the free-running trajectories are held together over the
+# JAX trajectory test's 3 steps (tests/test_mesh_trainer.py:148) and
+# printed beyond.
+MESH_TRAJECTORY_STEPS = 3
+# the halo cell: the decoder's v2f conv at full width (C 128 -> 128, T=4)
+# over HALO_WORDS words as one flat graph: 98304 sources, 49152
+# destinations, 294912 edges, above the ~1e5 nodes where
+# fgnn_tpu/parallel/edge_partition.py:14-16 says the halo exchange pays;
+# tests/test_halo.py's tolerances, its gradients' atol taken of the largest
+# gradient: a filter gradient sums 294912 edges' products, and f32 sums in
+# two orders lie ~1e-6 of the terms' size apart wherever they cancel to
+# near zero (that test's gradients are O(1) sums of 400 edges)
+HALO_WORDS = 1024
+HALO_C = 128
+HALO_FWD_TOL = 1e-5
+HALO_GRAD_RTOL, HALO_GRAD_ATOL = 1e-4, 1e-5
+HALO_RANKS = 2
+
+
+@contextlib.contextmanager
+def _collectives_logged(dist, log):
+    """Within the block, each collective the port calls appends (name, its
+    tensor, its group) to ``log`` (the ranks' autograd threads too)."""
+    names = ("all_reduce", "all_gather", "all_to_all_single", "broadcast")
+    real = {n: getattr(dist, n) for n in names}
+
+    def wrap(name):
+        def call(*args, **kw):
+            t = args[1] if name in ("all_gather", "all_to_all_single") \
+                else args[0]
+            log.append((name, t.numel(), t.dtype, kw.get("group")))
+            return real[name](*args, **kw)
+        return call
+
+    for n in names:
+        setattr(dist, n, wrap(n))
+    try:
+        yield log
+    finally:
+        for n in names:
+            setattr(dist, n, real[n])
+
+
+def _replay_ms(torch, dist, dev, calls):
+    """Host ms of a step's logged collectives replayed alone on tensors of
+    their sizes, each done before the next as in the step (second pass)."""
+    bufs = [torch.zeros(n, dtype=dt, device=dev) for _, n, dt, _ in calls]
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for (name, _, _, g), b in zip(calls, bufs):
+            if name == "all_reduce":
+                dist.all_reduce(b, group=g)
+            elif name == "all_gather":
+                dist.all_gather([torch.empty_like(b) for _ in range(
+                    dist.get_world_size(g))], b, group=g)
+            elif name == "all_to_all_single":
+                dist.all_to_all_single(torch.empty_like(b), b, group=g)
+            else:
+                dist.broadcast(b, src=0, group=g)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    return ms
+
+
+def mesh_train_rank(dev, spec, tmp, with_unmeshed):
+    """One rank of ``train.ldpc.train --mesh spec``: MESH_STEPS steps at
+    B=256 from the seeded init of ``phase_train``, with the typed-mp
+    launches of that run (counts set to 0 just before it), each step's
+    global metrics and host ms, the first step's gradients by unmeshed
+    name, its collectives replayed alone, the shards this rank holds and
+    the final state.  ``with_unmeshed``: first the same run without a
+    mesh, in this rank, recorded alike."""
+    import torch
+    import torch.distributed as dist
+
+    from fgnn_tpu_torch.data import ContinuousCodesSP
+    from fgnn_tpu_torch.models import LDPCModel, init_weights
+    from fgnn_tpu_torch.ops import fused_mp
+    from fgnn_tpu_torch.parallel.sharding import full_grads, \
+        full_state_dict, sharded
+    from fgnn_tpu_torch.train import ldpc
+    from fgnn_tpu_torch.train.common import make_optimizer, mean_metrics
+    from fgnn_tpu_torch.utils.logging import MetricsWriter
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    real = ldpc.train_step
+
+    def run(mesh_spec, name):
+        rec = {"metrics": [], "ms": [], "weights": []}
+
+        def step(model, optimizer, batch, device, *a, mesh=None, **kw):
+            if mesh is not None:  # the weights the step starts from
+                rec["weights"].append({k: v.cpu().clone() for k, v in
+                                       full_state_dict(model).items()})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _collectives_logged(dist, []) as log:
+                m = real(model, optimizer, batch, device, *a, mesh=mesh,
+                         **kw)
+                torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            if "grads" not in rec:
+                rec["calls"] = log
+                rec["grads"] = {k: None if v is None else v.cpu()
+                                for k, v in full_grads(model).items()}
+                rec["shards"] = [
+                    (n, tuple(mod.parametrizations[n].original.shape),
+                     tuple(getattr(mod, n).shape))
+                    for mod, n, _ in sharded(model)]
+            rec["metrics"].append(mean_metrics([m], mesh))
+            return m
+
+        args = ldpc.parse_args([
+            "--train", "--n-epochs", "1", "--steps-per-epoch",
+            str(MESH_STEPS), "--batch-size", str(BATCH),
+            "--samples-per-epoch", str(MESH_STEPS * BATCH), "--seed", "0",
+            "--mesh", mesh_spec, "--work-dir", os.path.join(tmp, name)])
+        model = init_weights(LDPCModel(), seed=0).to(dev)
+        ldpc.train_step = step
+        try:
+            fused_mp.reset_counts()
+            with (MetricsWriter(os.path.join(args.work_dir, "tf_logs"))
+                  if dist.get_rank() == 0 else contextlib.nullcontext()
+                  ) as writer:
+                model = ldpc.train(args, model, writer, args.work_dir,
+                                   device=dev)
+            torch.cuda.synchronize()
+        finally:
+            ldpc.train_step = real
+        rec["counts"] = {n: dict(c) for n, c in (
+            ("fwd", fused_mp.COUNTS), ("bwd", fused_mp.BWD_COUNTS),
+            ("kept_bwd", fused_mp.KEPT_BWD_COUNTS))}
+        rec["state"] = {k: v.cpu() for k, v in model.state_dict().items()}
+        if dist.get_rank() != 0:  # replicated: rank 0's go back
+            rec["weights"] = []
+        calls = rec.pop("calls")
+        rec["collectives_per_step"] = len(calls)
+        rec["collective_bytes_per_step"] = sum(
+            n * torch.empty((), dtype=dt).element_size()
+            for _, n, dt, _ in calls)
+        rec["collective_ms_per_step"] = _replay_ms(torch, dist, dev, calls)
+        return rec
+
+    # warm-up (cuBLAS handles, the kernel libraries) on another model
+    warm = init_weights(LDPCModel(), seed=1).to(dev)
+    real(warm, make_optimizer(warm.parameters(), ldpc.BASE_LR),
+         next(ContinuousCodesSP(length=BATCH, seed=9).batches(BATCH)), dev)
+    torch.cuda.synchronize()
+    out = {"rank": dist.get_rank(), "device": str(dev)}
+    if with_unmeshed:
+        out["unmeshed"] = run("", "unmeshed")
+    out["mesh"] = run(spec, f"mesh_{spec}")
+    return out
+
+
+def _mesh_check_counts(what, counts):
+    fwd, bwd = counts["fwd"], counts["bwd"]
+    require(fwd["kernel_launches"] == FWD_PER_STEP * MESH_STEPS
+            and bwd["kernel_launches"] == BWD_PER_STEP * MESH_STEPS,
+            f"{what}: {fwd['kernel_launches']} forward and "
+            f"{bwd['kernel_launches']} backward launches in {MESH_STEPS} "
+            f"steps, not {FWD_PER_STEP} and {BWD_PER_STEP} a step")
+    require(fwd["plain_calls"] == 0 and bwd["plain_calls"] == 0
+            and counts["kept_bwd"]["kernel_launches"] == 0,
+            f"{what}: no plain version, no kept backward")
+
+
+def phase_mesh_nccl_1(torch, tmp):
+    """``train.ldpc.train --mesh 1x1`` through NCCL at world size 1 and the
+    same run unmeshed, in one rank: losses, parameters and running
+    statistics bit-equal; 16 forward and 15 backward launches a step.
+    Returns the unmeshed run (the one-process reference of ``mesh_dp``)
+    and the mesh run's counts."""
+    from fgnn_tpu_torch.parallel import run_ranks
+
+    t0 = time.perf_counter()
+    (res,) = run_ranks(mesh_train_rank, 1, "nccl", "cuda", "1x1", tmp, True)
+    seconds = time.perf_counter() - t0
+    ref, got = res["unmeshed"], res["mesh"]
+    _mesh_check_counts("mesh_nccl_1", got["counts"])
+    losses = [m["loss"] for m in got["metrics"]]
+    ref_losses = [m["loss"] for m in ref["metrics"]]
+    require(losses == ref_losses and len(losses) == MESH_STEPS,
+            f"mesh_nccl_1: losses {losses} != unmeshed {ref_losses}")
+    require(got["state"].keys() == ref["state"].keys() and all(
+        torch.equal(got["state"][k], ref["state"][k]) for k in ref["state"]),
+        "mesh_nccl_1: parameters and running statistics bit-equal")
+    emit("mesh_nccl_1", backend="nccl", world_size=1, device=res["device"],
+         steps=MESH_STEPS, batch_size=BATCH, losses=losses, bit_equal=True,
+         fwd_launches=got["counts"]["fwd"]["kernel_launches"],
+         bwd_launches=got["counts"]["bwd"]["kernel_launches"],
+         step_ms=got["ms"], unmeshed_step_ms=ref["ms"],
+         collectives_per_step=got["collectives_per_step"], seconds=seconds)
+    return ref, got["counts"]
+
+
+def _losses_at(torch, dev, weights):
+    """One process's step metrics on the card from each of ``weights`` (the
+    weights a mesh run's steps started from) on that step's batch."""
+    from itertools import islice
+
+    from fgnn_tpu_torch.data import ContinuousCodesSP
+    from fgnn_tpu_torch.models import LDPCModel
+    from fgnn_tpu_torch.train import ldpc
+    from fgnn_tpu_torch.train.common import make_optimizer
+
+    ds = ContinuousCodesSP(length=MESH_STEPS * BATCH, seed=0)
+    next(ds.batches(BATCH))  # as train draws its init batch
+    out = []
+    for w, b in zip(weights, islice(ds.batches(BATCH), MESH_STEPS)):
+        model = LDPCModel().to(dev)
+        model.load_state_dict(w)
+        m = ldpc.train_step(model, make_optimizer(model.parameters(),
+                                                  ldpc.BASE_LR), b, dev)
+        out.append({k: float(v) for k, v in m.items()})
+    return out
+
+
+def phase_mesh_dp(torch, dev, tmp, ref, specs=MESH_SPECS, world=2,
+                  backend="gloo", phase="mesh_dp"):
+    """``train.ldpc.train --mesh spec`` on ``world`` ranks for each spec,
+    against the one-process card run ``ref`` of the same steps: each
+    step's loss within LOSS_RTOL of one process's from the same weights,
+    the trajectories within LOSS_RTOL over MESH_TRAJECTORY_STEPS steps,
+    first-step gradients within GRAD_REL_L2 (``train_vs_cpu``'s rule), on
+    every rank 16 forward and 15 backward launches a step and no plain
+    version.  Returns rank 0's counts by spec."""
+    from fgnn_tpu_torch.parallel import run_ranks
+
+    ref_losses = [m["loss"] for m in ref["metrics"]]
+    counts = {}
+    for spec in specs:
+        t0 = time.perf_counter()
+        ranks = run_ranks(mesh_train_rank, world, backend, "cuda", spec,
+                          tmp, False)
+        seconds = time.perf_counter() - t0
+        # the replicated state is every rank's: rank 0's weights
+        same_weights = _losses_at(torch, dev, ranks[0]["mesh"]["weights"])
+        rows = []
+        for r in ranks:
+            got, what = r["mesh"], f"{phase} {spec} rank {r['rank']}"
+            _mesh_check_counts(what, got["counts"])
+            losses = [m["loss"] for m in got["metrics"]]
+            step_err = [abs(m["loss"] - w["loss"]) / abs(w["loss"])
+                        for m, w in zip(got["metrics"], same_weights)]
+            require(len(step_err) == MESH_STEPS
+                    and max(step_err) <= LOSS_RTOL,
+                    f"{what}: step losses {losses} vs one process on the "
+                    f"same weights {[w['loss'] for w in same_weights]}")
+            drift = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+            require(max(drift[:MESH_TRAJECTORY_STEPS]) <= LOSS_RTOL,
+                    f"{what}: losses {losses} vs one process {ref_losses}")
+            rel, noise, floor, bad = _grad_errors(torch, got["grads"],
+                                                  ref["grads"])
+            bad += ([f"{n}: relative L2 error {v}" for n, v in rel.items()
+                     if v > GRAD_REL_L2]
+                    + [f"{n}: max abs err {v} > {floor}"
+                       for n, v in noise.items() if v > floor])
+            require(not bad, f"{what}: first-step gradients {bad}")
+            rows.append(dict(
+                rank=r["rank"], device=r["device"], losses=losses,
+                same_weights_loss_rel_err=step_err,
+                trajectory_loss_rel_err=drift,
+                grad_rel_l2_worst=max(rel.values()),
+                grad_rel_l2_worst_tensor=max(rel, key=rel.get),
+                step_ms=got["ms"],
+                collectives_per_step=got["collectives_per_step"],
+                collective_bytes_per_step=got["collective_bytes_per_step"],
+                collective_ms_per_step=got["collective_ms_per_step"],
+                fwd_launches=got["counts"]["fwd"]["kernel_launches"],
+                bwd_launches=got["counts"]["bwd"]["kernel_launches"],
+                plain_calls=got["counts"]["fwd"]["plain_calls"]
+                + got["counts"]["bwd"]["plain_calls"],
+                shards=[list(s) for s in got["shards"]],
+                shard_elements=sum(math.prod(s[1]) for s in got["shards"]),
+                of_elements=sum(math.prod(s[2]) for s in got["shards"])))
+        emit(phase, spec=spec, backend=backend, world_size=world,
+             steps=MESH_STEPS, batch_size=BATCH,
+             collective_ms_is=("gloo's host staging of ranks sharing one "
+                               "card, not NVLink" if backend == "gloo"
+                               else "NCCL, one rank per card"),
+             one_process_losses=ref_losses, one_process_step_ms=ref["ms"],
+             one_process_losses_on_the_mesh_weights=[
+                 w["loss"] for w in same_weights],
+             trajectory_steps_held=MESH_TRAJECTORY_STEPS,
+             ranks=rows, seconds=seconds)
+        counts[spec] = ranks[0]["mesh"]["counts"]
+    return counts
+
+
+def phase_mesh_cards(torch, dev, tmp, ref):
+    """``mesh_dp``'s check through NCCL, one rank per card, where the
+    machine has two cards or more: ``--mesh {n}x1`` with n = min(count,
+    4), and ``2x2`` at four."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        emit("mesh_cards", cards=count, ran=False,
+             reason="one card: NCCL needs a card per rank; mesh_dp ran the "
+                    "ranks on one card over gloo")
+        return {}
+    n = min(count, 4)
+    specs = (f"{n}x1",) + (("2x2",) if n == 4 else ())
+    return phase_mesh_dp(torch, dev, tmp, ref, specs, n, "nccl",
+                         "mesh_cards")
+
+
+def _halo_inputs(seed=0):
+    """The halo cell's graph (each word's v2f edges: check d of word w
+    reads its 6 variables), features, filters, edge weights and the
+    output's cotangent, in numpy from ``seed``."""
+    import numpy as np
+
+    from fgnn_tpu_torch.data.ldpc_graph import default_structure
+
+    st = default_structure()
+    n_var, n_chk, k = st.n_vars, st.n_checks, st.factors.shape[1]
+    words = np.arange(HALO_WORDS)
+    src = (words[:, None, None] * n_var + st.factors[None]).reshape(-1)
+    dst = np.repeat(np.arange(HALO_WORDS * n_chk), k)
+    rng = np.random.RandomState(seed)
+    x = rng.randn(HALO_WORDS * n_var, HALO_C).astype(np.float32)
+    w = (rng.randn(HALO_C, HALO_C * 4) / np.sqrt(HALO_C)).astype(np.float32)
+    et = rng.randn(src.size, 4).astype(np.float32)
+    g = rng.randn(HALO_WORDS * n_chk, HALO_C).astype(np.float32)
+    return src.astype(np.int64), dst.astype(np.int64), x, w, et, g
+
+
+def _timed(torch, fn, n=3):
+    """Median host ms of ``fn`` over n calls after one, synchronised."""
+    fn()
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ms)[n // 2]
+
+
+def mesh_halo_rank(dev, plan):
+    """One rank of the halo cell: for max and softmax the halo conv's
+    output rows and, through sum(out * g) over them, x's and the filters'
+    gradients (this rank's part); the edge-partitioned conv's output for
+    the four aggregators; ms of each."""
+    import torch
+    import torch.distributed as dist
+
+    from fgnn_tpu_torch.parallel import (HaloGraph, make_mesh,
+                                         pad_edges,
+                                         partitioned_typed_mp_coo)
+    from fgnn_tpu_torch.parallel.halo import halo_typed_mp_coo
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    src, dst, x, w, et, g = _halo_inputs()
+    mesh = make_mesh((dist.get_world_size(), 1), dev.type)
+    graph = HaloGraph(plan, mesh).to(dev)
+    r, nd = mesh.data_rank, plan.dst_block
+    xl = torch.from_numpy(graph.local_src(x)).to(dev)
+    wt = torch.from_numpy(w).to(dev)
+    et_loc, et_rem = graph.shard_etype(torch.from_numpy(et).to(dev))
+    gl = torch.from_numpy(g[r * nd:(r + 1) * nd]).to(dev)
+    out = {"rank": dist.get_rank()}
+    for agg in ("max", "softmax"):
+        xg = xl.clone().requires_grad_(True)
+        wg = wt.clone().requires_grad_(True)
+
+        def fwd(xg=xg, wg=wg, agg=agg):
+            return halo_typed_mp_coo(xg, et_loc, et_rem, wg, HALO_C, graph,
+                                     aggregator=agg)
+
+        y = fwd()
+        (y * gl).sum().backward()
+        # copies: the timed calls below add to the gradients
+        out[f"halo_{agg}"] = {"out": y.detach().cpu().clone(),
+                              "gx": xg.grad.cpu().clone(),
+                              "gw": wg.grad.cpu().clone()}
+        with torch.no_grad():
+            out[f"halo_{agg}"]["ms"] = _timed(torch, fwd)
+        out[f"halo_{agg}"]["fwd_bwd_ms"] = _timed(
+            torch, lambda: (fwd() * gl).sum().backward())
+    srcp, dstp, etp, mask = pad_edges(src, dst, et, mesh.dp)
+    xt = torch.from_numpy(x).to(dev)
+    etp_t = torch.from_numpy(etp).to(dev)
+    for agg in ("max", "sum", "mean", "softmax"):
+        def part(agg=agg):
+            return partitioned_typed_mp_coo(
+                xt, srcp, dstp, etp_t, mask, wt, HALO_C, plan.n_dst, mesh,
+                aggregator=agg)
+
+        with torch.no_grad():
+            out[f"edge_{agg}"] = {"out": part().cpu(),
+                                  "ms": _timed(torch, part)}
+    return out
+
+
+def phase_mesh_halo(torch, dev):
+    """The halo and edge-partitioned convs on HALO_RANKS ranks of cuda:0
+    over gloo, against ``typed_mp_conv_coo`` on one rank (this process)."""
+    from fgnn_tpu_torch.ops.segment import CooGraph, typed_mp_conv_coo
+    from fgnn_tpu_torch.parallel import build_halo_plan, run_ranks
+
+    src, dst, x, w, et, g = _halo_inputs()
+    n_src, n_dst = x.shape[0], g.shape[0]
+    t0 = time.perf_counter()
+    plan = build_halo_plan(src, dst, n_src, n_dst, HALO_RANKS)
+    plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_halo_rank, HALO_RANKS, "gloo", "cuda", plan)
+    seconds = time.perf_counter() - t0
+
+    graph = CooGraph(src, dst, num_nodes=n_dst, num_src=n_src).to(dev)
+    xt, wt = (torch.from_numpy(a).to(dev) for a in (x, w))
+    ett, gt = (torch.from_numpy(a).to(dev) for a in (et, g))
+    readings = {}
+    for agg in ("max", "softmax", "sum", "mean"):
+        xg = xt.clone().requires_grad_(agg in ("max", "softmax"))
+        wg = wt.clone().requires_grad_(agg in ("max", "softmax"))
+
+        def coo(xg=xg, wg=wg, agg=agg):
+            return typed_mp_conv_coo(xg, graph, ett, wg, HALO_C,
+                                     aggregator=agg)
+
+        ref = coo()
+        with torch.no_grad():
+            coo_ms = _timed(torch, coo)
+        rd = {"coo_ms": coo_ms}
+        if agg in ("max", "softmax"):
+            (ref * gt).sum().backward()
+            halo = [r[f"halo_{agg}"] for r in ranks]
+            got = torch.cat([h["out"] for h in halo])[:n_dst]
+            err = (got - ref.detach().cpu()).abs().max().item()
+            require(torch.allclose(got, ref.detach().cpu(),
+                                   rtol=HALO_FWD_TOL, atol=HALO_FWD_TOL),
+                    f"mesh_halo {agg}: out max abs err {err}")
+            gx = torch.cat([h["gx"] for h in halo])[:n_src]
+            gw = sum(h["gw"] for h in halo)
+            for name, a, b in (("x", gx, xg.grad.cpu()),
+                               ("filters", gw, wg.grad.cpu())):
+                scale = b.abs().max().item()
+                ok = ((a - b).abs() <= HALO_GRAD_RTOL * b.abs()
+                      + HALO_GRAD_ATOL * scale).all().item()
+                rd[f"grad_{name}_max_abs_err"] = (a - b).abs().max().item()
+                rd[f"grad_{name}_largest"] = scale
+                require(ok, f"mesh_halo {agg}: {name} gradient "
+                        f"{rd[f'grad_{name}_max_abs_err']} of {scale}")
+            rd.update(halo_out_max_abs_err=err,
+                      halo_ms=[h["ms"] for h in halo],
+                      halo_fwd_bwd_ms=[h["fwd_bwd_ms"] for h in halo])
+        edge = [r[f"edge_{agg}"] for r in ranks]
+        errs = [(e["out"] - ref.detach().cpu()).abs().max().item()
+                for e in edge]
+        require(all(torch.allclose(e["out"], ref.detach().cpu(),
+                                   rtol=HALO_FWD_TOL, atol=HALO_FWD_TOL)
+                    for e in edge),
+                f"mesh_halo edge-partitioned {agg}: out max abs err {errs}")
+        rd.update(edge_out_max_abs_err=max(errs),
+                  edge_ms=[e["ms"] for e in edge])
+        readings[agg] = rd
+    emit("mesh_halo", backend="gloo", ranks=HALO_RANKS, words=HALO_WORDS,
+         sources=n_src, destinations=n_dst, edges=int(src.size), C=HALO_C,
+         halo=plan.halo, comm_rows_per_device=plan.comm_rows_per_device,
+         src_block=plan.src_block, dst_block=plan.dst_block,
+         plan_seconds=plan_s, seconds=seconds,
+         ms_are="host ms per call on cuda:0, ranks over gloo",
+         readings=readings)
+
+
 # The bf16 roundings of the kernels, each a text of csrc/typed_mp_common.cuh,
 # and what --unrounded builds in its place: rnd<TH> (etype as read or
 # staged, mean's g / K, each product of the scalar bf16 mode and of the
@@ -3236,6 +3751,16 @@ def main():
         phase_syn_coo(torch, fused_mp, dev, tmp)
         phase_syn_coo_vs_dense(torch, fused_mp, dev)
         ldpc_b16, hop_b16 = phase_train_bf16(torch, fused_mp, dev, tmp)
+        mesh_ref, mesh_1 = phase_mesh_nccl_1(torch, tmp)
+        mesh_dp = phase_mesh_dp(torch, dev, tmp, mesh_ref)
+        phase_mesh_halo(torch, dev)
+        mesh_cards = phase_mesh_cards(torch, dev, tmp, mesh_ref)
+    # the mesh paths' launches, rank 0's, by path
+    mesh_paths = {"mesh_nccl_1": mesh_1,
+                  **{f"mesh_dp_{s}": c for s, c in mesh_dp.items()},
+                  **{f"mesh_cards_{s}": c for s, c in mesh_cards.items()}}
+    mesh_fwd = {k: c["fwd"]["kernel_launches"] for k, c in mesh_paths.items()}
+    mesh_bwd = {k: c["bwd"]["kernel_launches"] for k, c in mesh_paths.items()}
 
     def per_call(rows, key, per):
         return sum(r[key] * r[per] for r in rows)
@@ -3361,12 +3886,14 @@ def main():
         "checked": True,
         "launches": (counts["kernel_launches"] + fwd_train["kernel_launches"]
                      + fwd_bpf["kernel_launches"]
-                     + eval_bpf["kernel_launches"]),
+                     + eval_bpf["kernel_launches"]
+                     + sum(mesh_fwd.values())),
         "launches_by_path": {"decode": counts["kernel_launches"],
                              "train": fwd_train["kernel_launches"],
                              "train_bp_features": fwd_bpf["kernel_launches"],
                              "eval_bp_features":
-                                 eval_bpf["kernel_launches"]},
+                                 eval_bpf["kernel_launches"],
+                             **mesh_fwd},
         "max_abs_err": worst,
         **entry(shapes, "launches_per_forward"),
         "library_ms": None,
@@ -3380,10 +3907,12 @@ def main():
         "replaces": "fgnn_tpu/ops/fused_mp.py:297",
         "tpu_kernel": "_bwd_kernel",
         "checked": True,
-        "launches": bwd_train["kernel_launches"] + bwd_bpf["kernel_launches"],
+        "launches": (bwd_train["kernel_launches"] + bwd_bpf["kernel_launches"]
+                     + sum(mesh_bwd.values())),
         "launches_by_path": {"decode": 0,
                              "train": bwd_train["kernel_launches"],
-                             "train_bp_features": bwd_bpf["kernel_launches"]},
+                             "train_bp_features": bwd_bpf["kernel_launches"],
+                             **mesh_bwd},
         "max_abs_err": worst_bwd,
         **entry(shapes_bwd, "launches_per_step"),
         "library_ms": None,

@@ -1,10 +1,16 @@
 """MPConv: the module around the typed-edge conv (counterpart of
-``fgnn_tpu/models/mp_conv.py``, its dense-table and COO branches).
+``fgnn_tpu/models/mp_conv.py``, its dense-table, COO and halo branches).
 
 Given a ``GatherTable`` the conv runs ``typed_mp_conv`` on (B, N, C)
 features; given an ``ops.segment.CooGraph`` (a flat disjoint union) it runs
 ``typed_mp_conv_coo`` on (N_flat, C) features and (E, T) edge weights,
-with the extension mapped as the JAX package's ``_COO_EXT``.
+with the extension mapped as the JAX package's ``_COO_EXT``; given a
+``parallel.halo.HaloGraph`` (one large graph whose sources and
+destinations are row-sharded over a mesh's data axis) it runs
+``halo_typed_mp_coo`` on this rank's (Ns, C) source rows and the whole
+(E, T) edge weights in the original edge order, returns this rank's
+(Nd, nout) rows, and takes the BatchNorm statistics over every rank's
+rows.  The halo branch implements NO_EXTENSION only, as the JAX one.
 
 The JAX modules default to ``ORIG_WITH_DIFF``; the port's default is
 ``NO_EXTENSION``, the LDPC models' mode, and the synthetic models
@@ -19,6 +25,7 @@ from torch import nn
 
 from ..ops.segment import CooGraph, typed_mp_conv_coo
 from ..ops.typed_mp import Extension, typed_mp_conv
+from ..parallel.halo import HaloGraph, halo_typed_mp_coo
 from .norm import BatchNorm, Dense, leaky_relu, uniform_
 
 _COO_EXT = {Extension.NO_EXTENSION: "none",
@@ -49,6 +56,17 @@ class MPConv(nn.Module):
 
     def forward(self, x: torch.Tensor, table, etype: torch.Tensor
                 ) -> torch.Tensor:
+        if isinstance(table, HaloGraph):
+            if self.extension != Extension.NO_EXTENSION:
+                raise NotImplementedError(
+                    "halo mode implements NO_EXTENSION message passing")
+            et_loc, et_rem = table.shard_etype(etype)
+            y = halo_typed_mp_coo(x, et_loc, et_rem, self.filters, self.nout,
+                                  table, aggregator=self.aggregator,
+                                  bias=self.bias)
+            mesh = table.mesh
+            return torch.relu(self.bn(
+                y, group=mesh.data_group if mesh.dp > 1 else None))
         if isinstance(table, CooGraph):
             y = typed_mp_conv_coo(x, table, etype, self.filters, self.nout,
                                   aggregator=self.aggregator, bias=self.bias,

@@ -13,6 +13,14 @@ Counterpart of ``fgnn_tpu/models/norm.py``, layout ``(B, N, C)``:
   variant failed golden parity in the JAX package).  ``self.training``
   selects batch or running statistics.  The output is in x's dtype:
   statistics, scale and shift are cast to it, as the flax module does.
+  With a ``data_group`` (set by ``train.common.prepare_mesh_training``,
+  or passed by the halo conv) the batch statistics are those of the
+  global batch, SyncBatchNorm, as jit over a mesh computes them in the
+  JAX package: the sums and counts, then the squared deviations, are
+  all-reduced over the group (``parallel.comm.all_reduce_sum``, whose
+  backward all-reduces the cotangents), and the running variance takes
+  the global count.  Without one (a group of one rank) the code and its
+  bits are the unmeshed ones.
 * ``instance_norm``: per (b, c) over N, no affine, no running stats;
   statistics in f32, the result in x's dtype.  On a flat disjoint union
   (x (N_flat, C)) it takes the nodes grouped by sample
@@ -35,6 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.segment import Segments, gather, segment_sum
+from ..parallel.comm import all_reduce_sum
 from .policy import cast_compute
 
 
@@ -80,6 +89,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.data_group = None
 
     def init_(self, generator: torch.Generator) -> None:
         with torch.no_grad():
@@ -88,15 +98,22 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        """``group``: take the batch statistics over it, in place of
+        ``data_group``."""
+        group = self.data_group if group is None else group
         if self.training:
             dims = tuple(range(x.ndim - 1))
             xf = _stats(x)
-            mean = xf.mean(dim=dims)
-            var = (xf - mean).square().mean(dim=dims)
-            n = x.numel() // x.shape[-1]
+            if group is None:
+                mean = xf.mean(dim=dims)
+                var = (xf - mean).square().mean(dim=dims)
+                n = x.numel() // x.shape[-1]
+                factor = n / max(n - 1, 1)
+            else:
+                mean, var, factor = _global_moments(xf, dims, group)
             with torch.no_grad():
-                unbiased = var * (n / max(n - 1, 1))
+                unbiased = var * factor
                 self.running_mean.mul_(1 - self.momentum).add_(
                     self.momentum * mean)
                 self.running_var.mul_(1 - self.momentum).add_(
@@ -107,6 +124,18 @@ class BatchNorm(nn.Module):
         inv = torch.rsqrt(var + self.eps).to(dt)
         return ((x - mean.to(dt)) * inv * self.weight.to(dt)
                 + self.bias.to(dt))
+
+
+def _global_moments(xf, dims, group):
+    """(mean, biased variance, n / (n - 1)) of xf over ``dims`` and the
+    ranks of ``group``, two-pass; n stays on the device."""
+    n_local = xf.numel() // xf.shape[-1]
+    sums = all_reduce_sum(torch.cat([xf.sum(dim=dims),
+                                     xf.new_full((1,), n_local)]), group)
+    n = sums[-1]
+    mean = sums[:-1] / n
+    var = all_reduce_sum((xf - mean).square().sum(dim=dims), group) / n
+    return mean, var, (n / (n - 1).clamp_min(1)).detach()
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5,

@@ -16,16 +16,32 @@ checkpoints.
   take the JAX package's pickle checkpoints (``jax_checkpoint.py``: its
   params, batch_stats and Adam state, in either optimizer layout); a
   params-only JAX file decodes but does not resume.
+* ``--mesh DPxTP`` (``prepare_mesh_training``, the counterpart of the JAX
+  package's): one process per rank over ``torch.distributed``
+  (``parallel/``).  Each rank trains on its rows of every batch, the
+  BatchNorm statistics are global, the wide parameters are sharded over
+  the model axis; after backward ``reduce_gradients`` takes the mean over
+  the data axis, clipping counts each shard once, and checkpoints are
+  written by rank 0 in the unmeshed format (the shards gathered), so a
+  mesh run resumes unmeshed and the reverse.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import pickle
 
 import torch
+import torch.distributed as dist
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
+from ..parallel import make_mesh, parse_mesh_spec, process_group, \
+    replicate, shard_batch, shard_state
+from ..parallel.mesh import check_mesh
+from ..parallel.sharding import full_optimizer_state, full_state_dict, \
+    set_data_group
 from .jax_checkpoint import is_jax_checkpoint, read_jax_checkpoint, \
     restore_jax_payload
 
@@ -53,34 +69,110 @@ class Schedules:
         return f
 
 
-def check_ported(args, unported: dict) -> None:
-    """Raise for any flag of the JAX trainer that the port does not carry
-    yet (``unported``: flag -> (its value when unused, the ROADMAP.md
-    port-queue item it waits for)): none is silently ignored."""
-    for flag, (unused, item) in unported.items():
-        if getattr(args, flag, unused) != unused:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet: ROADMAP.md, "
-                f"port queue {item}")
-
-
 def make_optimizer(params, base_lr: float, weight_decay: float = 1e-8):
     return torch.optim.Adam(params, lr=base_lr, weight_decay=weight_decay)
 
 
-def clip_grad_norm(params, max_norm: float) -> torch.Tensor:
+def clip_grad_norm(params, max_norm: float, mesh=None,
+                   shards=()) -> torch.Tensor:
     """Scale the gradients of ``params`` in place by max_norm / norm when
     their global L2 norm is ``max_norm`` or more, and return that norm.
 
     optax's ``clip_by_global_norm`` rule, which divides by the norm itself
     (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to it, and scales by a
-    coefficient clamped to 1).  Stays on the device: no host sync."""
+    coefficient clamped to 1).  Stays on the device: no host sync.  Under
+    a model axis (``mesh.tp`` > 1) each shard counts once: the squares of
+    the gradients of ``shards`` (the sharded parameters, ``parallel.
+    sharding.shard_originals``) are summed over the model axis, the
+    replicated ones' taken as they are, so the norm is the unmeshed one."""
+    params = list(params)
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if mesh is not None and mesh.tp > 1:
+        norm = _sharded_norm(params, mesh, {id(p) for p in shards})
+    else:
+        norm = torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(grads)))
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm
+
+
+def _sharded_norm(params, mesh, shard_ids):
+    """The global L2 norm of the gradients with each shard counted once."""
+    sq = []
+    for sharded in (True, False):
+        gs = [p.grad for p in params
+              if p.grad is not None and (id(p) in shard_ids) == sharded]
+        sq.append(torch.stack(torch._foreach_norm(gs)).square().sum() if gs
+                  else torch.zeros((), device=params[0].device))
+    dist.all_reduce(sq[0], group=mesh.model_group)
+    return torch.sqrt(sq[0] + sq[1])
+
+
+def mesh_group(args, device):
+    """The process group of ``args.mesh`` around a block, yielding this
+    rank's device (``parallel.process_group``; without ``--mesh``,
+    ``device``).  Raises ``ValueError`` first, before anything is written,
+    when the spec is not the world size."""
+    if not getattr(args, "mesh", ""):
+        return contextlib.nullcontext(device)
+    check_mesh(parse_mesh_spec(args.mesh))
+    return process_group(device)
+
+
+def prepare_mesh_training(mesh_spec: str, model: torch.nn.Module,
+                          optimizer: torch.optim.Optimizer,
+                          batch_size: int, device=None):
+    """Set up sharded training for a trainer's ``--mesh DPxTP`` flag, in
+    the initialised process group (``parallel.process_group``).
+
+    Builds the (data, model) mesh (``ValueError`` unless dp * tp is the
+    world size, or unless the data axis divides ``batch_size``), gives
+    every rank rank 0's parameters and buffers, shards the wide
+    parameters and their optimizer state over the model axis, and takes
+    every BatchNorm's statistics over the data axis.  Returns (mesh, put):
+    ``put`` gives a (host) batch's rows of this rank.  ``unshard`` undoes
+    it once training ends."""
+    dp, tp = parse_mesh_spec(mesh_spec)
+    if batch_size % dp:
+        raise ValueError(
+            f"batch size {batch_size} must divide the data axis ({dp}) "
+            f"of mesh {mesh_spec!r}")
+    mesh = make_mesh((dp, tp), None if device is None
+                     else torch.device(device).type)
+    replicate(model.state_dict().values())
+    shard_state(model, optimizer, mesh)
+    set_data_group(model, mesh.data_group)
+
+    def put(batch):
+        return shard_batch(batch, mesh, batch_size)
+
+    return mesh, put
+
+
+def reduce_gradients(params, mesh) -> None:
+    """The mean over the data axis of every gradient of ``params``, in
+    place, in one all-reduce (after backward, before clipping)."""
+    if mesh is None or mesh.dp == 1:
+        return
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = _flatten_dense_tensors(grads)
+    dist.all_reduce(flat, group=mesh.data_group)
+    flat /= mesh.dp
+    torch._foreach_copy_(grads, _unflatten_dense_tensors(flat, grads))
+
+
+def mean_metrics(pending: list, mesh) -> dict:
+    """The mean of each metric over ``pending`` steps (dicts of device
+    scalars) and, under a mesh, over the data axis: one host sync."""
+    keys = list(pending[0])
+    m = torch.stack([torch.stack([p[k] for p in pending]).double().mean()
+                     for k in keys])
+    if mesh is not None and mesh.dp > 1:
+        dist.all_reduce(m, group=mesh.data_group)
+        m = m / mesh.dp
+    return dict(zip(keys, m.tolist()))
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
@@ -117,11 +209,19 @@ def read_checkpoint(path: str):
 
 def save_checkpoint(path: str, model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer, epoch: int,
-                    gcnt: int) -> None:
+                    gcnt: int, mesh=None) -> None:
+    """Write the checkpoint; under a mesh every rank gathers the shards
+    (a collective) and rank 0 writes the unmeshed format."""
+    if mesh is not None:
+        model_sd = full_state_dict(model)
+        opt_sd = full_optimizer_state(model, optimizer)
+        if mesh.rank != 0:
+            return
+    else:
+        model_sd, opt_sd = model.state_dict(), optimizer.state_dict()
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     payload = {"format_version": CKPT_FORMAT_VERSION,
-               "model": model.state_dict(),
-               "optimizer": optimizer.state_dict(),
+               "model": model_sd, "optimizer": opt_sd,
                "epoch": int(epoch), "gcnt": int(gcnt)}
     tmp = path + ".tmp"
     torch.save(payload, tmp)

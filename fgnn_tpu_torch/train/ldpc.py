@@ -33,14 +33,28 @@ convergence flag to the node features (a model of node-feature width 4).
 ``--workers N`` synthesises the training samples in N worker processes
 (``data.loader.PoolBatcher``, default 0: inline); the train loop stages
 batches on the device from a prefetch thread (``device_prefetch``) and
-the decoder synthesises its batches in one (``prefetch``).  ``--mesh``
-raises: it is not ported yet (``UNPORTED``; ROADMAP.md, port queue item
-6).
+the decoder synthesises its batches in one (``prefetch``).
+
+``--mesh DPxTP`` trains on dp * tp ranks, one process each, started by
+``torchrun`` (``torch.distributed``: NCCL on one card per rank, gloo with
+``--device cpu``):
+
+    torchrun --nproc-per-node 2 -m fgnn_tpu_torch.train.ldpc --train \
+        --mesh 2x1
+
+Every rank synthesises the same global batch from the seed and keeps its
+rows (``train.common.prepare_mesh_training``), so the run sees the
+single-device run's data; the BatchNorm statistics are those of the
+global batch, the wide parameters are sharded over the model axis, the
+gradients averaged over the data axis.  Rank 0 alone logs and writes the
+checkpoints, in the unmeshed format.  A spec that is not the world size
+raises ``ValueError`` before anything is written.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 import functools
 import logging
@@ -50,6 +64,7 @@ from itertools import islice
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from .. import resolve_device
@@ -67,14 +82,19 @@ from ..models import LDPCModel, init_weights
 from ..models.ldpc_model import BP_FEATURE_DIM, NODE_FEATURE_DIM
 from ..models.policy import bf16_policy
 from ..ops.bp import BPGraphArrays, bp_decode_batch
+from ..parallel.comm import mean_over
+from ..parallel.sharding import unshard
 from ..utils.logging import MetricsWriter, init_logger
 from .common import (
     Schedules,
-    check_ported,
     is_train_checkpoint,
     load_checkpoint as load_train_checkpoint,
     make_optimizer,
+    mean_metrics,
+    mesh_group,
+    prepare_mesh_training,
     read_checkpoint,
+    reduce_gradients,
     save_checkpoint,
     set_lr,
 )
@@ -86,10 +106,6 @@ SNRS = (0, 1, 2, 3, 4)
 SIGMA_BS = (0, 1, 2, 3, 4, 5)
 _INPUTS = ("node_feature", "hop_feature", "efeature_f2v", "efeature_v2f")
 BP_FEATURE_LOOPS = 50
-# flag -> (its value when unused, the ROADMAP.md port-queue item it waits for)
-UNPORTED = {
-    "mesh": ("", "item 6 (parallel/)"),
-}
 
 log = logging.getLogger(__name__)
 
@@ -276,13 +292,17 @@ def stage_batch(model: LDPCModel, batch: dict, device) -> dict:
 
 def train_step(model: LDPCModel, optimizer: torch.optim.Optimizer,
                batch: dict, device, clean_weight: float = 0.0,
-               bp_features: bool = False) -> dict:
+               bp_features: bool = False, mesh=None) -> dict:
     """One Adam step on one batch: a numpy batch, or one that
     ``stage_batch`` already put on ``device``; with ``bp_features`` the
     sum-product features are appended on the device first.  Returns the
     JAX trainer's metrics as device scalars, {loss (the BCE),
     sigma_b_loss, acc}, and leaves the step's gradients in the
-    parameters' ``.grad``."""
+    parameters' ``.grad``.  Under a ``mesh`` the batch is this rank's
+    rows, and the returned metrics and the gradients are this rank's:
+    the mean of each over the data axis is the global batch's (the
+    weighted BCE of ``clean_weight`` divides by the data-axis mean of the
+    weights' sums, so it too)."""
     if not isinstance(batch["label"], torch.Tensor):
         batch = stage_batch(model, batch, device)
     model.train()
@@ -298,13 +318,15 @@ def train_step(model: LDPCModel, optimizer: torch.optim.Optimizer,
         # --clean-weight: upweight the sigma_b <= 1 samples, where
         # classical BP is near-ML
         w = 1.0 + clean_weight * (sigma_b <= 1.0).float()
-        bce = (w * per_bit.mean(dim=-1)).sum() / w.sum()
+        bce = (w * per_bit.mean(dim=-1)).sum() / mean_over(
+            w.sum(), None if mesh is None else mesh.data_group)
     else:
         bce = per_bit.mean()
     mse = (sb_pred.reshape(-1) - torch.pow(10.0, sigma_b / 20.0)).square() \
         .mean()
     optimizer.zero_grad(set_to_none=True)
     (bce + 0.1 * mse).backward()
+    reduce_gradients(model.parameters(), mesh)
     optimizer.step()
     with torch.no_grad():
         acc = ((logits > 0).to(batch["label"].dtype)
@@ -318,9 +340,12 @@ def train(args, model: LDPCModel, writer: MetricsWriter, model_dir: str, *,
     resuming from ``args.model_path`` when that checkpoint exists, with
     the sum-product features when ``args.bp_features``, the samples
     synthesised by ``args.workers`` processes (0: inline), under the bf16
-    compute policy when ``args.bf16``.  Saves ``ldpc_latest.ckpt`` after
-    each epoch and ``ldpc_final.ckpt`` at the end, in ``model_dir``."""
-    check_ported(args, UNPORTED)
+    compute policy when ``args.bf16``, over the ranks of ``args.mesh``
+    when it is set (in the caller's process group, else in one of
+    torchrun's that ``train`` starts and ends).  Saves
+    ``ldpc_latest.ckpt`` after each epoch and ``ldpc_final.ckpt`` at the
+    end, in ``model_dir`` (under a mesh: rank 0, which alone writes to
+    ``writer``).  Returns the trained model, unmeshed."""
     dev = resolve_device(device)
     # The pool forks before this process's first CUDA call, as the JAX
     # trainer forks before its backend starts (data.loader.PoolBatcher).
@@ -332,7 +357,8 @@ def train(args, model: LDPCModel, writer: MetricsWriter, model_dir: str, *,
                               seed=args.seed),
             args.batch_size, n_workers=args.workers, seed=args.seed)
     try:
-        with bf16_policy(getattr(args, "bf16", False)):
+        with bf16_policy(getattr(args, "bf16", False)), \
+                mesh_group(args, dev) as dev:
             return _train(args, model, writer, model_dir, dev, pool)
     finally:
         if pool is not None:
@@ -356,6 +382,12 @@ def _train(args, model, writer, model_dir, dev, pool):
     if args.model_path and os.path.exists(args.model_path):
         start_epoch, gcnt = load_train_checkpoint(args.model_path, model,
                                                   optimizer)
+    mesh, rows = None, (lambda b: b)
+    if getattr(args, "mesh", ""):
+        mesh, rows = prepare_mesh_training(args.mesh, model, optimizer,
+                                           args.batch_size, dev)
+        log.info("sharded training over mesh %s", mesh.shape)
+    main_rank = mesh is None or mesh.rank == 0
     steps_per_epoch = (args.steps_per_epoch
                        or len(dataset) // args.batch_size)
     log.info("training: %d epochs x %d steps on %s", args.n_epochs,
@@ -372,24 +404,25 @@ def _train(args, model, writer, model_dir, dev, pool):
                               steps_per_epoch))
         pending = []
         with device_prefetch(source, dev, put=lambda b: stage_batch(
-                model, b, dev)) as staged:
+                model, rows(b), dev)) as staged:
             for bcnt, batch in enumerate(staged):
                 pending.append(train_step(model, optimizer, batch, dev,
-                                          args.clean_weight, bp_feats))
+                                          args.clean_weight, bp_feats,
+                                          mesh=mesh))
                 gcnt += 1
                 if gcnt % 10 == 0:
-                    mm = {k: float(torch.stack([m[k] for m in pending])
-                                   .double().mean()) for k in pending[0]}
+                    mm = mean_metrics(pending, mesh)
                     pending = []
-                    for k in ("loss", "sigma_b_loss", "acc"):
-                        writer.add_scalar(f"syn_train/{k}", mm[k], gcnt)
+                    if main_rank:
+                        for k in ("loss", "sigma_b_loss", "acc"):
+                            writer.add_scalar(f"syn_train/{k}", mm[k], gcnt)
                     log.info("epoch=%d bcnt=%d loss=%.4f acc=%.4f", epoch,
                              bcnt, mm["loss"], mm["acc"])
         log.info("epoch %d done in %.1fs", epoch, time.time() - t0)
-        save_checkpoint(ckpt_path, model, optimizer, epoch + 1, gcnt)
+        save_checkpoint(ckpt_path, model, optimizer, epoch + 1, gcnt, mesh)
     save_checkpoint(os.path.join(model_dir, "ldpc_final.ckpt"), model,
-                    optimizer, args.n_epochs, gcnt)
-    return model
+                    optimizer, args.n_epochs, gcnt, mesh)
+    return model if mesh is None else unshard(model)
 
 
 def parse_args(argv=None):
@@ -430,14 +463,14 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true", default=False,
                    help="bfloat16 compute policy (f32 params/stats)")
     p.add_argument("--mesh", type=str, default="",
-                   help="DPxTP device mesh: not ported yet")
+                   help="DPxTP mesh of the ranks torchrun starts (e.g. 2x1, "
+                        "1x2, or 'auto'); empty = one process")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    check_ported(args, UNPORTED)
     dev = resolve_device(args.device)
     if not args.train:
         logging.basicConfig(level=logging.INFO,
@@ -445,14 +478,19 @@ def main(argv=None):
         log.info("%s", args)
         evaluate(args, device=dev)
         return
-    stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
-    work = os.path.join(args.work_dir,
-                        f"ldpc_{args.model_name}_snr_{args.snr}_at_{stamp}")
-    init_logger(os.path.join(work, "logs"), "train", print_log=True)
-    log.info("%s", args)
-    model = init_weights(new_model(args), args.seed)
-    with MetricsWriter(os.path.join(work, "tf_logs")) as writer:
-        train(args, model, writer, work, device=dev)
+    with mesh_group(args, dev) as dev:
+        # under a mesh rank 0 alone makes the run's directory and writes
+        main_rank = not args.mesh or dist.get_rank() == 0
+        stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+        work = os.path.join(
+            args.work_dir, f"ldpc_{args.model_name}_snr_{args.snr}_at_{stamp}")
+        if main_rank:
+            init_logger(os.path.join(work, "logs"), "train", print_log=True)
+        log.info("%s", args)
+        model = init_weights(new_model(args), args.seed)
+        with (MetricsWriter(os.path.join(work, "tf_logs")) if main_rank
+              else contextlib.nullcontext()) as writer:
+            train(args, model, writer, work, device=dev)
 
 
 if __name__ == "__main__":

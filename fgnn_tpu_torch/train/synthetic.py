@@ -50,13 +50,21 @@ trainer's flag.  ``--model-path`` names a trainer checkpoint to resume
 from when it exists: the port's (``latest.ckpt``, a ``torch.save``) or the
 JAX trainer's pickle of the same workload, either optimizer layout
 (``jax_checkpoint.py``); a JAX hop checkpoint also resumes ``--coo``,
-whose model has the dense model's parameters.  The flags of the JAX
-trainer that the port does not carry yet raise (``UNPORTED``).
+whose model has the dense model's parameters.
+
+``--mesh DPxTP`` trains on dp * tp ranks started by ``torchrun``, as the
+LDPC trainer does (``train/ldpc.py``): each rank takes its rows of every
+batch (a ``--coo`` batch, a flat union, is replicated, as the JAX package
+replicates it), the gradients are averaged over the data axis before
+clipping (which counts each shard once), rank 0 alone logs and writes
+the checkpoints (unmeshed), and the test runs replicated on the gathered
+parameters.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 import functools
 import logging
@@ -66,6 +74,7 @@ from itertools import islice
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from .. import resolve_device
@@ -95,13 +104,17 @@ from ..data.loader import to_device
 from ..graph import build_joint_coo
 from ..models.policy import bf16_policy
 from ..ops.typed_mp import GatherTable
+from ..parallel.sharding import set_data_group, shard_originals, unshard
 from ..utils.logging import MetricsWriter, init_logger
 from .common import (
     Schedules,
-    check_ported,
     clip_grad_norm,
     load_checkpoint,
     make_optimizer,
+    mean_metrics,
+    mesh_group,
+    prepare_mesh_training,
+    reduce_gradients,
     save_checkpoint,
     set_lr,
 )
@@ -109,11 +122,6 @@ from .common import (
 BASE_LR = 3e-3
 CLIP_NORM = 1.0
 LR_DECAY = 0.98
-
-# flag -> (its value when unused, the ROADMAP.md port-queue item it waits for)
-UNPORTED = {
-    "mesh": ("", "item 6 (parallel/)"),
-}
 
 log = logging.getLogger(__name__)
 
@@ -258,11 +266,12 @@ class SynWorkload:
 
 
 def train_step(wl: SynWorkload, optimizer: torch.optim.Optimizer,
-               batch: dict, device) -> dict:
+               batch: dict, device, mesh=None) -> dict:
     """One clipped Adam step on one batch (numpy, or staged by
     ``wl.stage``): the JAX ``make_train_step``.  Returns {loss, acc,
     lp_acc} as device scalars and leaves the clipped gradients in the
-    parameters' ``.grad``."""
+    parameters' ``.grad``.  Under a ``mesh``: this rank's rows and
+    metrics, the gradients averaged over the data axis."""
     if not isinstance(batch["label"], torch.Tensor):
         batch = wl.stage(batch, device)
     model = wl.model.train()
@@ -272,7 +281,9 @@ def train_step(wl: SynWorkload, optimizer: torch.optim.Optimizer,
     loss = F.cross_entropy(logits.reshape(-1, 2), label.reshape(-1))
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
-    clip_grad_norm(model.parameters(), CLIP_NORM)
+    reduce_gradients(model.parameters(), mesh)
+    clip_grad_norm(model.parameters(), CLIP_NORM, mesh,
+                   shard_originals(model) if mesh is not None else ())
     optimizer.step()
     with torch.no_grad():
         acc = (logits.argmax(dim=-1) == label).float().mean()
@@ -297,11 +308,13 @@ def train_and_eval(workload: str, args, *, device=None):
     exists), saving ``latest.ckpt`` after each epoch, then test on
     ``max(test_size // batch_size, 1)`` batches (of ``args.test_path``, or
     fresh), all under the bf16 compute policy when ``args.bf16``.  Returns
-    (acc, lp_acc) against the exact MAP labels."""
-    check_ported(args, UNPORTED)
+    (acc, lp_acc) against the exact MAP labels.  With ``args.mesh``, over
+    its ranks (in the caller's process group, else in one of torchrun's
+    that this starts and ends); every rank returns the same."""
     dev = resolve_device(device if device is not None
                          else getattr(args, "device", None))
-    with bf16_policy(getattr(args, "bf16", False)):
+    with bf16_policy(getattr(args, "bf16", False)), \
+            mesh_group(args, dev) as dev:
         return _train_and_eval(workload, args, dev)
 
 
@@ -348,7 +361,8 @@ def _train_and_eval(workload: str, args, dev):
     stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
     work = os.path.join(args.work_dir,
                         f"syn_{workload}_{args.model_name}_at_{stamp}")
-    init_logger(os.path.join(work, "logs"), "train", print_log=True)
+    if not getattr(args, "mesh", "") or dist.get_rank() == 0:
+        init_logger(os.path.join(work, "logs"), "train", print_log=True)
     log.info("%s", args)
 
     # The training batches' source, as the JAX trainer chooses it: a
@@ -402,9 +416,21 @@ def _run(wl, workload, args, dev, work, batch_source, steps_per_epoch):
     if args.model_path and os.path.exists(args.model_path):
         start_epoch, gcnt = load_checkpoint(args.model_path, wl.model,
                                             optimizer)
+    mesh, rows = None, (lambda b: b)
+    if getattr(args, "mesh", ""):
+        mesh, rows = prepare_mesh_training(args.mesh, wl.model, optimizer,
+                                           args.batch_size, dev)
+        if wl.buckets is not None:
+            # a flat union's tables cover the whole batch: every rank
+            # computes all of it, as the JAX package replicates it
+            rows = lambda b: b  # noqa: E731
+            set_data_group(wl.model, None)
+        log.info("sharded training over mesh %s", mesh.shape)
+    main_rank = mesh is None or mesh.rank == 0
     log.info("training %s: %d epochs x %d steps on %s", workload,
              args.train_epoches, steps_per_epoch, dev)
-    with MetricsWriter(os.path.join(work, "tf_logs")) as writer:
+    with (MetricsWriter(os.path.join(work, "tf_logs")) if main_rank
+          else contextlib.nullcontext()) as writer:
         for epoch in range(start_epoch, args.train_epoches):
             set_lr(optimizer, BASE_LR * sched(epoch))
             t0 = time.time()
@@ -412,28 +438,32 @@ def _run(wl, workload, args, dev, work, batch_source, steps_per_epoch):
             # stay there until the logging boundary
             pending = []
             with device_prefetch(batch_source(steps_per_epoch), dev,
-                                 put=lambda b: wl.stage(b, dev)) as staged:
+                                 put=lambda b: wl.stage(rows(b), dev)
+                                 ) as staged:
                 for bcnt, batch in enumerate(staged):
-                    pending.append(train_step(wl, optimizer, batch, dev))
+                    pending.append(train_step(wl, optimizer, batch, dev,
+                                              mesh=mesh))
                     gcnt += 1
                     if gcnt % 10 == 0:
-                        mm = {k: float(torch.stack([m[k] for m in pending])
-                                       .double().mean())
-                              for k in pending[0]}
+                        mm = mean_metrics(pending, mesh)
                         pending = []
-                        for k, v in mm.items():
-                            writer.add_scalar(f"syn_train/{k}", v, gcnt)
+                        if main_rank:
+                            for k, v in mm.items():
+                                writer.add_scalar(f"syn_train/{k}", v, gcnt)
                         log.info("epoch=%d bcnt=%d %s", epoch, bcnt,
                                  {k: round(v, 4) for k, v in mm.items()})
             save_checkpoint(os.path.join(work, "latest.ckpt"), wl.model,
-                            optimizer, epoch + 1, gcnt)
+                            optimizer, epoch + 1, gcnt, mesh)
             # the checkpoint copied the weights to the host: the device is
             # done, so the epoch's wall time holds all of its work
             seconds = time.time() - t0
-            writer.add_scalar("syn_train/samples_per_s",
-                              steps_per_epoch * args.batch_size / seconds,
-                              gcnt)
+            if main_rank:
+                writer.add_scalar("syn_train/samples_per_s",
+                                  steps_per_epoch * args.batch_size / seconds,
+                                  gcnt)
             log.info("epoch %d done in %.1fs", epoch, seconds)
+        if mesh is not None:
+            unshard(wl.model)
 
         # ---- test: the test set, or fresh oracle-labelled batches
         t0 = time.time()
@@ -448,11 +478,12 @@ def _run(wl, workload, args, dev, work, batch_source, steps_per_epoch):
             lp_accs.append((batch["lp_label"] == batch["label"]).mean())
         acc, lp_acc = float(np.mean(accs)), float(np.mean(lp_accs))
         log.info("testing result: acc = %.4f, acc_lp = %.4f", acc, lp_acc)
-        writer.add_scalar("syn_test/acc", acc, gcnt)
-        writer.add_scalar("syn_test/lp_acc", lp_acc, gcnt)
-        writer.add_scalar("syn_test/samples_per_s",
-                          eval_batches * args.batch_size
-                          / (time.time() - t0), gcnt)
+        if main_rank:
+            writer.add_scalar("syn_test/acc", acc, gcnt)
+            writer.add_scalar("syn_test/lp_acc", lp_acc, gcnt)
+            writer.add_scalar("syn_test/samples_per_s",
+                              eval_batches * args.batch_size
+                              / (time.time() - t0), gcnt)
     return acc, lp_acc
 
 
@@ -490,7 +521,8 @@ def parse_args(argv=None, workload: str = "fixed"):
     p.add_argument("--bf16", action="store_true", default=False,
                    help="bfloat16 compute policy (f32 params/stats)")
     p.add_argument("--mesh", type=str, default="",
-                   help="DPxTP device mesh: not ported yet")
+                   help="DPxTP mesh of the ranks torchrun starts (e.g. 2x1, "
+                        "1x2, or 'auto'); empty = one process")
     p.add_argument("--coo", action="store_true", default=False,
                    help="(hop) batch via the FactorGraph COO disjoint union "
                         "instead of dense (B, N, K) tables")

@@ -429,5 +429,7 @@ def test_import_leaves_no_jax_module():
     for mod in ("data.bp_ref", "data.ldpc_cpp", "data.loader",
                 "data.generate", "data.reference_io", "ops.bp",
                 "models.containers", "train.synthetic",
-                "train.jax_checkpoint"):
+                "train.jax_checkpoint", "parallel.mesh", "parallel.comm",
+                "parallel.sharding", "parallel.edge_partition",
+                "parallel.halo", "parallel.launch"):
         assert f"'fgnn_tpu_torch.{mod}'" in loaded, mod

@@ -244,7 +244,7 @@ def test_exp_decay_schedule_matches_jax():
 def _record(monkeypatch):
     seen = {"train": [], "eval": []}
 
-    def train_step(wl, optimizer, batch, device):
+    def train_step(wl, optimizer, batch, device, mesh=None):
         seen["train"].append(batch)
         return {k: torch.zeros(()) for k in ("loss", "acc", "lp_acc")}
 
@@ -397,10 +397,14 @@ def test_cli_without_device_needs_cuda(tmp_path):
     pytest.param("ldpc", ["--mesh", "8x1"], "item 6",
                  id="ldpc-flag0-item 6")])
 def test_unported_flags_raise(tmp_path, cli, flag, item):
+    """--mesh, the last flag that waited for a port-queue item (ROADMAP.md,
+    ``item``), is ported: a mesh that is not the world size (8 ranks, in a
+    world of one) raises ValueError, naming the world size, before
+    anything is written."""
     main, argv = ((t_ldpc.main, ["--train"]) if cli == "ldpc"
                   else (partial(t_syn.main, "hop"), ["--workers", "0"]))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, port queue "
-                                                  f"{item}"):
+    with pytest.raises(ValueError, match="needs 8 ranks; the world size "
+                                         "is 1"):
         main(argv + ["--device", "cpu", "--work-dir", str(tmp_path), *flag])
     assert not os.listdir(tmp_path)
 

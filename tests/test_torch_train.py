@@ -301,8 +301,7 @@ def test_cli_defaults_match_jax():
     turns it off), --workers and --bp-features as the JAX parser reads
     them."""
     t, j = vars(t_ldpc.parse_args([])), vars(j_ldpc.parse_args([]))
-    # every flag of the JAX CLI (--mesh raises: port queue item 6), and
-    # the port's --device
+    # every flag of the JAX CLI and the port's --device
     assert set(t) == set(j) | {"device"}
     for k in set(t) - {"device"}:
         assert t[k] == j[k], k
@@ -323,7 +322,7 @@ def test_worker_pool_trains_on_the_jax_pool_stream(monkeypatch, tmp_path):
     seen = []
 
     def record(model, optimizer, batch, device, clean_weight=0.0,
-               bp_features=False):
+               bp_features=False, mesh=None):
         seen.append(batch)
         return {k: torch.zeros(()) for k in ("loss", "sigma_b_loss", "acc")}
 
@@ -389,7 +388,7 @@ def test_trainer_sees_the_jax_batches(monkeypatch, tmp_path):
     seen = []
 
     def record(model, optimizer, batch, device, clean_weight=0.0,
-               bp_features=False):
+               bp_features=False, mesh=None):
         seen.append(batch)
         return {k: torch.zeros(()) for k in ("loss", "sigma_b_loss", "acc")}
 
