@@ -208,6 +208,32 @@ Phases, one JSON line each:
                    through NCCL, one rank per card: ``--mesh {n}x1``, n =
                    min(count, 4), and ``2x2`` at four; on one card it
                    prints the count and that it did not run
+  joint            FactorMPNN (the synthetic widths, the JAX defaults) on a
+                   ContinuousCodesJoint batch of 256 over the joint
+                   [96 ; 48] table (N = Nd = 144, K = 6, T = 2): the eval
+                   forward against the CPU on the same weights
+                   (``decode_vs_cpu``'s rule), one train-mode forward and
+                   backward counted from 0 (6 DIFF/NEIGHBOR launches each
+                   way on the staged routes, nothing else), every conv's h,
+                   table and etype of that run through both kernels and
+                   their plain versions in f32 and bf16; forward and step
+                   ms; each joint kernel shape by ``device_ms`` beside its
+                   bound, in both dtypes
+  entry            ``fgnn_tpu_torch.entry.entry()`` on cuda:0: 16 forward
+                   launches, outputs against ``entry(device="cpu")``; ms
+                   per call
+  dryrun           ``dryrun_multichip(1)`` over NCCL and ``(4,
+                   backend="gloo")``, four ranks sharing cuda:0 on a 2x2
+                   mesh: the printed line's numbers finite, on every rank
+                   16 forward and 15 backward launches, each loss within
+                   LOSS_RTOL of one process's step on the same weights and
+                   batch; with 2 cards or more ``dryrun_multichip(cards)``
+                   over NCCL
+  utils            ``nan_debug`` on the card (a NaN planted in the input, a
+                   NaN that only a kernel writes, a NaN cotangent: each
+                   raises; the clean forward passes with 16 launches),
+                   ``check_finite``, ``device_memory_stats``, ``trace``
+                   with an ``annotate`` range
 
 The phases that train the synthetic workloads without naming
 ``--workers`` pass ``--workers 0``: inline synthesis, as they ran before the
@@ -949,21 +975,30 @@ def phase_bp_decode(torch, dev, path):
             f"{BP_ONE_SIDED} of {words}")
 
 
+def _vs_cpu(torch, gpu, cpu, what):
+    """A card result against the CPU's (``decode_vs_cpu``, ``joint``,
+    ``entry``): max abs diff 1e-3, signs equal where the CPU's value
+    exceeds 1e-3.  Returns (diff, values compared)."""
+    require(gpu.shape == cpu.shape, f"{what}: shapes {gpu.shape} {cpu.shape}")
+    require(torch.isfinite(gpu).all().item(), f"{what}: finite")
+    diff = (gpu - cpu).abs().max().item()
+    require(diff <= 1e-3, f"{what}: max abs diff {diff} > 1e-3")
+    sure = cpu.abs() > 1e-3
+    require(((gpu >= 0) == (cpu >= 0))[sure].all().item(),
+            f"{what}: signs agree where |value| > 1e-3")
+    return diff, int(sure.sum().item())
+
+
 def phase_decode_vs_cpu(torch, model, batch, dev):
     from fgnn_tpu_torch.train.ldpc import decode_logits
 
     gpu = decode_logits(model, batch, dev).cpu()
     cpu_model = copy.deepcopy(model).cpu().eval()
     cpu = decode_logits(cpu_model, batch, "cpu")
-    require(gpu.shape == cpu.shape == (BATCH, 48), "logits (256, 48)")
-    require(torch.isfinite(gpu).all().item(), "finite logits")
-    diff = (gpu - cpu).abs().max().item()
-    require(diff <= 1e-3, f"logits max abs diff {diff} > 1e-3")
-    sure = cpu.abs() > 1e-3
-    require(((gpu >= 0) == (cpu >= 0))[sure].all().item(),
-            "hard decisions agree where |logit| > 1e-3")
+    require(gpu.shape == (BATCH, 48), "logits (256, 48)")
+    diff, compared = _vs_cpu(torch, gpu, cpu, "decode logits")
     emit("decode_vs_cpu", logits_max_abs_diff=diff,
-         decisions_compared=int(sure.sum().item()))
+         decisions_compared=compared)
 
 
 def phase_train(torch, fused_mp, dev, tmp):
@@ -3611,6 +3646,422 @@ def phase_mesh_halo(torch, dev):
          readings=readings)
 
 
+# The joint LDPC formulation (joint): FactorMPNN over the [96 variables ;
+# 48 checks] graph of ContinuousCodesJoint (N = Nd = 144, K = 6, T = 2),
+# at the synthetic models' widths and the JAX defaults
+# (gnn_immediate_dim = max_mpnn_dim = 64): per forward 5 MPConvResidual
+# convs (max, C = 64) and the last MPConv (softmax, C = 2), all DIFF; the
+# other four layers are pointwise.  (name, C, aggregator, launches per
+# forward = per backward)
+JOINT_BATCH = 256
+JOINT_DIMS = (64, 64, 128, 128, 256, 256, 128, 128, 64, 64, 2)
+JOINT_SHAPES = [("joint_c64", 64, "max", 5), ("joint_c2", 2, "softmax", 1)]
+JOINT_PER_STEP = sum(s[3] for s in JOINT_SHAPES)   # 6
+JOINT_N, JOINT_K, JOINT_T = 144, 6, 2
+# The entry points (entry, dryrun): the flagship decoder's 16 forward and
+# 15 backward NO_EXTENSION launches a step, on every rank
+DRYRUN_WORLDS = (1, 4)
+
+
+def _joint_inputs(torch, batch, dev):
+    from fgnn_tpu_torch.ops.typed_mp import GatherTable
+
+    nn_idx = batch["nn_idx"]
+    require((nn_idx == nn_idx[:1]).all(), "joint: every sample's table equal")
+    table = GatherTable(nn_idx[0], nn_idx.shape[1]).to(dev)
+    return ([torch.from_numpy(batch["node_feature"]).to(dev)],
+            [torch.from_numpy(batch["hop_feature"]).to(dev)], table,
+            torch.from_numpy(batch["etype"]).to(dev))
+
+
+def phase_joint(torch, fused_mp, dev):
+    """FactorMPNN on a ContinuousCodesJoint batch of 256 at the synthetic
+    widths: the eval forward on the card against the CPU on the same
+    weights (``decode_vs_cpu``'s rule, node and factor outputs); one
+    train-mode forward and backward of sum(x * g1) + sum(f * g2), counted
+    from 0: 6 DIFF/NEIGHBOR forward and 6 backward launches on the staged
+    routes, nothing else; every conv's h, table and etype of that run
+    through both kernels and their plain versions on the card, f32 and
+    bf16, forward and backward; the forward and the step by CUDA events;
+    each joint kernel shape by ``device_ms`` beside its bound, both dtypes.
+    Returns (counts, rows, the worst kernel error)."""
+    from fgnn_tpu_torch.data import ContinuousCodesJoint
+    from fgnn_tpu_torch.models import FactorMPNN, init_weights
+
+    t0 = time.perf_counter()
+    batch = next(ContinuousCodesJoint(length=JOINT_BATCH, seed=0)
+                 .batches(JOINT_BATCH))
+    nodes, hops, table, etype = _joint_inputs(torch, batch, dev)
+    model = init_weights(FactorMPNN(2, [6], JOINT_DIMS, [2]), 0).to(dev)
+    model.eval()
+    with torch.no_grad():
+        x, fs = model(nodes[0], hops, [table], [etype])
+        cpu_model = copy.deepcopy(model).cpu()
+        cx, cfs = cpu_model(nodes[0].cpu(), [hops[0].cpu()],
+                            [copy.deepcopy(table).cpu()], [etype.cpu()])
+    x_diff, x_n = _vs_cpu(torch, x.cpu(), cx, "joint node outputs")
+    f_diff, f_n = _vs_cpu(torch, fs[0].cpu(), cfs[0], "joint factor outputs")
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    g1 = torch.randn(JOINT_BATCH, 96, 2, device="cuda", generator=gen)
+    g2 = torch.randn(JOINT_BATCH, 48, 2, device="cuda", generator=gen)
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        x, fs = model(nodes[0], hops, [table], [etype])
+        ((x * g1).sum() + (fs[0] * g2).sum()).backward()
+
+    model.train()
+    seen, real = [], fused_mp.typed_mp_fwd
+
+    def record(h, tbl, et, aggregator, gamma=3.0, ext=False):
+        seen.append((h.detach().clone(), tbl, et.detach().clone(),
+                     aggregator, ext))
+        return real(h, tbl, et, aggregator, gamma, ext)
+
+    fused_mp.typed_mp_fwd = record
+    try:
+        fused_mp.reset_counts()
+        step()
+        torch.cuda.synchronize()
+    finally:
+        fused_mp.typed_mp_fwd = real
+    counts = {n: dict(c) for n, c in (
+        ("fwd", fused_mp.EXT_COUNTS), ("bwd", fused_mp.EXT_BWD_COUNTS),
+        ("kept_fwd", fused_mp.KEPT_EXT_COUNTS),
+        ("kept_bwd", fused_mp.KEPT_EXT_BWD_COUNTS),
+        ("no_ext_fwd", fused_mp.COUNTS), ("no_ext_bwd", fused_mp.BWD_COUNTS))}
+    require(counts["fwd"]["kernel_launches"] == JOINT_PER_STEP
+            and counts["bwd"]["kernel_launches"] == JOINT_PER_STEP,
+            f"joint: {JOINT_PER_STEP} forward and backward launches a step; "
+            f"got {counts}")
+    require(all(c.get("plain_calls", 0) == 0 for c in counts.values())
+            and all(counts[k]["kernel_launches"] == 0 for k in (
+                "kept_fwd", "kept_bwd", "no_ext_fwd", "no_ext_bwd")),
+            f"joint: no plain version, no kept route; got {counts}")
+    require(all(p.grad is not None and torch.isfinite(p.grad).all().item()
+                for p in model.parameters()), "joint: finite gradients")
+    shapes = sorted({(s[0].shape[-1], s[3]) for s in seen})
+    require(len(seen) == JOINT_PER_STEP and all(s[4] for s in seen)
+            and shapes == sorted((c, a) for _, c, a, _ in JOINT_SHAPES),
+            f"joint: the convs' (C, aggregator) {shapes}")
+
+    # every recorded conv through both kernels and their plain versions
+    worst, worst_b16 = 0.0, 0.0
+    for i, (h, tbl, et, agg, _) in enumerate(seen):
+        gen = torch.Generator(device="cuda").manual_seed(800 + i)
+        g = torch.randn(h.shape[0], JOINT_N, h.shape[-1], device="cuda",
+                        generator=gen)
+        for dt in (torch.float32, torch.bfloat16):
+            hd, gd = h.to(dt), g.to(dt)
+            kw = dict(ext=True, want_lse=agg == "softmax")
+            res = fused_mp.typed_gather_mix_agg(hd, tbl.idx, et, agg, 3.0,
+                                                agg == "max", **kw)
+            ref = fused_mp.typed_gather_mix_agg_plain(
+                hd, tbl.idx, et, agg, 3.0, agg == "max", **kw)
+            got = fused_mp.typed_gather_mix_agg_bwd(
+                gd, hd, tbl.idx, tbl.ext_ptr, tbl.ext_edge, et, agg, 3.0,
+                argmax=res[1] if agg == "max" else None,
+                out=res[1] if agg == "softmax" else None, ext=True)
+            want = fused_mp.typed_gather_mix_agg_bwd_plain(
+                gd, hd, tbl.idx, et, agg, 3.0,
+                argmax=res[1] if agg == "max" else None,
+                out=res[1] if agg == "softmax" else None, ext=True)
+            torch.cuda.synchronize()
+            what = f"joint conv {i} ({agg}, C={h.shape[-1]}, {dt})"
+            if dt == torch.float32:
+                worst = max(worst, _check_close(torch, res[0], ref[0], what),
+                            _check_close(torch, got[0], want[0],
+                                         what + " dh"),
+                            _check_close(torch, got[1], want[1],
+                                         what + " d_etype"))
+            else:
+                worst_b16 = max(worst_b16,
+                                _check_bf16_out(torch, res[0], ref[0], what),
+                                _check_grads(torch, got, want, what))
+
+    model.eval()
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: model(nodes[0], hops, [table], [etype]),
+                         10, torch)
+    model.train()
+    step_ms = cuda_ms(step, 10, torch)
+
+    rows = []
+    for name, C, agg, per_step in JOINT_SHAPES:
+        h, tbl, et = next((s[0], s[1], s[2]) for s in seen
+                          if s[0].shape[-1] == C)
+        B, rows2 = h.shape[0], h.shape[1]
+        N, K, T = JOINT_N, JOINT_K, JOINT_T
+        argmax = agg == "max"
+        gen = torch.Generator(device="cuda").manual_seed(900 + C)
+        g = torch.randn(B, N, C, device="cuda", generator=gen)
+        row = dict(name=name, B=B, N=N, Nd=N, K=K, T=T, C=C, aggregator=agg,
+                   per_joint_step=per_step)
+        table_ints = (tbl.idx.numel() + tbl.ext_ptr.numel()
+                      + tbl.ext_edge.numel())
+        for dt, tag in ((torch.float32, ""), (torch.bfloat16, "bf16_")):
+            hd, gd = h.to(dt), g.to(dt)
+            kw = dict(ext=True, want_lse=agg == "softmax")
+
+            def fwd(hd=hd, kw=kw):
+                return fused_mp.typed_gather_mix_agg(hd, tbl.idx, et, agg,
+                                                     3.0, argmax, **kw)
+
+            res = fwd()
+            saved = res[1]
+
+            def bwd(hd=hd, gd=gd, saved=saved):
+                return fused_mp.typed_gather_mix_agg_bwd(
+                    gd, hd, tbl.idx, tbl.ext_ptr, tbl.ext_edge, et, agg, 3.0,
+                    argmax=saved if argmax else None,
+                    out=saved if agg == "softmax" else None, ext=True)
+
+            def fwd_plain(hd=hd, kw=kw):
+                return fused_mp.typed_gather_mix_agg_plain(
+                    hd, tbl.idx, et, agg, 3.0, argmax, **kw)
+
+            def bwd_plain(hd=hd, gd=gd, saved=saved):
+                return fused_mp.typed_gather_mix_agg_bwd_plain(
+                    gd, hd, tbl.idx, et, agg, 3.0,
+                    argmax=saved if argmax else None,
+                    out=saved if agg == "softmax" else None, ext=True)
+
+            if dt == torch.float32:
+                fb = (4 * (hd.numel() + tbl.idx.numel() + et.numel()
+                           + B * N * C) + (B * N * C if argmax else 0))
+                sv = B * N * C * (1 if argmax else 4)
+                bb = (4 * B * N * C + sv + 2 * 4 * hd.numel()
+                      + 2 * 4 * et.numel() + 4 * table_ints)
+            else:
+                fb = _bf16_fwd_bytes(B, rows2, N, K, T, C, argmax)
+                bb = _bf16_bwd_bytes(B, rows2, N, K, T, C, agg, table_ints)
+            fops = B * N * K * C * (3 * T + 1)
+            bops = B * N * K * C * (7 * T + 1 + (3 * T if agg == "softmax"
+                                                 else 0))
+            for kind, fn, plain, nbytes, ops in (
+                    ("fwd", fwd, fwd_plain, fb, fops),
+                    ("bwd", bwd, bwd_plain, bb, bops)):
+                ms, host_ms = device_ms(fn, 200, torch)
+                row.update({
+                    f"{tag}{kind}_ms": ms,
+                    f"{tag}{kind}_wrapper_host_ms": host_ms,
+                    f"{tag}{kind}_plain_ms": device_ms(plain, 20, torch)[0],
+                    f"{tag}{kind}_bytes": nbytes, f"{tag}{kind}_ops": ops,
+                    f"{tag}{kind}_bound_ms": bound_ms(nbytes, ops),
+                    f"{tag}{kind}_bound_by": bound_by(nbytes, ops)})
+        row["slab"] = fused_mp.fwd_slab(B, 2 * N, N, K, T, C, agg)
+        row["bwd_slab"] = fused_mp.bwd_slab(B, 2 * N, N, K, T, C, agg)
+        row["bf16_plan"] = list(fused_mp.fwd_bf16_plan(B, 2 * N, N, K, T, C))
+        row["bf16_bwd_plan"] = list(fused_mp.bwd_ext_plan(B, 2 * N, N, K, T,
+                                                          C, agg))
+        rows.append(row)
+        emit("joint_kernel", **row)
+
+    def per_step(key):
+        return sum(r[key] * r["per_joint_step"] for r in rows)
+
+    emit("joint", batch_size=JOINT_BATCH, dims=list(JOINT_DIMS),
+         nodes_vs_cpu_max_abs_diff=x_diff, nodes_compared=x_n,
+         factors_vs_cpu_max_abs_diff=f_diff, factors_compared=f_n,
+         fwd_launches=counts["fwd"]["kernel_launches"],
+         bwd_launches=counts["bwd"]["kernel_launches"],
+         kernel_max_abs_err=worst, bf16_kernel_max_abs_err=worst_b16,
+         forward_ms=fwd_ms, step_ms=step_ms,
+         kernels_ms_per_step={k: per_step(k) for k in (
+             "fwd_ms", "bwd_ms", "bf16_fwd_ms", "bf16_bwd_ms")},
+         bound_ms_per_step={k: per_step(k) for k in (
+             "fwd_bound_ms", "bwd_bound_ms", "bf16_fwd_bound_ms",
+             "bf16_bwd_bound_ms")},
+         seconds=time.perf_counter() - t0)
+    return counts, rows, max(worst, worst_b16)
+
+
+def phase_entry(torch, fused_mp, dev):
+    """``entry()`` on cuda:0: 16 NO_EXTENSION forward launches (counted
+    from 0), logits and sigma_b against ``entry(device="cpu")`` on the same
+    weights by ``decode_vs_cpu``'s rule, ms per call.  Returns (fn, args,
+    counts)."""
+    from fgnn_tpu_torch.entry import entry
+
+    t0 = time.perf_counter()
+    fn, args = entry()
+    require(all(a.device == dev for a in args), "entry: args on cuda:0")
+    fused_mp.reset_counts()
+    logits, sigma_b = fn(*args)
+    torch.cuda.synchronize()
+    counts = {"fwd": dict(fused_mp.COUNTS), "bwd": dict(fused_mp.BWD_COUNTS)}
+    require(counts["fwd"]["kernel_launches"] == FWD_PER_STEP
+            and counts["fwd"]["plain_calls"] == 0
+            and counts["bwd"]["kernel_launches"] == 0,
+            f"entry: {FWD_PER_STEP} forward launches; got {counts}")
+    cfn, cargs = entry(device="cpu")
+    clog, csb = cfn(*cargs)
+    l_diff, l_n = _vs_cpu(torch, logits.cpu(), clog, "entry logits")
+    s_diff, _ = _vs_cpu(torch, sigma_b.cpu(), csb, "entry sigma_b")
+    ms = cuda_ms(lambda: fn(*args), 20, torch)
+    emit("entry", shapes=[list(logits.shape), list(sigma_b.shape)],
+         fwd_launches=counts["fwd"]["kernel_launches"],
+         logits_vs_cpu_max_abs_diff=l_diff, logits_compared=l_n,
+         sigma_b_vs_cpu_max_abs_diff=s_diff, ms_per_call=ms,
+         seconds=time.perf_counter() - t0)
+    return fn, args, counts
+
+
+def _dryrun(torch, n, backend=None):
+    """``dryrun_multichip(n)`` with its printed line parsed: finite
+    numbers, on every rank 16 forward and 15 backward launches, no plain
+    version."""
+    import io
+
+    from fgnn_tpu_torch.entry import dryrun_multichip, mesh_spec
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = dryrun_multichip(n, backend=backend)
+    seconds = time.perf_counter() - t0
+    line = buf.getvalue().strip().splitlines()[-1]
+    print(line, flush=True)
+    dp, tp = (int(v) for v in mesh_spec(n).split("x"))
+    head = f"dryrun_multichip({n}): mesh={{'data': {dp}, 'model': {tp}}} "
+    require(line.startswith(head), f"dryrun({n}): line {line!r}")
+    nums = {k: float(v) for k, v in (kv.split("=") for kv in
+                                     line[len(head):].split())}
+    require(sorted(nums) == ["acc", "halo_loss", "loss"]
+            and all(math.isfinite(v) for v in nums.values()),
+            f"dryrun({n}): finite loss, acc, halo_loss in {line!r}")
+    for r in res["ranks"]:
+        c = r["counts"]
+        require(c["fwd"]["kernel_launches"] == FWD_PER_STEP
+                and c["bwd"]["kernel_launches"] == BWD_PER_STEP
+                and c["fwd"]["plain_calls"] == c["bwd"]["plain_calls"] == 0,
+                f"dryrun({n}) rank {r['rank']}: {FWD_PER_STEP} forward and "
+                f"{BWD_PER_STEP} backward launches; got {c}")
+    return res, line, seconds
+
+
+def phase_dryrun(torch, dev):
+    """``dryrun_multichip(1)`` over NCCL and ``dryrun_multichip(4,
+    backend="gloo")`` (four ranks sharing cuda:0, mesh 2x2): the line, the
+    launches of every rank, and each loss within LOSS_RTOL of one process's
+    step on the same weights and batch (``mesh_dp``'s rule); where the
+    machine has two cards or more, ``dryrun_multichip(cards)`` over NCCL.
+    Returns rank 0's counts by path."""
+    from fgnn_tpu_torch.entry import ROWS_PER_RANK, example_batch, mesh_spec
+    from fgnn_tpu_torch.models import LDPCModel, init_weights
+    from fgnn_tpu_torch.train import ldpc
+    from fgnn_tpu_torch.train.common import make_optimizer
+
+    worlds = [(n, "nccl" if n == 1 else "gloo", f"dryrun_{mesh_spec(n)}")
+              for n in DRYRUN_WORLDS]
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        worlds.append((cards, "nccl", f"dryrun_cards_{mesh_spec(cards)}"))
+    counts, runs = {}, []
+    for n, backend, key in worlds:
+        res, line, seconds = _dryrun(torch, n, backend)
+        bsz = ROWS_PER_RANK * int(mesh_spec(n).split("x")[0])
+        model = init_weights(LDPCModel(), 0).to(dev)
+        one = ldpc.train_step(model, make_optimizer(model.parameters(),
+                                                    ldpc.BASE_LR),
+                              example_batch(bsz), dev)
+        one = {k: float(v) for k, v in one.items()}
+        err = abs(res["loss"] - one["loss"]) / abs(one["loss"])
+        require(err <= LOSS_RTOL, f"dryrun({n}): loss {res['loss']} vs one "
+                f"process {one['loss']}")
+        counts[key] = res["ranks"][0]["counts"]
+        runs.append(dict(n=n, backend=backend, mesh=res["mesh"], line=line,
+                         loss=res["loss"], acc=res["acc"],
+                         halo_loss=res["halo_loss"],
+                         one_process_loss=one["loss"],
+                         one_process_acc=one["acc"], loss_rel_err=err,
+                         devices=[r["device"] for r in res["ranks"]],
+                         seconds=seconds))
+    emit("dryrun", runs=runs, cards=cards,
+         across_cards="ran" if cards >= 2 else
+         "one card: not run (NCCL needs a card per rank)")
+    return counts
+
+
+def phase_utils(torch, fused_mp, fn, args, tmp):
+    """The debug and profiling helpers on the card: under ``nan_debug`` the
+    clean decode forward passes (16 launches) and one with a NaN planted
+    in its input raises ``FloatingPointError``, as do a NaN that only a
+    kernel writes (the wrapper's check) and a NaN cotangent in the
+    backward; ``check_finite`` names a planted bad leaf of the state dict;
+    ``device_memory_stats`` reports cuda:0; ``trace`` of one forward with
+    an ``annotate`` range names the kernel and the range."""
+    import numpy as np
+
+    from fgnn_tpu_torch.ops.typed_mp import GatherTable
+    from fgnn_tpu_torch.utils import (annotate, check_finite,
+                                      device_memory_stats, nan_debug, trace)
+
+    t0 = time.perf_counter()
+    bad = list(args)
+    bad[0] = args[0].clone()
+    bad[0][3, 5, 0] = float("nan")
+    h = torch.randn(4, 12, 2, 8, device="cuda")
+    h[1, 3, 0, 2] = float("nan")
+    table = GatherTable(np.arange(0, 60, 5).reshape(6, 2) % 12,
+                        12).to("cuda")
+    et = torch.ones(4, 6, 2, 2, device="cuda")
+    hg = torch.randn(4, 12, 2, 8, device="cuda", requires_grad=True)
+    nan_g = torch.full((4, 6, 8), float("nan"), device="cuda")
+    raised = {}
+    with nan_debug():
+        fused_mp.reset_counts()
+        fn(*args)
+        torch.cuda.synchronize()
+        clean = fused_mp.COUNTS["kernel_launches"]
+        for what, call in (
+                ("planted_input", lambda: fn(*bad)),
+                ("kernel_output", lambda: fused_mp.typed_mp_fwd(
+                    h, table, et, "sum")),
+                ("backward", lambda: fused_mp.typed_mp_fwd(
+                    hg, table, et, "sum").backward(nan_g))):
+            try:
+                call()
+                torch.cuda.synchronize()
+            except FloatingPointError as e:
+                raised[what] = str(e)
+    require(clean == FWD_PER_STEP, f"utils: the clean forward under "
+            f"nan_debug launched {clean}")
+    require(sorted(raised) == ["backward", "kernel_output", "planted_input"],
+            f"utils: nan_debug raised for {sorted(raised)} only")
+    require("typed_mp_fwd kernel" in raised["kernel_output"],
+            f"utils: the kernel's NaN caught by its wrapper: "
+            f"{raised['kernel_output']}")
+    sd = {k: v.clone() for k, v in fn.model.state_dict().items()}
+    key = "main.v2f_0_0.mp_conv.filters"
+    sd[key][0, 0] = float("inf")
+    try:
+        check_finite(sd, "state")
+        named = None
+    except FloatingPointError as e:
+        named = str(e)
+    require(named is not None and repr(key) in named,
+            f"utils: check_finite names {key}: {named}")
+    mem = device_memory_stats()
+    require(mem.get("cuda:0", {}).get("bytes_in_use", 0) > 0,
+            f"utils: device_memory_stats {mem}")
+    logdir = os.path.join(tmp, "trace")
+    with trace(logdir):
+        with annotate("fgnn_entry"):
+            fn(*args)
+        torch.cuda.synchronize()
+    files = [os.path.join(logdir, f) for f in os.listdir(logdir)]
+    require(len(files) == 1, f"utils: one trace file, got {files}")
+    with open(files[0]) as f:
+        text = f.read()
+    require("typed_mp_fwd_kernel" in text and "fgnn_entry" in text,
+            "utils: the trace names typed_mp_fwd_kernel and fgnn_entry")
+    emit("utils", clean_fwd_launches=clean, nan_debug_raised=raised,
+         check_finite=named, device_memory_stats=mem,
+         trace_bytes=len(text), seconds=time.perf_counter() - t0)
+
+
 # The bf16 roundings of the kernels, each a text of csrc/typed_mp_common.cuh,
 # and what --unrounded builds in its place: rnd<TH> (etype as read or
 # staged, mean's g / K, each product of the scalar bf16 mode and of the
@@ -3755,10 +4206,17 @@ def main():
         mesh_dp = phase_mesh_dp(torch, dev, tmp, mesh_ref)
         phase_mesh_halo(torch, dev)
         mesh_cards = phase_mesh_cards(torch, dev, tmp, mesh_ref)
-    # the mesh paths' launches, rank 0's, by path
+        joint_counts, joint_rows, worst_joint = phase_joint(torch, fused_mp,
+                                                            dev)
+        entry_fn, entry_args, entry_counts = phase_entry(torch, fused_mp,
+                                                         dev)
+        dryrun_counts = phase_dryrun(torch, dev)
+        phase_utils(torch, fused_mp, entry_fn, entry_args, tmp)
+    # the mesh paths' and the entry points' launches, rank 0's, by path
     mesh_paths = {"mesh_nccl_1": mesh_1,
                   **{f"mesh_dp_{s}": c for s, c in mesh_dp.items()},
-                  **{f"mesh_cards_{s}": c for s, c in mesh_cards.items()}}
+                  **{f"mesh_cards_{s}": c for s, c in mesh_cards.items()},
+                  "entry": entry_counts, **dryrun_counts}
     mesh_fwd = {k: c["fwd"]["kernel_launches"] for k, c in mesh_paths.items()}
     mesh_bwd = {k: c["bwd"]["kernel_launches"] for k, c in mesh_paths.items()}
 
@@ -3786,6 +4244,21 @@ def main():
                 "launches_by_path": by_path, "max_abs_err": worst,
                 **entry(rows, per), "library_ms": None, "per": what,
                 **extra}
+
+    def joint_step(kind):
+        nbytes = sum(r[f"{kind}_bytes"] * r["per_joint_step"]
+                     for r in joint_rows)
+        ops = sum(r[f"{kind}_ops"] * r["per_joint_step"] for r in joint_rows)
+        return {"ms": sum(r[f"{kind}_ms"] * r["per_joint_step"]
+                          for r in joint_rows),
+                "plain_ms": sum(r[f"{kind}_plain_ms"] * r["per_joint_step"]
+                                for r in joint_rows),
+                "bound_ms": bound_ms(nbytes, ops),
+                "bound_by": bound_by(nbytes, ops),
+                "per": f"one joint FactorMPNN train step at B={JOINT_BATCH}:"
+                       f" {JOINT_PER_STEP} launches"
+                       + (", 5 with the argmax" if kind.endswith("fwd")
+                          else "")}
 
     fwd_cuda = "fgnn_tpu_torch/csrc/typed_mp_fwd.cu"
     bwd_cuda = "fgnn_tpu_torch/csrc/typed_mp_bwd.cu"
@@ -3924,13 +4397,15 @@ def main():
         "tpu_kernel": "_fwd_kernel, extension mode (fused_mp.py:588-620)",
         "checked": True,
         "launches": sum(r["fwd_launches"] for r in (
-            syn, fixed, syn_pool, syn_inline, syn_path)),
+            syn, fixed, syn_pool, syn_inline, syn_path))
+        + joint_counts["fwd"]["kernel_launches"],
         "launches_by_path": {"syn_train": syn["fwd_launches"],
                              "syn_fixed": fixed["fwd_launches"],
                              "syn_workers": syn_pool["fwd_launches"]
                              + syn_inline["fwd_launches"],
-                             "syn_train_path": syn_path["fwd_launches"]},
-        "max_abs_err": worst_ext,
+                             "syn_train_path": syn_path["fwd_launches"],
+                             "joint": joint_counts["fwd"]["kernel_launches"]},
+        "max_abs_err": max(worst_ext, worst_joint),
         **entry(shapes_ext, "per_hop_step"),
         "library_ms": None,
         "per": f"one hop train step at B={SYN_BATCH}: {HOP_PER_STEP} "
@@ -3938,6 +4413,8 @@ def main():
         "fixed_step": {**entry(shapes_ext, "per_fixed_step"),
                        "per": f"one fixed (mp_nn) train step: "
                               f"{FIXED_PER_STEP} launches"},
+        "joint_step": joint_step("fwd"),
+        "joint_step_bf16": joint_step("bf16_fwd"),
     }, {
         "name": "typed_mp_bwd (DIFF/NEIGHBOR mode)", "route": "cuda",
         "source": "fgnn_tpu_torch/csrc/typed_mp_bwd.cu",
@@ -3945,13 +4422,15 @@ def main():
         "tpu_kernel": "_bwd_kernel, extension mode",
         "checked": True,
         "launches": sum(r["bwd_launches"] for r in (
-            syn, fixed, syn_pool, syn_inline, syn_path)),
+            syn, fixed, syn_pool, syn_inline, syn_path))
+        + joint_counts["bwd"]["kernel_launches"],
         "launches_by_path": {"syn_train": syn["bwd_launches"],
                              "syn_fixed": fixed["bwd_launches"],
                              "syn_workers": syn_pool["bwd_launches"]
                              + syn_inline["bwd_launches"],
-                             "syn_train_path": syn_path["bwd_launches"]},
-        "max_abs_err": worst_ext_bwd,
+                             "syn_train_path": syn_path["bwd_launches"],
+                             "joint": joint_counts["bwd"]["kernel_launches"]},
+        "max_abs_err": max(worst_ext_bwd, worst_joint),
         **entry(shapes_ext_bwd, "per_hop_step"),
         "library_ms": None,
         "per": f"one hop train step at B={SYN_BATCH}: {HOP_PER_STEP} "
@@ -3959,6 +4438,8 @@ def main():
         "fixed_step": {**entry(shapes_ext_bwd, "per_fixed_step"),
                        "per": f"one fixed (mp_nn) train step: "
                               f"{FIXED_PER_STEP} launches"},
+        "joint_step": joint_step("bwd"),
+        "joint_step_bf16": joint_step("bf16_bwd"),
     }] + bf16_kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,11 +3,13 @@ from .bp_ref import BPGraph, bp_decode, decode_posteriors
 from .ldpc_channel import channel, encode, posteriors, snr_amplitude
 from .ldpc_datasets import (
     Codes,
+    ContinuousCodesJoint,
     ContinuousCodesSP,
     batch_to_features,
     decode_graph,
     gen_sample,
     generate_eval_set,
+    sample_to_features,
 )
 from .ldpc_graph import LDPCStructure, default_structure
 from .rpgm import (
@@ -21,6 +23,12 @@ from .rpgm import (
     batches,
 )
 from .loader import PoolBatcher, Prefetcher, device_prefetch, prefetch
+from .rpgm_oracle import (
+    brute_force_chain_budget,
+    lp_relaxation_chain_budget,
+    map_chain_budget,
+)
+from . import ldpc_cpp
 from .tables import (
     chain_knn_table,
     global_factor_table,
@@ -34,10 +42,12 @@ __all__ = [
     "BPGraph", "bp_decode", "decode_posteriors", "decode_graph",
     "Prefetcher", "prefetch", "device_prefetch", "PoolBatcher",
     "LDPCStructure", "default_structure",
-    "ContinuousCodesSP", "Codes", "batch_to_features", "gen_sample",
+    "ContinuousCodesSP", "ContinuousCodesJoint", "Codes",
+    "batch_to_features", "sample_to_features", "gen_sample",
     "generate_eval_set",
     "RandomPGM", "RandomPGMNoHop", "RandomPGMPw", "RandomPGMPwNoHop",
     "RandomPGMHop", "MixedLengthHopData", "BucketedHopData", "batches",
     "chain_knn_table", "pw_factor_table", "high_factor_table",
-    "global_factor_table",
+    "global_factor_table", "map_chain_budget", "brute_force_chain_budget",
+    "lp_relaxation_chain_budget", "ldpc_cpp",
 ]

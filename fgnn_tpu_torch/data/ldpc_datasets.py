@@ -79,6 +79,24 @@ def gen_sample(snr_db: float, sigma_b: float, *, burst_prob: float = 0.05,
     return y, codeword, float(np.sum(x[:K_INFO] != s) / K_INFO)
 
 
+def sample_to_features(y: np.ndarray, snr_db: float,
+                       structure: Optional[LDPCStructure] = None) -> dict:
+    """The bipartite model inputs of one received word y (96,): the rows
+    of ``batch_to_features``, with the shared tables as int32."""
+    st = structure or default_structure()
+    hop, nn_f2v, nn_v2f, ef_f2v, ef_v2f = st.bipartite_features(y)
+    node_feature = np.stack(
+        [y, np.full_like(y, float(snr_db))], axis=-1).astype(np.float32)
+    return {
+        "node_feature": node_feature,                    # (96, 2)
+        "hop_feature": hop.astype(np.float32),           # (48, 6)
+        "nn_idx_f2v": nn_f2v.astype(np.int32),
+        "nn_idx_v2f": nn_v2f.astype(np.int32),
+        "efeature_f2v": ef_f2v,                          # (96, 3, 7)
+        "efeature_v2f": ef_v2f,                          # (48, 6, 7)
+    }
+
+
 def batch_to_features(ys: np.ndarray, snr_dbs: np.ndarray,
                       structure: Optional[LDPCStructure] = None):
     """Model inputs for a batch of received words (pure indexing).
@@ -170,6 +188,56 @@ class ContinuousCodesSP:
             feats["sigma_b"] = np.asarray(sbs, np.float32)
             feats["snr_db"] = np.asarray(snrs, np.float32)
             yield feats
+
+
+def _stack(dicts) -> dict:
+    """Samples' dicts stacked key by key into a batch."""
+    return {k: np.stack([d[k] for d in dicts]) for k in dicts[0]}
+
+
+@dataclass
+class ContinuousCodesJoint:
+    """On-the-fly joint-graph LDPC batches for the concat (``FactorMPNN``)
+    formulation: sigma_b ~ U{0..5}, snr ~ U{0..4}, each sample the
+    [96 vars ; 48 checks] table (144, 6) with its side flags (144, 6, 2)
+    and 7-dim edge features (144, 6, 7) (``LDPCStructure.joint_features``),
+    stacked per sample as the JAX package stacks them."""
+
+    length: int = 10000
+    sigma_b_choices: tuple = (0, 1, 2, 3, 4, 5)
+    snr_choices: tuple = (0, 1, 2, 3, 4)
+    burst_prob: float = 0.05
+    seed: Optional[int] = None
+
+    def __post_init__(self):
+        self.structure = default_structure()
+        self.rng = np.random.RandomState(self.seed)
+
+    def __len__(self):
+        return self.length
+
+    def sample(self) -> dict:
+        sigma_b = self.rng.choice(self.sigma_b_choices)
+        snr_db = self.rng.choice(self.snr_choices)
+        y, codeword = gen_sample(snr_db, sigma_b, burst_prob=self.burst_prob,
+                                 rng=self.rng)
+        nn_idx, etype, efeature, hop = self.structure.joint_features(y)
+        node_feature = np.stack(
+            [y, np.full_like(y, float(snr_db))], axis=-1).astype(np.float32)
+        return {
+            "node_feature": node_feature,            # (96, 2)
+            "hop_feature": hop.astype(np.float32),   # (48, 6)
+            "nn_idx": nn_idx.astype(np.int32),       # (144, 6)
+            "etype": etype,                          # (144, 6, 2)
+            "efeature": efeature,                    # (144, 6, 7)
+            "label": codeword.astype(np.int32),
+            "sigma_b": np.float32(sigma_b),
+            "snr_db": np.float32(snr_db),
+        }
+
+    def batches(self, batch_size: int) -> Iterator[dict]:
+        for _ in range(self.length // batch_size):
+            yield _stack([self.sample() for _ in range(batch_size)])
 
 
 def generate_eval_set(path: str, n_per_cell: int = 1000,

@@ -1,10 +1,17 @@
 """LDPC factor-graph structure of the 96.3.963 code.
 
-Counterpart of ``fgnn_tpu/data/ldpc_graph.py`` (bipartite tables only):
-the per-variable check table ``var_checks (96, 3)``, the per-check
-variable table ``factors (48, 6)``, and the 7-dim per-edge features (the
-6 signals of the incident check plus the variable's / check's own signal)
-in the (N, K, 7) layout.
+Counterpart of ``fgnn_tpu/data/ldpc_graph.py``:
+
+* the bipartite structure: the per-variable check table ``var_checks
+  (96, 3)``, the per-check variable table ``factors (48, 6)``, and the
+  7-dim per-edge features (the 6 signals of the incident check plus the
+  variable's / check's own signal) in the (N, K, 7) layout;
+* the joint structure of the concat (``FactorMPNN``) formulation: the
+  [96 variables ; 48 checks] table ``joint_nn_idx (144, 6)``, whose
+  variable rows name their 3 checks (96 + c) and then themselves 3 times
+  (self padding), and its 2-channel side flags ``joint_etype (144, 6,
+  2)``: channel 0 on a variable's check edges, channel 1 on a check's
+  variable edges, all zero on the padding.
 """
 
 from __future__ import annotations
@@ -25,14 +32,25 @@ class LDPCStructure:
     check_deg: int          # 6
     factors: np.ndarray     # (48, 6) variable ids per check
     var_checks: np.ndarray  # (96, 3) check ids per variable
+    joint_nn_idx: np.ndarray  # (144, 6) the [vars ; checks] table
+    joint_etype: np.ndarray   # (144, 6, 2) side flags
 
     @classmethod
     def from_alist_file(cls, path: str | None = None) -> "LDPCStructure":
         a = read_alist(path or default_paths()["alist"])
+        n_vars, n_checks = a.N, a.M
+        var_deg, check_deg = a.max_col_deg, a.max_row_deg
         factors = np.asarray(a.row_items, dtype=np.int64)
         var_checks = np.asarray(a.col_items, dtype=np.int64)
-        return cls(a.N, a.M, a.max_col_deg, a.max_row_deg, factors,
-                   var_checks)
+        nn_idx = np.zeros((n_vars + n_checks, check_deg), np.int64)
+        etype = np.zeros((n_vars + n_checks, check_deg, 2), np.float32)
+        nn_idx[:n_vars, :var_deg] = n_vars + var_checks
+        etype[:n_vars, :var_deg, 0] = 1.0
+        nn_idx[:n_vars, var_deg:] = np.arange(n_vars)[:, None]
+        nn_idx[n_vars:] = factors
+        etype[n_vars:, :, 1] = 1.0
+        return cls(n_vars, n_checks, var_deg, check_deg, factors,
+                   var_checks, nn_idx, etype)
 
     def check_signals(self, y: np.ndarray) -> np.ndarray:
         """Signals gathered per check: (48, 6)."""
@@ -51,6 +69,25 @@ class LDPCStructure:
              hop[..., None]], axis=2
         ).astype(np.float32)
         return hop, self.var_checks, self.factors, ef_f2v, ef_v2f
+
+    def joint_features(self, y: np.ndarray):
+        """The joint graph's inputs for one received word y (96,):
+        (nn_idx (144, 6), etype (144, 6, 2), efeature (144, 6, 7),
+        hop (48, 6)).  A variable row's edge features are the
+        bipartite f2v features of its checks, zero on the padding; a
+        check row's are its v2f features."""
+        hop = self.check_signals(y).astype(np.float32)
+        ef_node = np.concatenate(
+            [hop[self.var_checks],
+             np.repeat(y.reshape(-1, 1, 1), self.var_deg, axis=1)], axis=2
+        ).astype(np.float32)                                 # (96, 3, 7)
+        ef_node = np.concatenate([ef_node, np.zeros_like(ef_node)],
+                                 axis=1)                     # (96, 6, 7)
+        ef_hop = np.concatenate(
+            [np.repeat(hop[:, None, :], self.check_deg, axis=1),
+             hop[..., None]], axis=2).astype(np.float32)     # (48, 6, 7)
+        efeature = np.concatenate([ef_node, ef_hop], axis=0)
+        return self.joint_nn_idx, self.joint_etype, efeature, hop
 
 
 @functools.lru_cache(maxsize=None)

@@ -4,6 +4,11 @@
 * ``IIDMapBN``: Dense + BatchNorm + ReLU
 * ``IIDMapIN``: Dense + InstanceNorm + ReLU
 * ``MLP``:      Dense stack with ReLU between layers
+* ``MessagePassing``: the marker of modules whose forward takes
+  (x, table, etype); the containers pass them the graph
+* ``MaxPoolNodes``: max over the node axis, keepdim
+* ``Flatten``:  (B, ...) -> (B, -1)
+* ``Identity``: pass-through
 """
 
 from __future__ import annotations
@@ -14,6 +19,14 @@ import torch
 from torch import nn
 
 from .norm import BatchNorm, Dense, instance_norm, leaky_relu
+
+
+class MessagePassing(nn.Module):
+    """Marker base of modules whose forward takes (x, table, etype): the
+    containers (``containers._is_mp``) give such a child the graph."""
+
+    def is_mp(self) -> bool:
+        return True
 
 
 class IIDMap(nn.Module):
@@ -59,4 +72,27 @@ class MLP(nn.Module):
             x = getattr(self, f"dense_{i}")(x)
             if i < self.n - 1:
                 x = torch.relu(x)
+        return x
+
+
+class MaxPoolNodes(nn.Module):
+    """Max over the node axis ``axis``, keeping it (size 1)."""
+
+    def __init__(self, axis: int = -2):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.amax(dim=self.axis, keepdim=True)
+
+
+class Flatten(nn.Module):
+    """(B, ...) -> (B, -1)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.reshape(x.shape[0], -1)
+
+
+class Identity(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x

@@ -1,7 +1,7 @@
 """Containers (counterpart of ``fgnn_tpu/models/containers.py``).
 
-* ``MPSequential``: pass (x, table, etype) to message-passing children, x
-  alone to per-node ones.
+* ``MPSequential``: pass (x, table, etype) to message-passing children
+  (``_is_mp``), x alone to per-node ones.
 * ``IIDBlock``: Dense + BatchNorm + ReLU.
 * ``ParallelNet``: fan x through several modules and sum the outputs (or
   aggregate them with a given function).
@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ..ops.typed_mp import GatherTable
+from .base import MessagePassing
 from .mp_conv import MPConv, MPConvResidual
 from .norm import BatchNorm, Dense
 
@@ -47,7 +48,9 @@ class MPSequential(nn.Module):
     A child is named as flax names a module built in its parent's compact
     scope, ``{class name}_{i}`` counted per class (``MPConv_0``,
     ``MPConvResidual_0``, ``IIDBlock_0``, ``Dense_0``, ...), so that the
-    JAX model's parameters carry across by path."""
+    JAX model's parameters carry across by path.  A child that returns a
+    tuple passes its first element on; the rest are collected, and then
+    the container returns (x, the collected list), as the JAX one."""
 
     def __init__(self, layers: Sequence[nn.Module]):
         super().__init__()
@@ -60,21 +63,29 @@ class MPSequential(nn.Module):
             self.add_module(name, mod)
             self.order.append(name)
 
-    def forward(self, x: torch.Tensor, table: GatherTable,
-                etype: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, table: GatherTable = None,
+                etype: torch.Tensor = None):
+        extra = []
         for name in self.order:
-            mod = getattr(self, name)
-            if isinstance(mod, (MPConv, MPConvResidual)):
-                x = mod(x, table, etype)
-            else:
-                x = mod(x)
-        return x
+            x = _apply(getattr(self, name), x, table, etype)
+            if isinstance(x, tuple):
+                extra.extend(x[1:])
+                x = x[0]
+        return (x, extra) if extra else x
+
+
+def _is_mp(mod: nn.Module) -> bool:
+    """Whether a child takes the graph, by the JAX package's rule: a
+    ``MessagePassing``, ``MPConv`` or ``MPConvResidual``, or a module with
+    a true ``takes_graph``.  ``GConvResidual`` is none of these, there as
+    here, so a container gives it x alone."""
+    return isinstance(mod, (MessagePassing, MPConv, MPConvResidual)) or \
+        getattr(mod, "takes_graph", False)
 
 
 def _apply(mod: nn.Module, x, table, etype):
     """A message-passing child gets the graph, any other x alone."""
-    if isinstance(mod, (MPConv, MPConvResidual)) or getattr(
-            mod, "takes_graph", False):
+    if _is_mp(mod):
         return mod(x, table, etype)
     return mod(x)
 

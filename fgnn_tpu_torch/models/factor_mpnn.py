@@ -5,20 +5,20 @@ Per layer and per factor type, the node features and that type's factor
 features are concatenated along the node axis into one joint [variables ;
 factors] graph, one shared message-passing conv runs over it, the result is
 split back, and the per-type node features are merged with a per-node
-merge map.  Factor features are carried forward per type.  The JAX
-module's ``skip_link`` option is set by no synthetic model and is not
-ported; nor are its ``gnn_immediate_dim``/``max_mpnn_dim`` options, whose
-defaults are the constants below.
+merge map.  Factor features are carried forward per type; ``skip_link``
+{layer: earlier layer} adds an earlier layer's outputs (node and every
+factor feature) to a layer's, after its merge.
 
 Layer choice (as the JAX package):
-  nin == nout                -> MPConvResidual (max, ORIG_WITH_DIFF)
-  nin, nout <= MAX_MPNN_DIM  -> MPConv (softmax, ORIG_WITH_DIFF)
+  nin == nout                -> MPConvResidual (max, ORIG_WITH_DIFF,
+                                bottleneck ``gnn_immediate_dim``)
+  nin, nout <= max_mpnn_dim  -> MPConv (softmax, ORIG_WITH_DIFF)
   otherwise                  -> pointwise Dense + InstanceNorm + ReLU
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -28,9 +28,6 @@ from ..ops.typed_mp import Extension
 from .base import IIDMap, IIDMapBN
 from .mp_conv import MPConv, MPConvResidual
 from .norm import BatchNorm, Dense, instance_norm, leaky_relu
-
-GNN_IMMEDIATE_DIM = 64
-MAX_MPNN_DIM = 64
 
 
 class _PointwiseFallback(nn.Module):
@@ -77,16 +74,22 @@ class FactorMPNN(nn.Module):
     factor features (N_fac_flat_j, dim_j), each table a ``CooGraph`` over
     that type's joint [all vars ; all factors_j] numbering
     (``graph.build_joint_coo``) and each etype (E_j, netype_j).  The same
-    parameters serve both modes."""
+    parameters serve both modes.
+
+    ``gnn_immediate_dim``, ``max_mpnn_dim`` and ``skip_link`` have the JAX
+    module's meaning and defaults (64, 64, none)."""
 
     def __init__(self, node_feature_dim: int,
                  factor_feature_dims: Sequence[int],
                  dim_mapping_list: Sequence[int],
-                 netype_list: Sequence[int]):
+                 netype_list: Sequence[int], *,
+                 gnn_immediate_dim: int = 64, max_mpnn_dim: int = 64,
+                 skip_link: Optional[Dict[int, int]] = None):
         super().__init__()
         dims = list(dim_mapping_list)
         self.ntypes = len(factor_feature_dims)
         self.n_layers = len(dims) - 1
+        self.skip = dict(skip_link or {})
         self.mapping_0 = IIDMap(node_feature_dim, dims[0])
         for j, fd in enumerate(factor_feature_dims):
             self.add_module(f"mapping_{j + 1}", IIDMap(fd, dims[0]))
@@ -95,9 +98,9 @@ class FactorMPNN(nn.Module):
             nin, nout = dims[midx], dims[midx + 1]
             for j in range(self.ntypes):
                 if nin == nout:
-                    mod = MPConvResidual(nin, GNN_IMMEDIATE_DIM,
+                    mod = MPConvResidual(nin, gnn_immediate_dim,
                                          netype_list[j], extension=diff)
-                elif nin <= MAX_MPNN_DIM and nout <= MAX_MPNN_DIM:
+                elif nin <= max_mpnn_dim and nout <= max_mpnn_dim:
                     mod = MPConv(nin, nout, netype_list[j], extension=diff)
                 else:
                     mod = _PointwiseFallback(nin, nout)
@@ -111,6 +114,7 @@ class FactorMPNN(nn.Module):
         x = self.mapping_0(node_features)
         fs = [getattr(self, f"mapping_{j + 1}")(factor_features[j])
               for j in range(self.ntypes)]
+        inter = []
         for midx in range(self.n_layers):
             cn, cf = [], []
             for j in range(self.ntypes):
@@ -125,4 +129,9 @@ class FactorMPNN(nn.Module):
                 cf.append(joint[..., nnode:, :])
             x = getattr(self, f"merge_{midx}")(torch.cat(cn, dim=-1))
             fs = cf
+            if midx in self.skip:
+                ox, ofs = inter[self.skip[midx]]
+                x = x + ox
+                fs = [a + b for a, b in zip(fs, ofs)]
+            inter.append((x, fs))
         return x, fs

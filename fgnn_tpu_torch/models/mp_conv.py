@@ -14,7 +14,9 @@ rows.  The halo branch implements NO_EXTENSION only, as the JAX one.
 
 The JAX modules default to ``ORIG_WITH_DIFF``; the port's default is
 ``NO_EXTENSION``, the LDPC models' mode, and the synthetic models
-(``factor_mpnn.py``, ``synthetic.py``) name their extension."""
+(``factor_mpnn.py``, ``synthetic.py``) name their extension.
+``GConvResidual`` is the bottleneck block with ReLU nonlinearities and a
+softmax DIFF conv."""
 
 from __future__ import annotations
 
@@ -36,26 +38,41 @@ _COO_EXT = {Extension.NO_EXTENSION: "none",
 class MPConv(nn.Module):
     """gather -> filter bank -> etype mix -> aggregate -> bias -> BatchNorm
     -> ReLU.  ``filters`` (nin, nout * T), or (2 nin, nout * T) for the
-    extensions, keeps the JAX column layout c * T + t."""
+    extensions, keeps the JAX column layout c * T + t.
+
+    ``use_bias``, ``use_bn``, ``activation`` ("relu" or None) and ``gamma``
+    (the softmax aggregator's temperature) have the JAX module's meaning
+    and defaults on every branch: with ``use_bias=False`` there is no
+    ``bias`` and with ``use_bn=False`` no ``bn`` child, so that a flax tree
+    without them loads strictly."""
 
     def __init__(self, nin: int, nout: int, nedge_types: int, *,
                  extension: Extension = Extension.NO_EXTENSION,
-                 aggregator: str = "softmax"):
+                 aggregator: str = "softmax", use_bias: bool = True,
+                 use_bn: bool = True, activation: Optional[str] = "relu",
+                 gamma: float = 3.0):
         super().__init__()
+        if activation not in ("relu", None):
+            raise ValueError(f"activation is 'relu' or None; got "
+                             f"{activation!r}")
         self.nout = nout
         self.extension = extension
         self.aggregator = aggregator
+        self.activation = activation
+        self.gamma = gamma
         cin = nin if extension == Extension.NO_EXTENSION else 2 * nin
         self.filters = nn.Parameter(torch.empty(cin, nout * nedge_types))
-        self.bias = nn.Parameter(torch.empty(nout))
-        self.bn = BatchNorm(nout)
+        self.bias = nn.Parameter(torch.empty(nout)) if use_bias else None
+        self.bn = BatchNorm(nout) if use_bn else None
 
     def init_(self, generator: torch.Generator) -> None:
         uniform_(self.filters, -0.01, 0.01, generator)
-        uniform_(self.bias, 0.0, 0.05, generator)
+        if self.bias is not None:
+            uniform_(self.bias, 0.0, 0.05, generator)
 
     def forward(self, x: torch.Tensor, table, etype: torch.Tensor
                 ) -> torch.Tensor:
+        group = None
         if isinstance(table, HaloGraph):
             if self.extension != Extension.NO_EXTENSION:
                 raise NotImplementedError(
@@ -63,19 +80,22 @@ class MPConv(nn.Module):
             et_loc, et_rem = table.shard_etype(etype)
             y = halo_typed_mp_coo(x, et_loc, et_rem, self.filters, self.nout,
                                   table, aggregator=self.aggregator,
-                                  bias=self.bias)
+                                  gamma=self.gamma, bias=self.bias)
             mesh = table.mesh
-            return torch.relu(self.bn(
-                y, group=mesh.data_group if mesh.dp > 1 else None))
-        if isinstance(table, CooGraph):
+            group = mesh.data_group if mesh.dp > 1 else None
+        elif isinstance(table, CooGraph):
             y = typed_mp_conv_coo(x, table, etype, self.filters, self.nout,
-                                  aggregator=self.aggregator, bias=self.bias,
+                                  aggregator=self.aggregator,
+                                  gamma=self.gamma, bias=self.bias,
                                   extension=_COO_EXT[self.extension])
         else:
             y = typed_mp_conv(x, table, etype, self.filters, self.nout,
                               extension=self.extension,
-                              aggregator=self.aggregator, bias=self.bias)
-        return torch.relu(self.bn(y))
+                              aggregator=self.aggregator, gamma=self.gamma,
+                              bias=self.bias)
+        if self.bn is not None:
+            y = self.bn(y, group=group)
+        return torch.relu(y) if self.activation == "relu" else y
 
 
 class MPConvResidual(nn.Module):
@@ -102,6 +122,37 @@ class MPConvResidual(nn.Module):
         h = leaky_relu(self.bn1(self.conv1(x)))
         h = self.mp_conv(h, table, etype)
         h = leaky_relu(self.bn2(self.conv2(h)))
+        if self.with_residual:
+            h = h + x
+        return h
+
+
+class GConvResidual(nn.Module):
+    """The reference's gconv_residual: Dense(nin->nmed)+BN+ReLU ->
+    MPConv(nmed->nmed) -> Dense(nmed->nin)+BN+ReLU [+ x when
+    ``with_residual``].  Its MPConv takes the JAX module's defaults,
+    softmax and ``ORIG_WITH_DIFF``, named here since the port's MPConv
+    defaults to ``NO_EXTENSION``.  The JAX containers give it x alone, as
+    they do not list it among the message-passing modules; so do the
+    port's (``containers._is_mp``)."""
+
+    def __init__(self, nin: int, nmed: int, nedge_types: int, *,
+                 with_residual: bool = True):
+        super().__init__()
+        self.with_residual = with_residual
+        self.conv1 = Dense(nin, nmed)
+        self.bn1 = BatchNorm(nmed)
+        self.mp_conv = MPConv(nmed, nmed, nedge_types,
+                              extension=Extension.ORIG_WITH_DIFF,
+                              aggregator="softmax")
+        self.conv2 = Dense(nmed, nin)
+        self.bn2 = BatchNorm(nin)
+
+    def forward(self, x: torch.Tensor, table, etype: torch.Tensor
+                ) -> torch.Tensor:
+        h = torch.relu(self.bn1(self.conv1(x)))
+        h = self.mp_conv(h, table, etype)
+        h = torch.relu(self.bn2(self.conv2(h)))
         if self.with_residual:
             h = h + x
         return h

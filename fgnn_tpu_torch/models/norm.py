@@ -26,7 +26,8 @@ Counterpart of ``fgnn_tpu/models/norm.py``, layout ``(B, N, C)``:
   (x (N_flat, C)) it takes the nodes grouped by sample
   (``ops.segment.segment_bins``, a ``CooGraph``'s ``bins``): statistics
   per (sample, channel), padding nodes in a bin of their own, counts
-  floored at 1, through the deterministic segment sum.
+  floored at 1, through the deterministic segment sum.  ``InstanceNorm``
+  is the same as a module without parameters.
 
 Every module with parameters has ``init_(generator)``, which draws them
 from the same distributions as the JAX init; ``init_weights`` walks a
@@ -154,6 +155,19 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5,
     dev = xf - gather(segment_sum(xf, seg) / cnt, seg)
     var = segment_sum(dev.square(), seg) / cnt
     return (dev * torch.rsqrt(gather(var, seg) + eps)).to(x.dtype)
+
+
+class InstanceNorm(nn.Module):
+    """``instance_norm`` as a module, with no parameters: the JAX module
+    ``InstanceNorm`` (torch.nn.InstanceNorm2d's defaults)."""
+
+    def __init__(self, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor, seg: Optional[Segments] = None
+                ) -> torch.Tensor:
+        return instance_norm(x, self.eps, seg)
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:

@@ -108,6 +108,8 @@ import time
 
 import torch
 
+from ..utils.debug import check_kernel_outputs, nan_checks_on
+
 AGGREGATORS = {"max": 0, "sum": 1, "mean": 2, "softmax": 3}
 MAX_K = 255     # the argmax is stored as uint8
 MAX_T_BWD = 16  # the backward keeps T partial sums in registers
@@ -949,7 +951,9 @@ class TypedGatherMixAgg(torch.autograd.Function):
     decode under ``inference_mode`` runs as without autograd.  ``ext``
     selects the DIFF/NEIGHBOR mode of both kernels.  h is f32 or bf16 and
     etype f32: dh comes back in h's dtype (autograd carries it through the
-    conv's cast of h) and d_etype in f32, as ``_fused_bwd`` returns them."""
+    conv's cast of h) and d_etype in f32, as ``_fused_bwd`` returns them.
+    Under ``utils.debug.nan_debug`` the kernels' outputs are checked for
+    NaN, as the dispatcher never sees their writes."""
 
     @staticmethod
     def forward(ctx, h, etype, nn_idx, src_ptr, src_edge, aggregator, gamma,
@@ -959,8 +963,10 @@ class TypedGatherMixAgg(torch.autograd.Function):
         res = typed_gather_mix_agg(h, nn_idx, etype, aggregator, gamma,
                                    want_argmax, ext=ext, want_lse=want_lse)
         out, saved = res if want_argmax or want_lse else (res, None)
+        check_kernel_outputs("typed_mp_fwd", out)
         if for_grad:
             ctx.aggregator, ctx.gamma, ctx.ext = aggregator, gamma, ext
+            ctx.nan_checks = nan_checks_on()
             ctx.save_for_backward(h, etype, nn_idx, src_ptr, src_edge,
                                   saved if want_argmax else None,
                                   saved if want_lse else None)
@@ -973,6 +979,8 @@ class TypedGatherMixAgg(torch.autograd.Function):
             grad_out.to(h.dtype).contiguous(), h, nn_idx, src_ptr, src_edge,
             etype, ctx.aggregator, ctx.gamma, argmax=am, out=out,
             ext=ctx.ext)
+        check_kernel_outputs("typed_mp_bwd", dh, d_etype,
+                             enabled=ctx.nan_checks or nan_checks_on())
         return dh, d_etype, None, None, None, None, None, None, None
 
 

@@ -226,3 +226,26 @@ def _extension_conv(x, table: GatherTable, etype, filters, nout: int,
     h = torch.matmul(_wide(x), w).to(x.dtype).reshape(B, 2 * N, T, nout)
     return fused_mp.typed_mp_fwd(h, table, _wide(etype).contiguous(),
                                  aggregator, gamma, ext=True)
+
+
+def gather_nodes(x: torch.Tensor, nn_idx) -> torch.Tensor:
+    """Per-edge source rows: x (B, N_src, C) and nn_idx (N_dst, K), shared
+    by the batch, or (B, N_dst, K), per sample; returns (B, N_dst, K, C).
+
+    Plain indexing (the JAX package's one-hot product is a TPU layout
+    choice).  ``nn_idx`` is a host array or a tensor; its range is checked
+    on the host, as ``GatherTable`` checks, and any other rank raises
+    ``ValueError``."""
+    idx = torch.as_tensor(nn_idx)
+    if idx.ndim not in (2, 3):
+        raise ValueError(f"nn_idx must be rank 2 or 3, got "
+                         f"{tuple(idx.shape)}")
+    n_src = x.shape[1]
+    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= n_src):
+        raise ValueError(f"nn_idx must lie in [0, {n_src}); got "
+                         f"[{int(idx.min())}, {int(idx.max())}]")
+    idx = idx.to(device=x.device, dtype=torch.long)
+    if idx.ndim == 2:
+        return x[:, idx]
+    rows = torch.arange(x.shape[0], device=x.device)[:, None, None]
+    return x[rows, idx]

@@ -4,7 +4,12 @@
     python -m fgnn_tpu_torch.train.syn_fixed_pw_hop [--device cpu] [flags]
 """
 
-from .synthetic import main
+from . import synthetic
+
+
+def main(argv=None):
+    return synthetic.main("fixed", argv)
+
 
 if __name__ == "__main__":
-    main("fixed")
+    main()

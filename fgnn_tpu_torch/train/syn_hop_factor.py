@@ -4,7 +4,12 @@
     python -m fgnn_tpu_torch.train.syn_hop_factor [--device cpu] [flags]
 """
 
-from .synthetic import main
+from . import synthetic
+
+
+def main(argv=None):
+    return synthetic.main("hop", argv)
+
 
 if __name__ == "__main__":
-    main("hop")
+    main()

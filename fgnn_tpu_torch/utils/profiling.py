@@ -41,16 +41,32 @@ over a flat disjoint union, ``--mixed-lengths`` its composite batches, as
 the trainer's flags.
 
 Needs a CUDA device; it does not run on the CPU.
+
+The module also holds the helpers of ``fgnn_tpu/utils/profiling.py``, which
+run on either device:
+
+* ``trace(logdir)``: a ``torch.profiler`` trace (CPU, and CUDA where there
+  is a card) of a block, written into ``logdir`` for TensorBoard;
+* ``annotate(name)``: a named range in such a trace;
+* ``device_memory_stats()``: bytes in use and their peak per CUDA device
+  (``{}`` without one);
+* ``StepTimer``: steps, edges and samples per second of a loop.
+
+The JAX package's ``enable_compilation_cache`` has no counterpart here:
+the port compiles nothing at run time but its kernels, which
+``ops.fused_mp.build`` builds once into ``csrc/build/``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import tempfile
 import time
 from collections import defaultdict
+from dataclasses import dataclass, field
 
 import torch
 
@@ -62,6 +78,68 @@ import torch
 PORT_KERNELS = ("typed_mp_fwd_kernel", "staged_fwd_kernel",
                 "sample_fwd_kernel", "staged_bwd_kernel", "sum_slabs",
                 "ext_bwd_kernel", "d_etype_kernel", "dh_kernel")
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Profile the block (CPU ops, and the card's kernels where CUDA is
+    available) and write a TensorBoard-loadable trace into ``logdir``."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=acts,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir)):
+        yield
+
+
+def annotate(name: str):
+    """A named range in a ``trace``: ``with annotate("step"): ...``."""
+    return torch.profiler.record_function(name)
+
+
+def device_memory_stats() -> dict:
+    """{"cuda:i": {"bytes_in_use", "peak_bytes_in_use"}} of the caching
+    allocator on each CUDA device; {} where there is none, as the JAX
+    package reports no CPU device."""
+    stats = {}
+    if not torch.cuda.is_available():
+        return stats
+    for i in range(torch.cuda.device_count()):
+        s = torch.cuda.memory_stats(i)
+        if s:
+            stats[str(torch.device("cuda", i))] = {
+                "bytes_in_use": s.get("allocated_bytes.all.current"),
+                "peak_bytes_in_use": s.get("allocated_bytes.all.peak"),
+            }
+    return stats
+
+
+@dataclass
+class StepTimer:
+    """Throughput counter: call ``step(n_edges, n_samples)`` once per
+    step; ``snapshot()`` gives the rates since the start or ``reset()``."""
+
+    window: int = 50
+    _t0: float = field(default_factory=time.perf_counter)
+    _steps: int = 0
+    _edges: int = 0
+    _samples: int = 0
+
+    def step(self, n_edges: int = 0, n_samples: int = 0) -> None:
+        self._steps += 1
+        self._edges += n_edges
+        self._samples += n_samples
+
+    def snapshot(self) -> dict:
+        dt = max(time.perf_counter() - self._t0, 1e-9)
+        return {"steps_per_s": self._steps / dt,
+                "edges_per_s": self._edges / dt,
+                "samples_per_s": self._samples / dt}
+
+    def reset(self) -> None:
+        self._t0 = time.perf_counter()
+        self._steps = self._edges = self._samples = 0
 
 
 def _kernel_events(trace_path: str):

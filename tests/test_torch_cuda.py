@@ -1024,3 +1024,69 @@ def test_coo_conv_launches_give_the_same_bits(cuda, masked, agg):
         runs.append((y, torch.autograd.grad(y, x, torch.ones_like(y))[0]))
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
+
+
+# the joint LDPC graph of FactorMPNN over [96 variables ; 48 checks]
+# (N = Nd = 144, K = 6, T = 2): each variable row names itself in its 3
+# padded slots, whose edge types are 0, so their messages are exactly 0
+# and tie; the widths of the joint model's convs, C = 64 (max) and C = 2
+# (softmax), each with both aggregators
+JOINT_CASES = [(64, "max"), (64, "softmax"), (2, "max"), (2, "softmax")]
+
+
+def _joint_inputs(B, C, dev, seed=0):
+    from fgnn_tpu_torch.data.ldpc_graph import default_structure
+
+    st = default_structure()
+    g = torch.Generator().manual_seed(seed)
+    table = GatherTable(st.joint_nn_idx, 144).to(dev)
+    flags = torch.from_numpy(st.joint_etype)
+    et = (flags * 2 * torch.rand(B, 144, 6, 2, generator=g)).to(dev)
+    h = torch.randn(B, 288, 2, C, generator=g).to(dev)
+    return h, table, et
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C,agg", JOINT_CASES)
+def test_joint_kernels_match_plain(cuda, C, agg, dtype):
+    """Both DIFF/NEIGHBOR kernels on the joint table against their plain
+    versions in each mode: out (and max's first-win argmax where the top
+    two messages differ), then dh and d_etype from the kernel's saved
+    argmax or log-sum-exp; the backward walks every repeated self index
+    of the transposed table."""
+    dt = DTYPES[dtype]
+    h, table, et = _joint_inputs(32, C, cuda)
+    h = h.to(dt)
+    saves = agg in ("max", "softmax")
+    kw = dict(ext=True, want_lse=agg == "softmax")
+    got = fused_mp.typed_gather_mix_agg(h, table.idx, et, agg, 3.0,
+                                        agg == "max", **kw)
+    ref = fused_mp.typed_gather_mix_agg_plain(h, table.idx, et, agg, 3.0,
+                                              agg == "max", **kw)
+    torch.cuda.synchronize()
+    (out, saved), (ref_out, ref_saved) = (got, ref) if saves else (
+        (got, None), (ref, None))
+    assert out.dtype == dt
+    _close(out, ref_out, dt)
+    if agg == "max":
+        hx = h.float()
+        hg = hx[:, 0::2, None] + hx[:, 1::2][:, table.idx.long()]
+        msgs = (hg * et.to(dt).float()[..., None]).sum(dim=3)
+        top2 = msgs.topk(2, dim=2).values
+        clear = (top2[:, :, 0] - top2[:, :, 1]) > 2.0 ** -8 * \
+            top2[:, :, 0].abs()
+        assert clear.float().mean() > 0.5
+        assert (saved == ref_saved)[clear].all()
+    gen = torch.Generator().manual_seed(1)
+    g = torch.randn(out.shape, generator=gen).to(cuda).to(dt)
+    am = saved if agg == "max" else None
+    lse = saved if agg == "softmax" else None
+    runs = [fused_mp.typed_gather_mix_agg_bwd(
+        g, h, table.idx, table.ext_ptr, table.ext_edge, et, agg, 3.0,
+        argmax=am, out=lse, ext=True) for _ in range(2)]
+    ref = fused_mp.typed_gather_mix_agg_bwd_plain(
+        g, h, table.idx, et, agg, 3.0, argmax=am, out=lse, ext=True)
+    torch.cuda.synchronize()
+    for got, again, want in zip(runs[0], runs[1], ref):
+        assert torch.equal(got, again)
+        _close(got, want, dt)

@@ -407,7 +407,9 @@ def test_import_leaves_no_jax_module():
     ckpt = os.path.join(REPO, "fgnn_tpu_torch", "testdata", "ldpc_flat.pkl")
     code = ("import sys, fgnn_tpu_torch.train.ldpc, "
             "fgnn_tpu_torch.train.syn_hop_factor, "
-            "fgnn_tpu_torch.data.generate, fgnn_tpu_torch.data.reference_io"
+            "fgnn_tpu_torch.data.generate, fgnn_tpu_torch.data.reference_io, "
+            "fgnn_tpu_torch.entry, fgnn_tpu_torch.models.knn, "
+            "fgnn_tpu_torch.utils.debug, fgnn_tpu_torch.utils.types"
             "\n"
             "from fgnn_tpu_torch.train import common\n"
             f"assert common.read_checkpoint({ckpt!r})['opt_layout'] == "
@@ -431,5 +433,6 @@ def test_import_leaves_no_jax_module():
                 "models.containers", "train.synthetic",
                 "train.jax_checkpoint", "parallel.mesh", "parallel.comm",
                 "parallel.sharding", "parallel.edge_partition",
-                "parallel.halo", "parallel.launch"):
+                "parallel.halo", "parallel.launch", "entry", "models.knn",
+                "utils.debug", "utils.types"):
         assert f"'fgnn_tpu_torch.{mod}'" in loaded, mod
