@@ -11,6 +11,9 @@ destinations are row-sharded over a mesh's data axis) it runs
 (E, T) edge weights in the original edge order, returns this rank's
 (Nd, nout) rows, and takes the BatchNorm statistics over every rank's
 rows.  The halo branch implements NO_EXTENSION only, as the JAX one.
+On every branch the message passing (``x @ W``, gather-mix-aggregate,
+bias) runs inside a ``conv`` span (``utils.profiling.annotate``), the
+BatchNorm after it outside.
 
 The JAX modules default to ``ORIG_WITH_DIFF``; the port's default is
 ``NO_EXTENSION``, the LDPC models' mode, and the synthetic models
@@ -28,6 +31,7 @@ from torch import nn
 from ..ops.segment import CooGraph, typed_mp_conv_coo
 from ..ops.typed_mp import Extension, typed_mp_conv
 from ..parallel.halo import HaloGraph, halo_typed_mp_coo
+from ..utils.profiling import annotate
 from .norm import BatchNorm, Dense, leaky_relu, uniform_
 
 _COO_EXT = {Extension.NO_EXTENSION: "none",
@@ -77,22 +81,26 @@ class MPConv(nn.Module):
             if self.extension != Extension.NO_EXTENSION:
                 raise NotImplementedError(
                     "halo mode implements NO_EXTENSION message passing")
-            et_loc, et_rem = table.shard_etype(etype)
-            y = halo_typed_mp_coo(x, et_loc, et_rem, self.filters, self.nout,
-                                  table, aggregator=self.aggregator,
-                                  gamma=self.gamma, bias=self.bias)
+            with annotate("conv"):
+                et_loc, et_rem = table.shard_etype(etype)
+                y = halo_typed_mp_coo(x, et_loc, et_rem, self.filters,
+                                      self.nout, table,
+                                      aggregator=self.aggregator,
+                                      gamma=self.gamma, bias=self.bias)
             mesh = table.mesh
             group = mesh.data_group if mesh.dp > 1 else None
         elif isinstance(table, CooGraph):
-            y = typed_mp_conv_coo(x, table, etype, self.filters, self.nout,
-                                  aggregator=self.aggregator,
-                                  gamma=self.gamma, bias=self.bias,
-                                  extension=_COO_EXT[self.extension])
+            with annotate("conv"):
+                y = typed_mp_conv_coo(x, table, etype, self.filters,
+                                      self.nout, aggregator=self.aggregator,
+                                      gamma=self.gamma, bias=self.bias,
+                                      extension=_COO_EXT[self.extension])
         else:
-            y = typed_mp_conv(x, table, etype, self.filters, self.nout,
-                              extension=self.extension,
-                              aggregator=self.aggregator, gamma=self.gamma,
-                              bias=self.bias)
+            with annotate("conv"):
+                y = typed_mp_conv(x, table, etype, self.filters, self.nout,
+                                  extension=self.extension,
+                                  aggregator=self.aggregator,
+                                  gamma=self.gamma, bias=self.bias)
         if self.bn is not None:
             y = self.bn(y, group=group)
         return torch.relu(y) if self.activation == "relu" else y

@@ -31,7 +31,9 @@ Counterpart of ``fgnn_tpu/models/norm.py``, layout ``(B, N, C)``:
 
 Every module with parameters has ``init_(generator)``, which draws them
 from the same distributions as the JAX init; ``init_weights`` walks a
-model with one seeded ``torch.Generator``.
+model with one seeded ``torch.Generator``.  ``BatchNorm`` and
+``instance_norm`` each run inside a ``norm`` span
+(``utils.profiling.annotate``).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from torch import nn
 
 from ..ops.segment import Segments, gather, segment_sum
 from ..parallel.comm import all_reduce_sum
+from ..utils.profiling import annotate
 from .policy import cast_compute
 
 
@@ -103,28 +106,29 @@ class BatchNorm(nn.Module):
         """``group``: take the batch statistics over it, in place of
         ``data_group``."""
         group = self.data_group if group is None else group
-        if self.training:
-            dims = tuple(range(x.ndim - 1))
-            xf = _stats(x)
-            if group is None:
-                mean = xf.mean(dim=dims)
-                var = (xf - mean).square().mean(dim=dims)
-                n = x.numel() // x.shape[-1]
-                factor = n / max(n - 1, 1)
+        with annotate("norm"):
+            if self.training:
+                dims = tuple(range(x.ndim - 1))
+                xf = _stats(x)
+                if group is None:
+                    mean = xf.mean(dim=dims)
+                    var = (xf - mean).square().mean(dim=dims)
+                    n = x.numel() // x.shape[-1]
+                    factor = n / max(n - 1, 1)
+                else:
+                    mean, var, factor = _global_moments(xf, dims, group)
+                with torch.no_grad():
+                    unbiased = var * factor
+                    self.running_mean.mul_(1 - self.momentum).add_(
+                        self.momentum * mean)
+                    self.running_var.mul_(1 - self.momentum).add_(
+                        self.momentum * unbiased)
             else:
-                mean, var, factor = _global_moments(xf, dims, group)
-            with torch.no_grad():
-                unbiased = var * factor
-                self.running_mean.mul_(1 - self.momentum).add_(
-                    self.momentum * mean)
-                self.running_var.mul_(1 - self.momentum).add_(
-                    self.momentum * unbiased)
-        else:
-            mean, var = self.running_mean, self.running_var
-        dt = x.dtype
-        inv = torch.rsqrt(var + self.eps).to(dt)
-        return ((x - mean.to(dt)) * inv * self.weight.to(dt)
-                + self.bias.to(dt))
+                mean, var = self.running_mean, self.running_var
+            dt = x.dtype
+            inv = torch.rsqrt(var + self.eps).to(dt)
+            return ((x - mean.to(dt)) * inv * self.weight.to(dt)
+                    + self.bias.to(dt))
 
 
 def _global_moments(xf, dims, group):
@@ -146,15 +150,16 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5,
     On a (B, 1, C) input the output is all zeros, as in the JAX package.
     With ``seg`` (the nodes of a flat x (N_flat, C) grouped by sample, the
     last bin the padding) the statistics are per (sample, c)."""
-    xf = _stats(x)
-    if seg is None:
-        mean = xf.mean(dim=-2, keepdim=True)
-        var = (xf - mean).square().mean(dim=-2, keepdim=True)
-        return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
-    cnt = seg.count.to(xf.dtype).clamp_min(1.0)[:, None]
-    dev = xf - gather(segment_sum(xf, seg) / cnt, seg)
-    var = segment_sum(dev.square(), seg) / cnt
-    return (dev * torch.rsqrt(gather(var, seg) + eps)).to(x.dtype)
+    with annotate("norm"):
+        xf = _stats(x)
+        if seg is None:
+            mean = xf.mean(dim=-2, keepdim=True)
+            var = (xf - mean).square().mean(dim=-2, keepdim=True)
+            return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+        cnt = seg.count.to(xf.dtype).clamp_min(1.0)[:, None]
+        dev = xf - gather(segment_sum(xf, seg) / cnt, seg)
+        var = segment_sum(dev.square(), seg) / cnt
+        return (dev * torch.rsqrt(gather(var, seg) + eps)).to(x.dtype)
 
 
 class InstanceNorm(nn.Module):

@@ -88,7 +88,7 @@ Beside each kernel, as every kernel of the port has them:
   ``EXT_BWD_COUNTS`` the DIFF/NEIGHBOR designs, ``KEPT_BF16_COUNTS``,
   ``KEPT_BF16_BWD_COUNTS``, ``KEPT_BF16_EXT_COUNTS`` and
   ``KEPT_BF16_EXT_BWD_COUNTS`` the kept bf16 routes, each launch under the
-  route that ran;
+  route that ran; ``ROUTES`` maps each route's name to its dict;
 * a wrapper (``typed_gather_mix_agg``, ``typed_gather_mix_agg_bwd``).  A
   CPU tensor goes to the plain version, a CUDA tensor to the kernel, or
   the wrapper raises; nothing falls back.
@@ -137,6 +137,18 @@ KEPT_EXT_BWD_COUNTS = {"kernel_launches": 0}
 KEPT_BF16_COUNTS = {"kernel_launches": 0, "bf16_launches": 0}
 KEPT_BF16_BWD_COUNTS = {"kernel_launches": 0, "bf16_launches": 0}
 KEPT_BF16_EXT_BWD_COUNTS = {"kernel_launches": 0, "bf16_launches": 0}
+# every route's counters, under the name the profiles give it
+ROUTES = {"typed_mp_fwd": COUNTS,
+          "typed_mp_bwd": BWD_COUNTS,
+          "typed_mp_fwd_ext": EXT_COUNTS,
+          "typed_mp_bwd_ext": EXT_BWD_COUNTS,
+          "typed_mp_fwd_ext_kept": KEPT_EXT_COUNTS,
+          "typed_mp_bwd_kept": KEPT_BWD_COUNTS,
+          "typed_mp_bwd_ext_kept": KEPT_EXT_BWD_COUNTS,
+          "typed_mp_fwd_bf16_kept": KEPT_BF16_COUNTS,
+          "typed_mp_fwd_ext_bf16_kept": KEPT_BF16_EXT_COUNTS,
+          "typed_mp_bwd_bf16_kept": KEPT_BF16_BWD_COUNTS,
+          "typed_mp_bwd_ext_bf16_kept": KEPT_BF16_EXT_BWD_COUNTS}
 
 KERNELS = ("typed_mp_fwd", "typed_mp_bwd")
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
@@ -182,10 +194,7 @@ def library(name: str) -> str:
 
 
 def reset_counts() -> None:
-    for counts in (COUNTS, BWD_COUNTS, EXT_COUNTS, EXT_BWD_COUNTS,
-                   KEPT_EXT_COUNTS, KEPT_BWD_COUNTS, KEPT_EXT_BWD_COUNTS,
-                   KEPT_BF16_COUNTS, KEPT_BF16_BWD_COUNTS,
-                   KEPT_BF16_EXT_COUNTS, KEPT_BF16_EXT_BWD_COUNTS):
+    for counts in ROUTES.values():
         for k in counts:
             counts[k] = 0
 

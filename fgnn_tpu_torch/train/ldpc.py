@@ -85,6 +85,7 @@ from ..ops.bp import BPGraphArrays, bp_decode_batch
 from ..parallel.comm import mean_over
 from ..parallel.sharding import unshard
 from ..utils.logging import MetricsWriter, init_logger
+from ..utils.profiling import annotate
 from .common import (
     Schedules,
     is_train_checkpoint,
@@ -168,12 +169,14 @@ def model_inputs(model: LDPCModel, batch: dict, device,
                  bp_features: bool = False) -> dict:
     """Check the tables on the host, copy the features to ``device`` and,
     with ``bp_features``, append the sum-product features there."""
-    check_tables(model, batch)
-    inputs = to_device({k: batch[k] for k in _INPUTS}, device,
-                       non_blocking=True)
-    if bp_features:
-        inputs["node_feature"] = augment_bp_features(inputs["node_feature"])
-    return inputs
+    with annotate("stage"):
+        check_tables(model, batch)
+        inputs = to_device({k: batch[k] for k in _INPUTS}, device,
+                           non_blocking=True)
+        if bp_features:
+            inputs["node_feature"] = augment_bp_features(
+                inputs["node_feature"])
+        return inputs
 
 
 def decode_logits(model: LDPCModel, batch: dict, device,
@@ -183,15 +186,19 @@ def decode_logits(model: LDPCModel, batch: dict, device,
         raise ValueError("decoding uses the running statistics: call "
                          "model.eval() first")
     with torch.inference_mode():
-        logits, _ = model(**model_inputs(model, batch, device, bp_features))
+        inputs = model_inputs(model, batch, device, bp_features)
+        with annotate("forward"):
+            logits, _ = model(**inputs)
     return logits
 
 
 def decode_step(model: LDPCModel, batch: dict, device,
                 bp_features: bool = False) -> torch.Tensor:
-    """Hard decisions (B, 48) int32: bit 1 where the logit is >= 0."""
-    return (decode_logits(model, batch, device, bp_features) >= 0).to(
-        torch.int32)
+    """Hard decisions (B, 48) int32: bit 1 where the logit is >= 0, in a
+    ``decode`` span holding ``stage`` and ``forward``."""
+    with annotate("decode"):
+        return (decode_logits(model, batch, device, bp_features) >= 0).to(
+            torch.int32)
 
 
 def load_checkpoint(path: str, model: LDPCModel) -> LDPCModel:
@@ -283,11 +290,12 @@ def _evaluate(args, model, dev):
 def stage_batch(model: LDPCModel, batch: dict, device) -> dict:
     """``model_inputs`` (without the sum-product features) plus the
     info-bit labels and sigma_b, on ``device``."""
-    check_tables(model, batch)
-    keep = {k: batch[k] for k in _INPUTS}
-    keep["label"] = batch["label"][:, :N_INFO]
-    keep["sigma_b"] = batch["sigma_b"]
-    return to_device(keep, device, non_blocking=True)
+    with annotate("stage"):
+        check_tables(model, batch)
+        keep = {k: batch[k] for k in _INPUTS}
+        keep["label"] = batch["label"][:, :N_INFO]
+        keep["sigma_b"] = batch["sigma_b"]
+        return to_device(keep, device, non_blocking=True)
 
 
 def train_step(model: LDPCModel, optimizer: torch.optim.Optimizer,
@@ -302,36 +310,50 @@ def train_step(model: LDPCModel, optimizer: torch.optim.Optimizer,
     rows, and the returned metrics and the gradients are this rank's:
     the mean of each over the data axis is the global batch's (the
     weighted BCE of ``clean_weight`` divides by the data-axis mean of the
-    weights' sums, so it too)."""
-    if not isinstance(batch["label"], torch.Tensor):
-        batch = stage_batch(model, batch, device)
-    model.train()
-    label = batch["label"].float()
-    sigma_b = batch["sigma_b"].float().reshape(-1)
-    inputs = {k: batch[k] for k in _INPUTS}
-    if bp_features:
-        inputs["node_feature"] = augment_bp_features(inputs["node_feature"])
-    logits, sb_pred = model(**inputs)
-    per_bit = F.binary_cross_entropy_with_logits(
-        logits.reshape(label.shape), label, reduction="none")
-    if clean_weight:
-        # --clean-weight: upweight the sigma_b <= 1 samples, where
-        # classical BP is near-ML
-        w = 1.0 + clean_weight * (sigma_b <= 1.0).float()
-        bce = (w * per_bit.mean(dim=-1)).sum() / mean_over(
-            w.sum(), None if mesh is None else mesh.data_group)
-    else:
-        bce = per_bit.mean()
-    mse = (sb_pred.reshape(-1) - torch.pow(10.0, sigma_b / 20.0)).square() \
-        .mean()
-    optimizer.zero_grad(set_to_none=True)
-    (bce + 0.1 * mse).backward()
-    reduce_gradients(model.parameters(), mesh)
-    optimizer.step()
-    with torch.no_grad():
-        acc = ((logits > 0).to(batch["label"].dtype)
-               == batch["label"]).float().mean()
-    return {"loss": bce.detach(), "sigma_b_loss": mse.detach(), "acc": acc}
+    weights' sums, so it too).  A ``step`` span holds the phases' spans
+    (``utils.profiling.annotate``): ``stage`` (a numpy batch, the
+    sum-product features), ``forward``, ``loss``, ``backward``
+    (``zero_grad`` and ``.backward()``), ``optimizer`` (the gradients'
+    reduce and Adam) and ``metrics``."""
+    with annotate("step"):
+        if not isinstance(batch["label"], torch.Tensor):
+            batch = stage_batch(model, batch, device)
+        model.train()
+        inputs = {k: batch[k] for k in _INPUTS}
+        if bp_features:
+            with annotate("stage"):
+                inputs["node_feature"] = augment_bp_features(
+                    inputs["node_feature"])
+        with annotate("forward"):
+            logits, sb_pred = model(**inputs)
+        with annotate("loss"):
+            label = batch["label"].float()
+            sigma_b = batch["sigma_b"].float().reshape(-1)
+            per_bit = F.binary_cross_entropy_with_logits(
+                logits.reshape(label.shape), label, reduction="none")
+            if clean_weight:
+                # --clean-weight: upweight the sigma_b <= 1 samples, where
+                # classical BP is near-ML
+                w = 1.0 + clean_weight * (sigma_b <= 1.0).float()
+                bce = (w * per_bit.mean(dim=-1)).sum() / mean_over(
+                    w.sum(), None if mesh is None else mesh.data_group)
+            else:
+                bce = per_bit.mean()
+            mse = (sb_pred.reshape(-1)
+                   - torch.pow(10.0, sigma_b / 20.0)).square().mean()
+            objective = bce + 0.1 * mse
+        with annotate("backward"):
+            optimizer.zero_grad(set_to_none=True)
+            objective.backward()
+        with annotate("optimizer"):
+            reduce_gradients(model.parameters(), mesh)
+            optimizer.step()
+        with annotate("metrics"):
+            with torch.no_grad():
+                acc = ((logits > 0).to(batch["label"].dtype)
+                       == batch["label"]).float().mean()
+        return {"loss": bce.detach(), "sigma_b_loss": mse.detach(),
+                "acc": acc}
 
 
 def train(args, model: LDPCModel, writer: MetricsWriter, model_dir: str, *,

@@ -106,6 +106,7 @@ from ..models.policy import bf16_policy
 from ..ops.typed_mp import GatherTable
 from ..parallel.sharding import set_data_group, shard_originals, unshard
 from ..utils.logging import MetricsWriter, init_logger
+from ..utils.profiling import annotate
 from .common import (
     Schedules,
     clip_grad_norm,
@@ -248,13 +249,14 @@ class SynWorkload:
         """The model's arguments and the labels of a numpy batch, on
         ``device``; under ``--coo`` the model's arguments flat over the
         batch's samples, the labels (B, width)."""
-        keep = {arg: batch[key] for arg, key in self.batch_keys.items()}
-        if self.buckets is not None:
-            keep = {k: v.reshape((-1,) + v.shape[2:])
-                    for k, v in keep.items()}
-        for key in ("label", "lp_label"):
-            keep[key] = batch[key]
-        return to_device(keep, device, non_blocking=True)
+        with annotate("stage"):
+            keep = {arg: batch[key] for arg, key in self.batch_keys.items()}
+            if self.buckets is not None:
+                keep = {k: v.reshape((-1,) + v.shape[2:])
+                        for k, v in keep.items()}
+            for key in ("label", "lp_label"):
+                keep[key] = batch[key]
+            return to_device(keep, device, non_blocking=True)
 
     def logits(self, staged: dict) -> torch.Tensor:
         """(B, L, 2) logits of a staged batch; under ``--coo`` flat,
@@ -271,25 +273,35 @@ def train_step(wl: SynWorkload, optimizer: torch.optim.Optimizer,
     ``wl.stage``): the JAX ``make_train_step``.  Returns {loss, acc,
     lp_acc} as device scalars and leaves the clipped gradients in the
     parameters' ``.grad``.  Under a ``mesh``: this rank's rows and
-    metrics, the gradients averaged over the data axis."""
-    if not isinstance(batch["label"], torch.Tensor):
-        batch = wl.stage(batch, device)
-    model = wl.model.train()
-    logits = wl.logits(batch)
-    # the labels in the logits' layout: (B, L), or flat under --coo
-    label = batch["label"].long().reshape(logits.shape[:-1])
-    loss = F.cross_entropy(logits.reshape(-1, 2), label.reshape(-1))
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    reduce_gradients(model.parameters(), mesh)
-    clip_grad_norm(model.parameters(), CLIP_NORM, mesh,
-                   shard_originals(model) if mesh is not None else ())
-    optimizer.step()
-    with torch.no_grad():
-        acc = (logits.argmax(dim=-1) == label).float().mean()
-        lp_acc = (batch["lp_label"].long().reshape(logits.shape[:-1])
-                  == label).float().mean()
-    return {"loss": loss.detach(), "acc": acc, "lp_acc": lp_acc}
+    metrics, the gradients averaged over the data axis.  Its spans are
+    those of ``train.ldpc.train_step``, with ``clip`` inside
+    ``optimizer``."""
+    with annotate("step"):
+        if not isinstance(batch["label"], torch.Tensor):
+            batch = wl.stage(batch, device)
+        model = wl.model.train()
+        with annotate("forward"):
+            logits = wl.logits(batch)
+        with annotate("loss"):
+            # the labels in the logits' layout: (B, L), or flat under --coo
+            label = batch["label"].long().reshape(logits.shape[:-1])
+            loss = F.cross_entropy(logits.reshape(-1, 2), label.reshape(-1))
+        with annotate("backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with annotate("optimizer"):
+            reduce_gradients(model.parameters(), mesh)
+            with annotate("clip"):
+                clip_grad_norm(model.parameters(), CLIP_NORM, mesh,
+                               shard_originals(model) if mesh is not None
+                               else ())
+            optimizer.step()
+        with annotate("metrics"):
+            with torch.no_grad():
+                acc = (logits.argmax(dim=-1) == label).float().mean()
+                lp_acc = (batch["lp_label"].long().reshape(
+                    logits.shape[:-1]) == label).float().mean()
+        return {"loss": loss.detach(), "acc": acc, "lp_acc": lp_acc}
 
 
 def eval_step(wl: SynWorkload, batch: dict, device) -> torch.Tensor:

@@ -47,7 +47,12 @@ run on either device:
 
 * ``trace(logdir)``: a ``torch.profiler`` trace (CPU, and CUDA where there
   is a card) of a block, written into ``logdir`` for TensorBoard;
-* ``annotate(name)``: a named range in such a trace;
+* ``annotate(name)``: a named span, the one span primitive of the program
+  (the trainers' step phases, ``MPConv``'s message passing, the norms):
+  a range in any ``torch.profiler`` trace, a ``Span`` under
+  ``record_spans()``, and otherwise one shared no-op;
+* ``record_spans()``: records every ``annotate`` span of the block in
+  memory, on ``time.perf_counter``'s clock, and yields the list;
 * ``device_memory_stats()``: bytes in use and their peak per CUDA device
   (``{}`` without one);
 * ``StepTimer``: steps, edges and samples per second of a loop.
@@ -64,11 +69,13 @@ import contextlib
 import json
 import os
 import tempfile
+import threading
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 # the port's __global__ functions (csrc/*.cu), by name: the kept, the
@@ -93,9 +100,103 @@ def trace(logdir: str):
         yield
 
 
+_NO_SPAN = contextlib.nullcontext()
+# a range in a torch.profiler trace: the C++ RecordFunction guard that
+# record_function wraps, at a sixth of its host cost a range or less; the
+# trace shows it as a host op ("cpu_op") of the span's name
+_RANGE = torch._C._profiler._RecordFunctionFast
+_recorder = None  # the _Recorder of the open record_spans() block
+
+
+@dataclass(slots=True)
+class Span:
+    """One ``annotate`` span under ``record_spans``.  ``parent``: the index
+    of the span that held it on its thread (-1: none), so a step's spans
+    are those whose parents lead to its span; ``thread``: the opening
+    thread's ``threading.get_ident()``; ``t0``, ``t1``: its start and end
+    in ``time.perf_counter`` seconds."""
+
+    name: str
+    parent: int
+    thread: int
+    t0: float = float("nan")
+    t1: float = float("nan")
+
+
+class _Recorder:
+    """The spans of one ``record_spans`` block, with each thread's stack of
+    open spans."""
+
+    def __init__(self):
+        self.spans = []
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+
+class _Annotation:
+    """``annotate``'s span while a recorder or a profiler is on."""
+
+    __slots__ = ("name", "rec", "range", "span")
+
+    def __init__(self, name: str, rec):
+        self.name, self.rec = name, rec
+        self.range = (_RANGE(name) if _autograd_profiler._is_profiler_enabled
+                      else None)
+
+    def __enter__(self):
+        if self.range is not None:
+            self.range.__enter__()
+        rec = self.rec
+        if rec is not None:
+            stack = rec.stack()
+            self.span = Span(self.name, stack[-1] if stack else -1,
+                             threading.get_ident())
+            with rec._lock:
+                stack.append(len(rec.spans))
+                rec.spans.append(self.span)
+            self.span.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        if rec is not None:
+            self.span.t1 = time.perf_counter()
+            rec.stack().pop()
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
 def annotate(name: str):
-    """A named range in a ``trace``: ``with annotate("step"): ...``."""
-    return torch.profiler.record_function(name)
+    """A named span: ``with annotate("step"): ...``.  Under any
+    ``torch.profiler`` trace (``trace``, or the caller's own) a range of
+    that name; under ``record_spans`` a ``Span``; with neither, one shared
+    no-op context manager, which allocates nothing and reads no clock."""
+    if _recorder is None and not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _Annotation(name, _recorder)
+
+
+@contextlib.contextmanager
+def record_spans():
+    """Record every ``annotate`` span opened in the block, on every
+    thread, and yield the list of ``Span`` records, filled in as the spans
+    open and close.  Nothing is written anywhere: the caller reads the
+    list."""
+    global _recorder
+    if _recorder is not None:
+        raise RuntimeError("record_spans() blocks do not nest")
+    _recorder = _Recorder()
+    try:
+        yield _recorder.spans
+    finally:
+        _recorder = None
 
 
 def device_memory_stats() -> dict:
@@ -203,18 +304,7 @@ def _trace(fn, steps: int, wall_ms: float, per: str, top: int) -> dict:
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
-    counts = {name: dict(c) for name, c in (
-        ("typed_mp_fwd", fused_mp.COUNTS),
-        ("typed_mp_bwd", fused_mp.BWD_COUNTS),
-        ("typed_mp_fwd_ext", fused_mp.EXT_COUNTS),
-        ("typed_mp_bwd_ext", fused_mp.EXT_BWD_COUNTS),
-        ("typed_mp_fwd_ext_kept", fused_mp.KEPT_EXT_COUNTS),
-        ("typed_mp_bwd_kept", fused_mp.KEPT_BWD_COUNTS),
-        ("typed_mp_bwd_ext_kept", fused_mp.KEPT_EXT_BWD_COUNTS),
-        ("typed_mp_fwd_bf16_kept", fused_mp.KEPT_BF16_COUNTS),
-        ("typed_mp_fwd_ext_bf16_kept", fused_mp.KEPT_BF16_EXT_COUNTS),
-        ("typed_mp_bwd_bf16_kept", fused_mp.KEPT_BF16_BWD_COUNTS),
-        ("typed_mp_bwd_ext_bf16_kept", fused_mp.KEPT_BF16_EXT_BWD_COUNTS))}
+    counts = {name: dict(c) for name, c in fused_mp.ROUTES.items()}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)

@@ -1,0 +1,17 @@
+"""Device ms per decoded batch of the kernels launched inside the
+program's ``norm`` spans (every BatchNorm and instance norm), from the op
+trace (``program_spans.device_ms``); none where the program opens no such
+span."""
+
+from portbench import program_spans
+
+LAYER = "model"
+UNIT = "ms"
+MOVES = "decode_words_per_s"
+SOURCE = "device_trace"
+
+
+def read(ctx):
+    if ctx.loop != "decode_closed":
+        return None
+    return program_spans.device_ms(ctx.ops, "norm")
