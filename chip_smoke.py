@@ -15,6 +15,12 @@ Phases, one JSON line each:
                    the card, at the LDPC shapes and two ragged ones, all
                    four aggregators; kernel (with and without the argmax),
                    plain and bound times at each LDPC shape
+  norm_act         the norm kernels (ops/norm_act.py) at a decode batch of
+                   4096 words: bn_act_kernel on (4096 * 96, 256) with leaky
+                   ReLU, bit-equal to the plain path on the card, and
+                   in_act_kernel on (4096, 96, 256) with ReLU, within
+                   KERNEL_TOL of it; each timed with its bound (bytes over
+                   3.35 TB/s) and the plain path's time
   kernel_check_bwd both routes of the backward (the staged kernel with its
                    planned slab, and the kept kernels) against the plain
                    version, fed the same cotangent and argmax, at the same
@@ -280,6 +286,13 @@ EDGES_PER_WORD = (96 * 3 + 48 * 6 + 96 + 96) * 8  # 6144, as bench.py
 EVAL_PER_CELL = 128
 BATCH = 256
 TRAIN_STEPS = 20
+# the norms of one LDPC decode forward, each one launch of the norm
+# kernels (ops/norm_act.py): 83 eval BatchNorms and 25 instance norms
+NORMS_PER_FORWARD = 108
+# the norm kernels timed at a decode batch of 4096 words: a BatchNorm over
+# the variables' 256 channels with its leaky ReLU, and an instance norm
+# of the same (B, N, C) with its ReLU
+NORM_ACT_WORDS = 4096
 # Kernel against plain version on the card: the same f32 arithmetic in
 # another order (fmaf, sums over c and over in-edges), so 1e-5 of the
 # largest reference value.
@@ -643,6 +656,73 @@ def phase_kernel_check(torch, fused_mp):
     return worst, shapes
 
 
+def phase_norm_act(torch, fused_mp):
+    """The norm kernels at a decode batch's size, each timed behind the
+    spin kernel beside its bound (bytes: x read once, the result written
+    once, over 3.35 TB/s) and the plain path on the card (the module's
+    plain code, taken where a graph is recorded for the parameters):
+    BatchNorm bit-equal, instance norm within KERNEL_TOL of the largest."""
+    from fgnn_tpu_torch.models.norm import BatchNorm, instance_norm
+
+    rows, N, C = NORM_ACT_WORDS * 96, 96, 256
+    g = torch.Generator(device="cuda").manual_seed(17)
+    bn = BatchNorm(C).cuda().eval()
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=g)
+        bn.bias.uniform_(-0.1, 0.1, generator=g)
+        bn.running_mean.normal_(0.0, 0.3, generator=g)
+        bn.running_var.uniform_(0.5, 1.5, generator=g)
+    x = torch.randn(rows, C, device="cuda", generator=g) * 2 + 0.3
+    xin = x.view(NORM_ACT_WORDS, N, C)
+    xin_graph = xin.detach().requires_grad_()
+
+    def bn_kernel():
+        with torch.no_grad():
+            return bn(x, activation="leaky_relu")
+
+    def bn_plain():
+        return bn(x, activation="leaky_relu")
+
+    def in_kernel():
+        with torch.no_grad():
+            return instance_norm(xin, activation="relu")
+
+    def in_plain():
+        return instance_norm(xin_graph, activation="relu")
+
+    out = {}
+    for name, kernel, plain in (("bn_act_kernel", bn_kernel, bn_plain),
+                                ("in_act_kernel", in_kernel, in_plain)):
+        fused_mp.reset_counts()
+        got = kernel()
+        require(fused_mp.NORM_ACT_COUNTS == {"kernel_launches": 1,
+                                             "plain_calls": 0},
+                f"{name}: one launch")
+        want = plain().detach()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        if name == "bn_act_kernel":
+            require(torch.equal(got.view(torch.int32),
+                                want.view(torch.int32)),
+                    f"{name}: bit-equal to the plain path")
+        require(err <= KERNEL_TOL * scale,
+                f"{name}: max_abs_err {err} > {KERNEL_TOL} * {scale}")
+        del got, want
+        ms, host_ms = device_ms(kernel, 200, torch)
+        plain_ms, _ = device_ms(plain, 20, torch)
+        nbytes = 2 * 4 * x.numel()
+        out[name] = dict(
+            shape=[rows, C] if name == "bn_act_kernel" else [
+                NORM_ACT_WORDS, N, C],
+            activation="leaky_relu" if name == "bn_act_kernel" else "relu",
+            ms=ms, plain_ms=plain_ms, wrapper_host_ms=host_ms,
+            bound_ms=bound_ms(nbytes, 0), bytes=nbytes,
+            gbytes_per_s=nbytes / ms / 1e6, max_abs_err=err)
+        emit("norm_act", name=name, **out[name])
+    return out
+
+
 def _route_counts(fused_mp, route, ext):
     if route == "kept":
         return (fused_mp.KEPT_EXT_BWD_COUNTS if ext
@@ -797,6 +877,10 @@ def _count_decode(torch, fused_mp, evaluate, args, model, dev, n_batches):
             f"kernel_launches {counts['kernel_launches']} != 16 x "
             f"{n_batches}")
     require(counts["plain_calls"] == 0, "no plain calls on the card")
+    norms = dict(fused_mp.NORM_ACT_COUNTS)
+    require(norms == {"kernel_launches": NORMS_PER_FORWARD * n_batches,
+                      "plain_calls": 0},
+            f"every norm on its kernel, none plain: {norms}")
     require(0.0 <= ber_total <= 1.0 and err.shape == (5, 6),
             "BER in [0, 1], 5 x 6 matrix")
     return seconds, counts, ber_total, err
@@ -4174,6 +4258,7 @@ def main():
         return unrounded(torch, fused_mp)
     phase_build(fused_mp)
     worst, shapes = phase_kernel_check(torch, fused_mp)
+    phase_norm_act(torch, fused_mp)
     worst_bwd, shapes_bwd = phase_kernel_check_bwd(torch, fused_mp)
     worst_ext, shapes_ext = phase_kernel_check_ext(torch, fused_mp)
     worst_ext_bwd, shapes_ext_bwd = phase_kernel_check_ext_bwd(torch,

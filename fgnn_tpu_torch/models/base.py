@@ -45,7 +45,7 @@ class IIDMapBN(nn.Module):
         self.bn = BatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.bn(self.conv(x)))
+        return self.bn(self.conv(x), activation="relu")
 
 
 class IIDMapIN(nn.Module):
@@ -54,7 +54,7 @@ class IIDMapIN(nn.Module):
         self.conv = Dense(nin, features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(instance_norm(self.conv(x)))
+        return instance_norm(self.conv(x), activation="relu")
 
 
 class MLP(nn.Module):

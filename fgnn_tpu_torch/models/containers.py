@@ -39,7 +39,7 @@ class IIDBlock(nn.Module):
         self.bn = BatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.bn(self.conv(x)))
+        return self.bn(self.conv(x), activation="relu")
 
 
 class MPSequential(nn.Module):

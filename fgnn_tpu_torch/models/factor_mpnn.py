@@ -41,7 +41,7 @@ class _PointwiseFallback(nn.Module):
         self.conv = Dense(nin, features)
 
     def forward(self, x: torch.Tensor, seg=None) -> torch.Tensor:
-        return torch.relu(instance_norm(self.conv(x), seg=seg))
+        return instance_norm(self.conv(x), seg=seg, activation="relu")
 
 
 class _FinalMerge(nn.Module):
@@ -56,7 +56,7 @@ class _FinalMerge(nn.Module):
         self.conv3 = Dense(256, nout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = leaky_relu(self.bn(self.conv1(x)))
+        x = self.bn(self.conv1(x), activation="leaky_relu")
         x = leaky_relu(self.conv2(x))
         return self.conv3(x)
 

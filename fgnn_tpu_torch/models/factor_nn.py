@@ -19,7 +19,6 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
 
-import torch
 from torch import nn
 
 from .base import IIDMap, IIDMapBN, IIDMapIN
@@ -110,5 +109,5 @@ class FactorNN(nn.Module):
                 fs = [a + b for a, b in zip(ofs, fs)]
             inter.append((x, fs))
 
-        h = torch.relu(instance_norm(self.final_conv1(x)))
+        h = instance_norm(self.final_conv1(x), activation="relu")
         return self.final_conv2(h), fs

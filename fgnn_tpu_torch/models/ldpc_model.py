@@ -47,7 +47,7 @@ class SigmaBRegressor(nn.Module):
         self.fc3 = Dense(128, 1)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
-        h = torch.relu(self.bn(self.fc1(h)))
+        h = self.bn(self.fc1(h), activation="relu")
         h = torch.relu(self.fc2(h))
         return torch.relu(self.fc3(h))
 

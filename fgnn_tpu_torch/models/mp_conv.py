@@ -13,7 +13,7 @@ destinations are row-sharded over a mesh's data axis) it runs
 rows.  The halo branch implements NO_EXTENSION only, as the JAX one.
 On every branch the message passing (``x @ W``, gather-mix-aggregate,
 bias) runs inside a ``conv`` span (``utils.profiling.annotate``), the
-BatchNorm after it outside.
+BatchNorm after it outside, with the ReLU in its ``norm`` span.
 
 The JAX modules default to ``ORIG_WITH_DIFF``; the port's default is
 ``NO_EXTENSION``, the LDPC models' mode, and the synthetic models
@@ -32,7 +32,7 @@ from ..ops.segment import CooGraph, typed_mp_conv_coo
 from ..ops.typed_mp import Extension, typed_mp_conv
 from ..parallel.halo import HaloGraph, halo_typed_mp_coo
 from ..utils.profiling import annotate
-from .norm import BatchNorm, Dense, leaky_relu, uniform_
+from .norm import BatchNorm, Dense, uniform_
 
 _COO_EXT = {Extension.NO_EXTENSION: "none",
             Extension.ORIG_WITH_DIFF: "diff",
@@ -102,7 +102,7 @@ class MPConv(nn.Module):
                                   aggregator=self.aggregator,
                                   gamma=self.gamma, bias=self.bias)
         if self.bn is not None:
-            y = self.bn(y, group=group)
+            return self.bn(y, group=group, activation=self.activation)
         return torch.relu(y) if self.activation == "relu" else y
 
 
@@ -127,9 +127,9 @@ class MPConvResidual(nn.Module):
     def forward(self, x: torch.Tensor, table, etype: torch.Tensor
                 ) -> torch.Tensor:
         """``table``: a ``GatherTable`` or a ``CooGraph``, passed through."""
-        h = leaky_relu(self.bn1(self.conv1(x)))
+        h = self.bn1(self.conv1(x), activation="leaky_relu")
         h = self.mp_conv(h, table, etype)
-        h = leaky_relu(self.bn2(self.conv2(h)))
+        h = self.bn2(self.conv2(h), activation="leaky_relu")
         if self.with_residual:
             h = h + x
         return h
@@ -158,9 +158,9 @@ class GConvResidual(nn.Module):
 
     def forward(self, x: torch.Tensor, table, etype: torch.Tensor
                 ) -> torch.Tensor:
-        h = torch.relu(self.bn1(self.conv1(x)))
+        h = self.bn1(self.conv1(x), activation="relu")
         h = self.mp_conv(h, table, etype)
-        h = torch.relu(self.bn2(self.conv2(h)))
+        h = self.bn2(self.conv2(h), activation="relu")
         if self.with_residual:
             h = h + x
         return h

@@ -34,6 +34,19 @@ from the same distributions as the JAX init; ``init_weights`` walks a
 model with one seeded ``torch.Generator``.  ``BatchNorm`` and
 ``instance_norm`` each run inside a ``norm`` span
 (``utils.profiling.annotate``).
+
+Both take the activation that follows them (``activation``: None,
+"relu" or "leaky_relu"), so that an eval norm on the card runs as one
+kernel with it (``ops/norm_act.py``): eval BatchNorm, and
+``instance_norm`` without ``seg``, on an f32 contiguous CUDA input with no
+autograd graph recorded (``norm_act.engages``).  Everything else runs the
+plain code below and counts a plain call (``fused_mp.NORM_ACT_COUNTS``):
+the CPU, bf16 (whose rounding follows the JAX chain step by step),
+training, the COO and the halo's group statistics.  The plain code applies
+the activation in place (``_activate_``) on the norm's fresh result: the
+same kernels and bits as ``torch.relu`` or ``leaky_relu`` after the norm,
+and no tensor of the input's size allocated while the caller still holds
+the input.
 """
 
 from __future__ import annotations
@@ -45,6 +58,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import norm_act
+from ..ops.fused_mp import NORM_ACT_COUNTS
 from ..ops.segment import Segments, gather, segment_sum
 from ..parallel.comm import all_reduce_sum
 from ..utils.profiling import annotate
@@ -102,11 +117,20 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, group=None,
+                activation: Optional[str] = None) -> torch.Tensor:
         """``group``: take the batch statistics over it, in place of
-        ``data_group``."""
+        ``data_group``; ``activation``: apply it to the result."""
+        _check_activation(activation)
         group = self.data_group if group is None else group
         with annotate("norm"):
+            if not self.training and norm_act.engages(
+                    x, self.running_mean, self.running_var, self.weight,
+                    self.bias):
+                return norm_act.bn_act(x, self.running_mean,
+                                       self.running_var, self.weight,
+                                       self.bias, self.eps, activation)
+            NORM_ACT_COUNTS["plain_calls"] += 1
             if self.training:
                 dims = tuple(range(x.ndim - 1))
                 xf = _stats(x)
@@ -127,8 +151,8 @@ class BatchNorm(nn.Module):
                 mean, var = self.running_mean, self.running_var
             dt = x.dtype
             inv = torch.rsqrt(var + self.eps).to(dt)
-            return ((x - mean.to(dt)) * inv * self.weight.to(dt)
-                    + self.bias.to(dt))
+            return _activate_((x - mean.to(dt)) * inv * self.weight.to(dt)
+                              + self.bias.to(dt), activation)
 
 
 def _global_moments(xf, dims, group):
@@ -144,22 +168,30 @@ def _global_moments(xf, dims, group):
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5,
-                  seg: Optional[Segments] = None) -> torch.Tensor:
-    """torch.nn.InstanceNorm2d defaults on (B, N, C): per (b, c) over N.
+                  seg: Optional[Segments] = None,
+                  activation: Optional[str] = None) -> torch.Tensor:
+    """torch.nn.InstanceNorm2d defaults on (B, N, C): per (b, c) over N,
+    then ``activation``.
 
     On a (B, 1, C) input the output is all zeros, as in the JAX package.
     With ``seg`` (the nodes of a flat x (N_flat, C) grouped by sample, the
     last bin the padding) the statistics are per (sample, c)."""
+    _check_activation(activation)
     with annotate("norm"):
+        if seg is None and norm_act.engages(x):
+            return norm_act.in_act(x, eps, activation)
+        NORM_ACT_COUNTS["plain_calls"] += 1
         xf = _stats(x)
         if seg is None:
             mean = xf.mean(dim=-2, keepdim=True)
             var = (xf - mean).square().mean(dim=-2, keepdim=True)
-            return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
-        cnt = seg.count.to(xf.dtype).clamp_min(1.0)[:, None]
-        dev = xf - gather(segment_sum(xf, seg) / cnt, seg)
-        var = segment_sum(dev.square(), seg) / cnt
-        return (dev * torch.rsqrt(gather(var, seg) + eps)).to(x.dtype)
+            y = ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+        else:
+            cnt = seg.count.to(xf.dtype).clamp_min(1.0)[:, None]
+            dev = xf - gather(segment_sum(xf, seg) / cnt, seg)
+            var = segment_sum(dev.square(), seg) / cnt
+            y = (dev * torch.rsqrt(gather(var, seg) + eps)).to(x.dtype)
+        return _activate_(y, activation)
 
 
 class InstanceNorm(nn.Module):
@@ -177,6 +209,25 @@ class InstanceNorm(nn.Module):
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope)
+
+
+def _check_activation(activation) -> None:
+    if activation not in norm_act.ACTIVATIONS:
+        raise ValueError(f"activation is one of "
+                         f"{sorted(map(str, norm_act.ACTIVATIONS))}; got "
+                         f"{activation!r}")
+
+
+def _activate_(y: torch.Tensor, activation: Optional[str]) -> torch.Tensor:
+    """y, or ReLU or leaky ReLU applied to it in place, for ``activation``
+    None, "relu" or "leaky_relu".  y is a norm's result, which no autograd
+    node saved: the in-place ops save their output, as ``torch.relu``
+    does, and ``leaky_relu``'s gradient from its output equals the one from
+    its input for a positive slope."""
+    if activation == "relu":
+        return torch.relu_(y)
+    return y if activation is None else F.leaky_relu(
+        y, norm_act.LEAKY_SLOPE, inplace=True)
 
 
 def init_weights(module: nn.Module, seed: int) -> nn.Module:

@@ -88,7 +88,10 @@ Beside each kernel, as every kernel of the port has them:
   ``EXT_BWD_COUNTS`` the DIFF/NEIGHBOR designs, ``KEPT_BF16_COUNTS``,
   ``KEPT_BF16_BWD_COUNTS``, ``KEPT_BF16_EXT_COUNTS`` and
   ``KEPT_BF16_EXT_BWD_COUNTS`` the kept bf16 routes, each launch under the
-  route that ran; ``ROUTES`` maps each route's name to its dict;
+  route that ran; ``ROUTES`` maps each route's name to its dict, and
+  holds ``NORM_ACT_COUNTS`` too, the norm kernels' (``ops/norm_act.py``,
+  whose library ``csrc/norm_act.cu`` is built and launched here with the
+  others);
 * a wrapper (``typed_gather_mix_agg``, ``typed_gather_mix_agg_bwd``).  A
   CPU tensor goes to the plain version, a CUDA tensor to the kernel, or
   the wrapper raises; nothing falls back.
@@ -137,6 +140,9 @@ KEPT_EXT_BWD_COUNTS = {"kernel_launches": 0}
 KEPT_BF16_COUNTS = {"kernel_launches": 0, "bf16_launches": 0}
 KEPT_BF16_BWD_COUNTS = {"kernel_launches": 0, "bf16_launches": 0}
 KEPT_BF16_EXT_BWD_COUNTS = {"kernel_launches": 0, "bf16_launches": 0}
+# the norms with their activation (ops/norm_act.py): the kernels' launches,
+# and every norm that ran in plain PyTorch
+NORM_ACT_COUNTS = {"kernel_launches": 0, "plain_calls": 0}
 # every route's counters, under the name the profiles give it
 ROUTES = {"typed_mp_fwd": COUNTS,
           "typed_mp_bwd": BWD_COUNTS,
@@ -148,9 +154,10 @@ ROUTES = {"typed_mp_fwd": COUNTS,
           "typed_mp_fwd_bf16_kept": KEPT_BF16_COUNTS,
           "typed_mp_fwd_ext_bf16_kept": KEPT_BF16_EXT_COUNTS,
           "typed_mp_bwd_bf16_kept": KEPT_BF16_BWD_COUNTS,
-          "typed_mp_bwd_ext_bf16_kept": KEPT_BF16_EXT_BWD_COUNTS}
+          "typed_mp_bwd_ext_bf16_kept": KEPT_BF16_EXT_BWD_COUNTS,
+          "norm_act": NORM_ACT_COUNTS}
 
-KERNELS = ("typed_mp_fwd", "typed_mp_bwd")
+KERNELS = ("typed_mp_fwd", "typed_mp_bwd", "norm_act")
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(_CSRC, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -181,6 +188,13 @@ _ARGTYPES = {
     # g, argmax, h, nn_idx, src_ptr, src_edge, etype, dh, d_etype; B N K T
     # C agg; the slabs' scratch; channels per block, row tiles; stream
     "typed_mp_bwd_ext": [_PTR] * 9 + [_INT] * 6 + [_PTR, _INT, _INT, _PTR],
+    # csrc/norm_act.cu (ops/norm_act.py): x, mean, inv, weight, bias, out;
+    # rows; C vec4 act; slope; stream
+    "bn_act": [_PTR] * 6 + [ctypes.c_longlong] + [_INT] * 3
+    + [ctypes.c_float, _PTR],
+    # x, out; B N C; eps; act; slope; stream
+    "in_act": [_PTR] * 2 + [_INT] * 3 + [ctypes.c_float, _INT,
+                                         ctypes.c_float, _PTR],
 }
 _libs = {}
 
@@ -261,7 +275,7 @@ def _launch(lib: str, name: str, device, shape, *args) -> None:
             *args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err} "
-                           f"(B, N, Nd, K, T, C = {shape})")
+                           f"(sizes {shape})")
 
 
 def _ptr(t):

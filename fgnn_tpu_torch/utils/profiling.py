@@ -29,8 +29,9 @@ JSON object:
 * ``kernels_per_forward`` (``kernels_per_step``), the typed-mp kernels'
   launches per forward (step), in each mode and, for the backward, on each
   route (staged, kept), with ``..._bf16_launches_per_...`` the launches of
-  their bf16 mode, the device time of each of the port's ``__global__``
-  functions, and the kernels with the most device time.
+  their bf16 mode, the norm kernels' (``norm_act_launches_per_...``),
+  the device time of each of the port's ``__global__`` functions, and the
+  kernels with the most device time.
 
 ``--bf16`` runs any of them under the bf16 compute policy
 (``models/policy.py``), as the trainers' flag.  ``--bp-features`` runs the
@@ -80,11 +81,12 @@ from torch.autograd import profiler as _autograd_profiler
 
 # the port's __global__ functions (csrc/*.cu), by name: the kept, the
 # staged and the bf16 sample forward, the staged backward and its sum over
-# slabs, the bf16 DIFF/NEIGHBOR backward's design, and the two of the kept
-# backward
+# slabs, the bf16 DIFF/NEIGHBOR backward's design, the two of the kept
+# backward, and the eval BatchNorm and instance norm with their activation
 PORT_KERNELS = ("typed_mp_fwd_kernel", "staged_fwd_kernel",
                 "sample_fwd_kernel", "staged_bwd_kernel", "sum_slabs",
-                "ext_bwd_kernel", "d_etype_kernel", "dh_kernel")
+                "ext_bwd_kernel", "d_etype_kernel", "dh_kernel",
+                "bn_act_kernel", "in_act_kernel")
 
 
 @contextlib.contextmanager

@@ -1090,3 +1090,141 @@ def test_joint_kernels_match_plain(cuda, C, agg, dtype):
     for got, again, want in zip(runs[0], runs[1], ref):
         assert torch.equal(got, again)
         _close(got, want, dt)
+
+
+# ------------------------------------------ norms with their activation
+NORM_ACTIVATIONS = [None, "relu", "leaky_relu"]
+
+
+def _norm_input(shape, dev, seed, offset=0.0):
+    """Values around ``offset`` with a few NaN and infinities."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(*shape, generator=g) * 2 + offset
+    flat = x.view(-1)
+    if flat.numel() > 8:
+        flat[3], flat[5], flat[7] = float("nan"), float("inf"), -float("inf")
+    return x.to(dev)
+
+
+def _same_bits_nan(a, b):
+    """Equal bit for bit where not NaN; NaN at the same places."""
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(
+        a.view(torch.int32)[~nan], b.view(torch.int32)[~nan])
+
+
+def _off_init_bn(C, dev, seed):
+    from fgnn_tpu_torch.models.norm import BatchNorm
+
+    bn = BatchNorm(C)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=g)
+        bn.bias.uniform_(-0.1, 0.1, generator=g)
+        bn.running_mean.copy_(torch.randn(C, generator=g) * 0.3)
+        bn.running_var.uniform_(0.5, 1.5, generator=g)
+    return bn.to(dev).eval()
+
+
+@pytest.mark.parametrize("activation", NORM_ACTIVATIONS)
+@pytest.mark.parametrize("C", [64, 128, 256, 30])
+@pytest.mark.parametrize("N", [1, 48, 96])
+def test_bn_act_bit_equal_to_plain(cuda, N, C, activation):
+    """The eval BatchNorm kernel against the module's plain path on the
+    card (taken where a graph is recorded for the parameters); C = 30 takes
+    the scalar path."""
+    x = _norm_input((64, N, C), cuda, N * 1000 + C)
+    bn = _off_init_bn(C, cuda, C)
+    fused_mp.reset_counts()
+    with torch.no_grad():
+        got = bn(x, activation=activation)
+    assert fused_mp.NORM_ACT_COUNTS == {"kernel_launches": 1,
+                                        "plain_calls": 0}
+    want = bn(x, activation=activation).detach()
+    assert fused_mp.NORM_ACT_COUNTS["plain_calls"] == 1
+    torch.cuda.synchronize()
+    assert _same_bits_nan(got, want)
+
+
+@pytest.mark.parametrize("activation", NORM_ACTIVATIONS)
+def test_bn_act_scalar_path_on_an_unaligned_input(cuda, activation):
+    """C % 4 == 0 but x 4 bytes off a 16-byte boundary: scalar loads, the
+    same bits; and a 2-D input (the sigma_b regressor's)."""
+    C = 128
+    bn = _off_init_bn(C, cuda, 7)
+    base = _norm_input((1 + 256 * C,), cuda, 8)
+    for x in (base[1:].view(256, C), base[:-1].view(2, 128, C)):
+        with torch.no_grad():
+            got = bn(x, activation=activation)
+        want = bn(x, activation=activation).detach()
+        torch.cuda.synchronize()
+        assert _same_bits_nan(got, want)
+
+
+@pytest.mark.parametrize("activation", NORM_ACTIVATIONS)
+@pytest.mark.parametrize("C", [64, 256, 30])
+@pytest.mark.parametrize("N", [1, 48, 96, 200])
+def test_in_act_against_f64(cuda, N, C, activation):
+    """The instance-norm kernel is no further from an f64 evaluation than
+    the plain f32 path on the card, within a factor of 2; N = 200 reads the
+    rows beyond the registers again; N = 1 gives zeros; two launches give
+    the same bits."""
+    from fgnn_tpu_torch.models.norm import instance_norm
+
+    g = torch.Generator().manual_seed(N + C)
+    x = (torch.randn(32, N, C, generator=g) * 3
+         + torch.randn(1, 1, C, generator=g) * 5).to(cuda)
+    fused_mp.reset_counts()
+    with torch.no_grad():
+        got = instance_norm(x, activation=activation)
+        again = instance_norm(x, activation=activation)
+    assert fused_mp.NORM_ACT_COUNTS == {"kernel_launches": 2,
+                                        "plain_calls": 0}
+    plain = instance_norm(x.clone().requires_grad_(),
+                          activation=activation).detach()
+    ref = instance_norm(x.double(), activation=activation)
+    assert fused_mp.NORM_ACT_COUNTS["plain_calls"] == 2
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if N == 1:
+        assert not got.any() and not plain.any()
+        return
+    err = (got.double() - ref).abs().max().item()
+    err_plain = (plain.double() - ref).abs().max().item()
+    assert err <= 2 * err_plain, (err, err_plain)
+
+
+def test_ldpc_decode_takes_the_norm_kernels(cuda):
+    """An eval LDPCModel at the reference width, B=256: the same decisions
+    as the plain path on the card (its forward under autograd), logits
+    within 1e-5 of the largest; 108 norm launches a forward, no plain
+    norm."""
+    from fgnn_tpu_torch.data import ContinuousCodesSP
+    from fgnn_tpu_torch.models import LDPCModel, init_weights
+    from fgnn_tpu_torch.models.norm import BatchNorm
+    from fgnn_tpu_torch.train.ldpc import decode_logits, model_inputs
+
+    model = init_weights(LDPCModel(), 3)
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                C = m.weight.numel()
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.uniform_(-0.1, 0.1, generator=g)
+                m.running_mean.copy_(torch.randn(C, generator=g) * 0.3)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+    model = model.to(cuda).eval()
+    batch = next(ContinuousCodesSP(length=256, seed=5).batches(256))
+    fused_mp.reset_counts()
+    got = decode_logits(model, batch, cuda)
+    assert fused_mp.NORM_ACT_COUNTS == {"kernel_launches": 108,
+                                        "plain_calls": 0}
+    want, _ = model(**model_inputs(model, batch, cuda))
+    assert fused_mp.NORM_ACT_COUNTS == {"kernel_launches": 108,
+                                        "plain_calls": 108}
+    want = want.detach()
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-5 * scale
+    assert torch.equal(got >= 0, want >= 0)

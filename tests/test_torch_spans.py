@@ -4,9 +4,9 @@ parent and thread (a step's spans lead by their parents to its span), the
 span trees of the LDPC train and decode steps and of the hop train step
 (dense tables and ``--coo``) at small widths, one ``conv`` span per
 ``MPConv`` call and one ``norm`` span per BatchNorm or instance norm, the
-typed-mp launches of a step by route (``fused_mp.ROUTES``), the same bits
-with the recorder on and off, and the ranges a ``torch.profiler`` trace
-holds."""
+typed-mp launches of a step by route and its plain norm calls
+(``fused_mp.ROUTES``), the same bits with the recorder on and off, and the
+ranges a ``torch.profiler`` trace holds."""
 
 import copy
 import json
@@ -192,8 +192,10 @@ def test_train_step_span_tree(name, calls):
         assert _root(spans, i) == 0
         if s.name in ("conv", "norm"):
             assert "forward" in _ancestors(spans, s)
-    # the step's typed-mp launches by route: the COO step makes none
+    # the step's typed-mp launches by route: the COO step makes none; on
+    # the CPU every norm is a plain call
     routes = {r: c for r, c in counts.items() if c}
+    assert routes.pop("norm_act") == {"plain_calls": n["norm"]}
     if name == "hop_coo":
         assert routes == {}
     else:
@@ -218,10 +220,11 @@ def test_decode_step_span_tree(calls):
         max(i for i in tops if i <= j) for j in range(len(spans))]
     routes = {r: {k: v for k, v in c.items() if v}
               for r, c in fused_mp.ROUTES.items()}
-    assert {r: c for r, c in routes.items() if c} == {
-        "typed_mp_fwd": {"plain_calls": fused_mp.COUNTS["plain_calls"]}}
-    assert fused_mp.COUNTS["plain_calls"] % 2 == 0
     n = Counter(s.name for s in spans)
+    assert {r: c for r, c in routes.items() if c} == {
+        "typed_mp_fwd": {"plain_calls": fused_mp.COUNTS["plain_calls"]},
+        "norm_act": {"plain_calls": n["norm"]}}
+    assert fused_mp.COUNTS["plain_calls"] % 2 == 0
     assert n["conv"] == seen["conv"] > 0 and n["norm"] == seen["norm"] > 0
 
 
@@ -264,7 +267,7 @@ def test_profiler_trace_holds_the_spans(tmp_path):
 def test_one_route_registry():
     dicts = [v for k, v in vars(fused_mp).items()
              if k.split("_")[-1] == "COUNTS" and isinstance(v, dict)]
-    assert len(fused_mp.ROUTES) == len(dicts) == 11
+    assert len(fused_mp.ROUTES) == len(dicts) == 12
     assert {id(c) for c in fused_mp.ROUTES.values()} == {id(c) for c in dicts}
     for c in dicts:
         c["kernel_launches"] += 3
