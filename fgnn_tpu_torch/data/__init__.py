@@ -11,7 +11,13 @@ from .ldpc_datasets import (
     generate_eval_set,
     sample_to_features,
 )
-from .ldpc_graph import LDPCStructure, default_structure
+from .ldpc_graph import (
+    LDPCStructure,
+    code_mask,
+    default_structure,
+    parity_check,
+    syndrome,
+)
 from .rpgm import (
     BucketedHopData,
     MixedLengthHopData,
@@ -41,7 +47,8 @@ __all__ = [
     "encode", "channel", "posteriors", "snr_amplitude",
     "BPGraph", "bp_decode", "decode_posteriors", "decode_graph",
     "Prefetcher", "prefetch", "device_prefetch", "PoolBatcher",
-    "LDPCStructure", "default_structure",
+    "LDPCStructure", "default_structure", "parity_check", "code_mask",
+    "syndrome",
     "ContinuousCodesSP", "ContinuousCodesJoint", "Codes",
     "batch_to_features", "sample_to_features", "gen_sample",
     "generate_eval_set",

@@ -11,7 +11,12 @@ Counterpart of ``fgnn_tpu/data/ldpc_graph.py``:
   variable rows name their 3 checks (96 + c) and then themselves 3 times
   (self padding), and its 2-channel side flags ``joint_etype (144, 6,
   2)``: channel 0 on a variable's check edges, channel 1 on a check's
-  variable edges, all zero on the padding.
+  variable edges, all zero on the padding;
+* the dense parity-check matrix of the encoded words (``parity_check``),
+  the code-aware attention mask of the Error Correction Code Transformer
+  over its [96 bits ; 48 checks] tokens (``code_mask``, arXiv:2203.14966,
+  Algorithm 1), and the syndrome of hard decisions (``syndrome``), which
+  runs on any device.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import functools
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from .alist import default_paths, read_alist
 
@@ -88,6 +94,45 @@ class LDPCStructure:
              hop[..., None]], axis=2).astype(np.float32)     # (48, 6, 7)
         efeature = np.concatenate([ef_node, ef_hop], axis=0)
         return self.joint_nn_idx, self.joint_etype, efeature, hop
+
+
+def parity_check() -> np.ndarray:
+    """The dense parity-check matrix (48, 96) uint8 of the [s ; t] words
+    that the generator ``G`` encodes (``ldpc_channel.encode``): the code's
+    ``A2`` file, the 96.3.963 matrix with three ones added, of full rank 48,
+    which the sum-product baseline decodes on.  The 96.3.963 matrix itself
+    has rank 46, and about half of the encoded words break one of its
+    checks."""
+    a = read_alist(default_paths()["A2"])
+    h = np.zeros((a.M, a.N), np.uint8)
+    for i, row in enumerate(a.row_items):
+        h[i, row] = 1
+    return h
+
+
+def code_mask(h: np.ndarray) -> np.ndarray:
+    """The code-aware attention mask (n + m, n + m), True where a token may
+    attend, of a parity-check matrix ``h`` (m, n): tokens are the n bits and
+    then the m checks.  Each token attends to itself; for every check i the
+    bits it holds attend to each other and to check token n + i, which
+    attends to them.  Check tokens are not joined to each other."""
+    h = np.asarray(h).astype(bool)
+    m, n = h.shape
+    mask = np.eye(n + m, dtype=bool)
+    for i in range(m):
+        bits = np.flatnonzero(h[i])
+        mask[np.ix_(bits, bits)] = True
+        mask[bits, n + i] = True
+        mask[n + i, bits] = True
+    return mask
+
+
+def syndrome(bits: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """H b mod 2 (..., m) of hard decisions ``bits`` (..., n) in {0, 1} and
+    the parity-check matrix ``h`` (m, n) of 0 and 1 in bits' floating dtype,
+    on their device: a product of 0 and 1 whose sums, at most a check's
+    degree, every float dtype holds exactly (bfloat16 up to 256)."""
+    return torch.matmul(bits, h.t()).remainder(2)
 
 
 @functools.lru_cache(maxsize=None)

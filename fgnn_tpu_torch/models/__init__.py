@@ -27,6 +27,7 @@ from .containers import (
 from .factor_nn import FactorNN
 from .factor_mpnn import FactorMPNN
 from .ldpc_model import LDPCModel, SigmaBRegressor
+from .ecct import ECCT
 from .synthetic import (
     SynFixedModel,
     SynHopFactorModel,
@@ -52,7 +53,8 @@ __all__ = [
     "leaky_relu", "IIDMap", "IIDMapBN", "IIDMapIN", "MLP", "MaxPoolNodes",
     "Flatten", "Identity", "MessagePassing", "MPConv", "MPConvResidual",
     "GConvResidual",
-    "FactorNN", "LDPCModel", "SigmaBRegressor", "load_flax_variables",
+    "FactorNN", "LDPCModel", "SigmaBRegressor", "ECCT",
+    "load_flax_variables",
     "IIDBlock", "MPSequential", "ParallelNet", "MPEnsemble",
     "GlobalPooling", "FactorMPNN", "SynFixedModel",
     "SynPwFactorModel", "SynHopFactorModel", "SynHopFactorModelCoo",

@@ -91,7 +91,9 @@ Beside each kernel, as every kernel of the port has them:
   route that ran; ``ROUTES`` maps each route's name to its dict, and
   holds ``NORM_ACT_COUNTS`` too, the norm kernels' (``ops/norm_act.py``,
   whose library ``csrc/norm_act.cu`` is built and launched here with the
-  others);
+  others), and ``CODE_ATTENTION_COUNTS``, the code-aware attention's
+  (``ops/code_attention.py``: torch's memory-efficient attention, or its
+  plain route);
 * a wrapper (``typed_gather_mix_agg``, ``typed_gather_mix_agg_bwd``).  A
   CPU tensor goes to the plain version, a CUDA tensor to the kernel, or
   the wrapper raises; nothing falls back.
@@ -143,6 +145,9 @@ KEPT_BF16_EXT_BWD_COUNTS = {"kernel_launches": 0, "bf16_launches": 0}
 # the norms with their activation (ops/norm_act.py): the kernels' launches,
 # and every norm that ran in plain PyTorch
 NORM_ACT_COUNTS = {"kernel_launches": 0, "plain_calls": 0}
+# the code-aware masked attention (ops/code_attention.py): its calls of
+# torch's memory-efficient attention on the card, and of its plain route
+CODE_ATTENTION_COUNTS = {"kernel_launches": 0, "plain_calls": 0}
 # every route's counters, under the name the profiles give it
 ROUTES = {"typed_mp_fwd": COUNTS,
           "typed_mp_bwd": BWD_COUNTS,
@@ -155,7 +160,8 @@ ROUTES = {"typed_mp_fwd": COUNTS,
           "typed_mp_fwd_ext_bf16_kept": KEPT_BF16_EXT_COUNTS,
           "typed_mp_bwd_bf16_kept": KEPT_BF16_BWD_COUNTS,
           "typed_mp_bwd_ext_bf16_kept": KEPT_BF16_EXT_BWD_COUNTS,
-          "norm_act": NORM_ACT_COUNTS}
+          "norm_act": NORM_ACT_COUNTS,
+          "code_attention": CODE_ATTENTION_COUNTS}
 
 KERNELS = ("typed_mp_fwd", "typed_mp_bwd", "norm_act")
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")

@@ -8,8 +8,9 @@ checkpoints.
   b2 0.999, eps 1e-8).  The LDPC trainer decays by 1e-8, the synthetic
   trainers not at all.
 * Clipping by global norm with optax's rule (``clip_grad_norm``).
-* The LR is set once per epoch: ``base * Schedules.ldpc()(epoch)`` or
-  ``base * Schedules.exp_decay(0.98)(epoch)``.
+* The LR is set once per epoch: ``base * Schedules.ldpc()(epoch)``,
+  ``base * Schedules.exp_decay(0.98)(epoch)`` or, for ECCT,
+  ``base * Schedules.cosine(n_epochs, floor)(epoch)``.
 * A checkpoint is a ``torch.save`` of {format_version, model, optimizer,
   epoch, gcnt} (state dicts), written atomically, resumed with
   ``load_checkpoint``.  ``read_checkpoint`` and ``load_checkpoint`` also
@@ -30,6 +31,7 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import math
 import os
 import pickle
 
@@ -57,6 +59,14 @@ class Schedules:
     def exp_decay(gamma: float = 0.98, floor: float = 1e-6):
         """gamma ** epoch, floor ``floor``."""
         return lambda epoch: max(gamma ** epoch, floor)
+
+    @staticmethod
+    def cosine(n_epochs: int, floor: float):
+        """From 1 down to ``floor`` along half a cosine over ``n_epochs``
+        (``torch.optim.lr_scheduler.CosineAnnealingLR`` with ``T_max``
+        ``n_epochs`` and ``eta_min`` floor times the base)."""
+        return lambda epoch: floor + (1.0 - floor) * 0.5 * (
+            1.0 + math.cos(math.pi * min(epoch, n_epochs) / n_epochs))
 
     @staticmethod
     def ldpc(start: int = 10):

@@ -267,7 +267,7 @@ def test_profiler_trace_holds_the_spans(tmp_path):
 def test_one_route_registry():
     dicts = [v for k, v in vars(fused_mp).items()
              if k.split("_")[-1] == "COUNTS" and isinstance(v, dict)]
-    assert len(fused_mp.ROUTES) == len(dicts) == 12
+    assert len(fused_mp.ROUTES) == len(dicts) == 13
     assert {id(c) for c in fused_mp.ROUTES.values()} == {id(c) for c in dicts}
     for c in dicts:
         c["kernel_launches"] += 3
