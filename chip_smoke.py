@@ -21,6 +21,18 @@ Phases, one JSON line each:
                    in_act_kernel on (4096, 96, 256) with ReLU, within
                    KERNEL_TOL of it; each timed with its bound (bytes over
                    3.35 TB/s) and the plain path's time
+  code_attention   ECCT's masked attention (ops/code_attention.py) at the
+                   cell's batch: 4096 words, 8 heads of 16, 144 tokens, q,
+                   k, v and dO as the model's views of (B, 144, 128) maps;
+                   the forward and backward kernels against the plain route
+                   on the card (out and the gradients of q, k, v within
+                   ATTENTION_REL_L2) and both against the plain route in
+                   f64; each kernel timed behind the spin kernel beside its
+                   byte floor, the plain route's forward and backward, and
+                   torch's memory-efficient attention as ``library_ms``
+                   (a yardstick only: the port never calls it); then an
+                   ECCT train step at the reference width: 6 forward and 6
+                   backward launches, no plain call
   kernel_check_bwd both routes of the backward (the staged kernel with its
                    planned slab, and the kept kernels) against the plain
                    version, fed the same cotangent and argmax, at the same
@@ -293,6 +305,12 @@ NORMS_PER_FORWARD = 108
 # the variables' 256 channels with its leaky ReLU, and an instance norm
 # of the same (B, N, C) with its ReLU
 NORM_ACT_WORDS = 4096
+# ECCT's attention at the ECCT cell's shape, and the card's kernels against
+# the plain route: f32 round-off of two summation orders (SDPA's
+# memory-efficient kernels read 1.2e-7 to 4.2e-7 from f64 at this shape)
+ATTENTION_WORDS, ATTENTION_HEADS, ATTENTION_TOKENS, ATTENTION_DH = \
+    4096, 8, 144, 16
+ATTENTION_REL_L2 = 2e-6
 # Kernel against plain version on the card: the same f32 arithmetic in
 # another order (fmaf, sums over c and over in-edges), so 1e-5 of the
 # largest reference value.
@@ -721,6 +739,125 @@ def phase_norm_act(torch, fused_mp):
             gbytes_per_s=nbytes / ms / 1e6, max_abs_err=err)
         emit("norm_act", name=name, **out[name])
     return out
+
+
+def phase_code_attention(torch, fused_mp):
+    """ECCT's masked attention at the cell's batch on the card: the kernels
+    checked against the plain route (f32 on the card and f64), each timed
+    behind the spin kernel beside its byte floor (the forward reads q, k,
+    v and writes out and the log-sum-exp; the backward reads q, k, v, o,
+    dO and the log-sum-exp and writes dq, dk, dv), beside the plain
+    route's time and torch's memory-efficient attention's (library_ms);
+    then one ECCT train step's launches."""
+    import numpy as np
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from fgnn_tpu_torch.data import code_mask, parity_check
+    from fgnn_tpu_torch.ops import code_attention as ca
+    from fgnn_tpu_torch.train import ecct as T
+
+    B, H, L, dh = (ATTENTION_WORDS, ATTENTION_HEADS, ATTENTION_TOKENS,
+                   ATTENTION_DH)
+    mask = torch.as_tensor(code_mask(parity_check()), device="cuda")
+    tables = ca.CodeTables(mask).to("cuda")
+    pairs = tables.pairs
+    g = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v, go = (torch.randn(B, L, H * dh, device="cuda", generator=g)
+                   .view(B, L, H, dh).transpose(1, 2) for _ in range(4))
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    def forward_and_grads(fn, dtype=None):
+        qs = [t.detach().to(dtype or t.dtype).requires_grad_(True)
+              for t in (q, k, v)]
+        out = fn(*qs, mask)
+        grads = torch.autograd.grad(out, qs, go.to(out.dtype))
+        return [out.detach()] + list(grads)
+
+    fused_mp.reset_counts()
+    got = forward_and_grads(lambda *a: ca.code_attention(*a, tables))
+    counts = dict(fused_mp.CODE_ATTENTION_COUNTS)
+    require(counts == {"kernel_launches": 1, "bwd_launches": 1,
+                       "plain_calls": 0}, f"one launch each: {counts}")
+    require(all(t.stride() == q.stride() for t in got),
+            "out, dq, dk, dv in q's memory order")
+    plain = forward_and_grads(ca.plain_attention)
+    names = ("out", "dq", "dk", "dv")
+    vs_plain = {n: rel(a, b) for n, a, b in zip(names, got, plain)}
+    require(all(x < ATTENTION_REL_L2 for x in vs_plain.values()),
+            f"kernels against the plain route: {vs_plain}")
+    f64 = forward_and_grads(ca.plain_attention, torch.float64)
+    kernel_vs_f64 = {n: rel(a, b) for n, a, b in zip(names, got, f64)}
+    plain_vs_f64 = {n: rel(a, b) for n, a, b in zip(names, plain, f64)}
+    del got, plain, f64
+    bits = ca.attention_fwd(q, k, v, tables)[0]
+    require(torch.equal(bits, ca.attention_fwd(q, k, v, tables)[0]),
+            "two forward launches give the same bits")
+    del bits
+    emit("code_attention", name="check", counts=counts,
+         kernel_vs_plain=vs_plain, kernel_vs_f64=kernel_vs_f64,
+         plain_vs_f64=plain_vs_f64, tol_rel_l2=ATTENTION_REL_L2)
+
+    out, lse = ca.attention_fwd(q, k, v, tables)
+    fwd_ms, fwd_host = device_ms(lambda: ca.attention_fwd(q, k, v, tables),
+                                 50, torch)
+    bwd_ms, bwd_host = device_ms(
+        lambda: ca.attention_bwd(q, k, v, out, lse, go, tables), 50, torch)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    plain_out = ca.plain_attention(qg, kg, vg, mask)
+    plain_fwd_ms, _ = device_ms(lambda: ca.plain_attention(q, k, v, mask), 5,
+                                torch)
+    plain_bwd_ms, _ = device_ms(lambda: torch.autograd.grad(
+        plain_out, (qg, kg, vg), go, retain_graph=True), 5, torch)
+    del plain_out
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+        lib_fwd_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), 20, torch)
+        lib_bwd_ms, _ = device_ms(lambda: torch.autograd.grad(
+            lib_out, (qg, kg, vg), go, retain_graph=True), 20, torch)
+    del lib_out
+    elems = B * H * L * dh
+    fwd_bytes = 4 * (4 * elems + B * H * L)
+    bwd_bytes = 4 * (8 * elems + B * H * L)
+    # per allowed pair: the forward's 4 d multiply-adds and 5 softmax
+    # operations, one division per output element; the backward's dp, dq,
+    # dk and dv products and the recomputed score (10 d) and 5 more
+    fwd_ops = B * H * (pairs * (4 * dh + 5) + L * dh)
+    bwd_ops = B * H * pairs * (10 * dh + 5)
+    rows = {}
+    for name, ms, host, plain_ms, lib_ms, nbytes, ops in (
+            ("code_attn_fwd_kernel", fwd_ms, fwd_host, plain_fwd_ms,
+             lib_fwd_ms, fwd_bytes, fwd_ops),
+            ("code_attn_bwd_kernel", bwd_ms, bwd_host, plain_bwd_ms,
+             lib_bwd_ms, bwd_bytes, bwd_ops)):
+        rows[name] = dict(
+            shape=[B, H, L, dh], pairs=pairs, ms=ms, wrapper_host_ms=host,
+            bound_ms=bound_ms(nbytes, ops), bound_by=bound_by(nbytes, ops),
+            bytes=nbytes, ops=ops, gbytes_per_s=nbytes / ms / 1e6,
+            roofline_share=bound_ms(nbytes, ops) / ms, plain_ms=plain_ms,
+            library_ms=lib_ms, per="one call (6 a train step)")
+        emit("code_attention", name=name, **rows[name])
+    del out, lse, q, k, v, go, qg, kg, vg
+
+    # an ECCT train step at the reference width
+    from fgnn_tpu_torch.models import init_weights
+
+    model = init_weights(T.new_model(), 5).cuda()
+    opt = T.make_optimizer(model.parameters(), T.BASE_LR, weight_decay=0.0)
+    batch = T.words(np.random.RandomState(4), 512, T.TRAIN_SNRS)
+    fused_mp.reset_counts()
+    m = T.train_step(model, opt, batch, "cuda")
+    step_counts = dict(fused_mp.CODE_ATTENTION_COUNTS)
+    require(step_counts == {"kernel_launches": 6, "bwd_launches": 6,
+                            "plain_calls": 0},
+            f"an ECCT step: 6 and 6 launches, no plain call: {step_counts}")
+    require(bool(torch.isfinite(m["loss"])), "a finite ECCT loss")
+    emit("code_attention", name="ecct_train_step", batch=512,
+         counts=step_counts, loss=float(m["loss"]))
+    return rows
 
 
 def _route_counts(fused_mp, route, ext):
@@ -4259,6 +4396,7 @@ def main():
     phase_build(fused_mp)
     worst, shapes = phase_kernel_check(torch, fused_mp)
     phase_norm_act(torch, fused_mp)
+    phase_code_attention(torch, fused_mp)
     worst_bwd, shapes_bwd = phase_kernel_check_bwd(torch, fused_mp)
     worst_ext, shapes_ext = phase_kernel_check_ext(torch, fused_mp)
     worst_ext_bwd, shapes_ext_bwd = phase_kernel_check_ext_bwd(torch,

@@ -18,7 +18,9 @@ positive logit says the channel flipped the bit: the decoded word is b XOR
 1[logit > 0], and the loss is the BCE of the logits against the flips.
 
 The attention is the code-aware masked attention (``ops/code_attention.py``)
-under the mask of the paper's Algorithm 1 (``data.ldpc_graph.code_mask``).
+under the mask of the paper's Algorithm 1 (``data.ldpc_graph.code_mask``),
+whose row and column tables the model builds once beside the mask
+(``tables``, a ``CodeTables`` of non-persistent buffers).
 Every linear map is the port's ``Dense``, so the compute-dtype policy
 (``models/policy.py``) reaches the model; the LayerNorms compute in their
 input's dtype with f32 parameters cast to it.
@@ -34,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..data.ldpc_graph import code_mask, syndrome
-from ..ops.code_attention import code_attention
+from ..ops.code_attention import CodeTables, code_attention
 from .norm import Dense, uniform_
 
 
@@ -66,14 +68,15 @@ class CodeSelfAttention(nn.Module):
         self.q, self.k, self.v, self.o = (Dense(d_model, d_model)
                                           for _ in range(4))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                tables: CodeTables) -> torch.Tensor:
         B, L, d = x.shape
 
         def split(t):
             return t.view(B, L, self.heads, d // self.heads).transpose(1, 2)
 
         a = code_attention(split(self.q(x)), split(self.k(x)),
-                           split(self.v(x)), mask)
+                           split(self.v(x)), mask, tables)
         return self.o(a.transpose(1, 2).reshape(B, L, d))
 
 
@@ -89,8 +92,9 @@ class EncoderLayer(nn.Module):
         self.ff1 = Dense(d_model, 4 * d_model)
         self.ff2 = Dense(4 * d_model, d_model)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x), mask)
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                tables: CodeTables) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x), mask, tables)
         return x + self.ff2(F.gelu(self.ff1(self.norm2(x))))
 
 
@@ -112,6 +116,7 @@ class ECCT(nn.Module):
                              persistent=False)
         self.register_buffer("mask", torch.as_tensor(code_mask(h)),
                              persistent=False)
+        self.tables = CodeTables(self.mask)
         self.embed = nn.Parameter(torch.empty(n + m, d_model))
         self.layers = nn.ModuleList(EncoderLayer(d_model, heads)
                                     for _ in range(n_layers))
@@ -134,7 +139,7 @@ class ECCT(nn.Module):
     def forward(self, y: torch.Tensor) -> torch.Tensor:
         x = self.tokens(y).unsqueeze(-1) * self.embed
         for i, layer in enumerate(self.layers, start=1):
-            x = layer(x, self.mask)
+            x = layer(x, self.mask, self.tables)
             if self.mid_norm is not None and i == len(self.layers) // 2:
                 x = self.mid_norm(x)
         t = self.token_out(self.norm(x)).squeeze(-1)

@@ -92,7 +92,8 @@ Beside each kernel, as every kernel of the port has them:
   holds ``NORM_ACT_COUNTS`` too, the norm kernels' (``ops/norm_act.py``,
   whose library ``csrc/norm_act.cu`` is built and launched here with the
   others), and ``CODE_ATTENTION_COUNTS``, the code-aware attention's
-  (``ops/code_attention.py``: torch's memory-efficient attention, or its
+  (``ops/code_attention.py``, whose library ``csrc/code_attention.cu`` is
+  built and launched here too: its forward and backward kernels, or its
   plain route);
 * a wrapper (``typed_gather_mix_agg``, ``typed_gather_mix_agg_bwd``).  A
   CPU tensor goes to the plain version, a CUDA tensor to the kernel, or
@@ -145,9 +146,10 @@ KEPT_BF16_EXT_BWD_COUNTS = {"kernel_launches": 0, "bf16_launches": 0}
 # the norms with their activation (ops/norm_act.py): the kernels' launches,
 # and every norm that ran in plain PyTorch
 NORM_ACT_COUNTS = {"kernel_launches": 0, "plain_calls": 0}
-# the code-aware masked attention (ops/code_attention.py): its calls of
-# torch's memory-efficient attention on the card, and of its plain route
-CODE_ATTENTION_COUNTS = {"kernel_launches": 0, "plain_calls": 0}
+# the code-aware masked attention (ops/code_attention.py): the launches of
+# its forward and backward kernels on the card, and its plain route's calls
+CODE_ATTENTION_COUNTS = {"kernel_launches": 0, "bwd_launches": 0,
+                         "plain_calls": 0}
 # every route's counters, under the name the profiles give it
 ROUTES = {"typed_mp_fwd": COUNTS,
           "typed_mp_bwd": BWD_COUNTS,
@@ -163,7 +165,7 @@ ROUTES = {"typed_mp_fwd": COUNTS,
           "norm_act": NORM_ACT_COUNTS,
           "code_attention": CODE_ATTENTION_COUNTS}
 
-KERNELS = ("typed_mp_fwd", "typed_mp_bwd", "norm_act")
+KERNELS = ("typed_mp_fwd", "typed_mp_bwd", "norm_act", "code_attention")
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(_CSRC, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -201,6 +203,14 @@ _ARGTYPES = {
     # x, out; B N C; eps; act; slope; stream
     "in_act": [_PTR] * 2 + [_INT] * 3 + [ctypes.c_float, _INT,
                                          ctypes.c_float, _PTR],
+    # csrc/code_attention.cu (ops/code_attention.py): q, k, v, out, lse,
+    # rows; B H L dh heads-per-block; the strides of b, h, l; scale; bf16;
+    # stream
+    "code_attn_fwd": [_PTR] * 6 + [_INT] * 5 + [ctypes.c_longlong] * 3
+    + [ctypes.c_float, _INT, _PTR],
+    # q, k, v, o, dout, lse, dq, dk, dv, rows, cols; then as the forward
+    "code_attn_bwd": [_PTR] * 11 + [_INT] * 5 + [ctypes.c_longlong] * 3
+    + [ctypes.c_float, _INT, _PTR],
 }
 _libs = {}
 

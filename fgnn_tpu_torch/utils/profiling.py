@@ -30,7 +30,9 @@ JSON object:
   launches per forward (step), in each mode and, for the backward, on each
   route (staged, kept), with ``..._bf16_launches_per_...`` the launches of
   their bf16 mode, the norm kernels' (``norm_act_launches_per_...``),
-  the device time of each of the port's ``__global__`` functions, and the
+  the code-aware attention's (``code_attention_launches_per_...`` and
+  ``code_attention_bwd_launches_per_...``), the device time of each of
+  the port's ``__global__`` functions, and the
   kernels with the most device time.
 
 ``--bf16`` runs any of them under the bf16 compute policy
@@ -82,11 +84,13 @@ from torch.autograd import profiler as _autograd_profiler
 # the port's __global__ functions (csrc/*.cu), by name: the kept, the
 # staged and the bf16 sample forward, the staged backward and its sum over
 # slabs, the bf16 DIFF/NEIGHBOR backward's design, the two of the kept
-# backward, and the eval BatchNorm and instance norm with their activation
+# backward, the eval BatchNorm and instance norm with their activation, and
+# the code-aware attention's forward and backward
 PORT_KERNELS = ("typed_mp_fwd_kernel", "staged_fwd_kernel",
                 "sample_fwd_kernel", "staged_bwd_kernel", "sum_slabs",
                 "ext_bwd_kernel", "d_etype_kernel", "dh_kernel",
-                "bn_act_kernel", "in_act_kernel")
+                "bn_act_kernel", "in_act_kernel", "code_attn_fwd_kernel",
+                "code_attn_bwd_kernel")
 
 
 @contextlib.contextmanager
@@ -334,9 +338,9 @@ def _trace(fn, steps: int, wall_ms: float, per: str, top: int) -> dict:
     for name, c in counts.items():
         if c["kernel_launches"] or name == "typed_mp_fwd":
             out[f"{name}_launches_per_{per}"] = c["kernel_launches"] / steps
-        if c.get("bf16_launches"):
-            out[f"{name}_bf16_launches_per_{per}"] = \
-                c["bf16_launches"] / steps
+        for key, n in c.items():  # bf16_launches, bwd_launches
+            if n and key != "kernel_launches" and key.endswith("_launches"):
+                out[f"{name}_{key}_per_{per}"] = n / steps
     out["port_kernels"] = {
         kernel: {f"per_{per}": n / steps, f"ms_per_{per}": us / steps / 1e3}
         for kernel, (n, us) in port.items()}

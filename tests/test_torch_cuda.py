@@ -1230,27 +1230,209 @@ def test_ldpc_decode_takes_the_norm_kernels(cuda):
     assert torch.equal(got >= 0, want >= 0)
 
 
+def _model_qkv(cuda, B, seed, dtype=torch.float32):
+    """q, k, v (B, 8, 144, 16) as the model's views of three (B, 144, 128)
+    maps, each map a leaf that requires its gradient."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    maps = [torch.randn(B, 144, 128, device=cuda, generator=g).to(dtype)
+            .requires_grad_(True) for _ in range(3)]
+    return maps, [m.view(B, 144, 8, 16).transpose(1, 2) for m in maps]
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
 @pytest.mark.parametrize("B", [4, 512])
-def test_code_attention_takes_the_efficient_kernel(cuda, B):
-    """ECCT's masked attention on the card: torch's memory-efficient
-    attention, forward and the gradients of q, k, v, within 2e-6 (relative
-    L2, the f32 round-off of two summation orders: the two routes read
-    1.2e-7 to 4.2e-7 from f64 at B=4096 and 1024) of the plain route on the
-    card; one launch a call, no plain call."""
+def test_code_attention_kernels(cuda, B):
+    """ECCT's masked attention on the card: the hand-written forward and
+    backward over the code's tables, the forward and the gradients of q, k,
+    v within 2e-6 (relative L2, the f32 round-off of two summation orders)
+    of the plain route on the card; one forward and one backward launch,
+    no plain call; q, k, v read as the model's strided views, and out, dq,
+    dk, dv written in q's memory order."""
     from fgnn_tpu_torch.data import code_mask, parity_check
-    from fgnn_tpu_torch.ops.code_attention import (code_attention,
+    from fgnn_tpu_torch.ops.code_attention import (CodeTables,
+                                                   code_attention,
                                                    plain_attention)
 
     mask = torch.as_tensor(code_mask(parity_check()), device=cuda)
-    g = torch.Generator(device=cuda).manual_seed(B)
-    q, k, v = (torch.randn(B, 8, 144, 16, device=cuda, generator=g)
-               .requires_grad_(True) for _ in range(3))
-    go = torch.randn(B, 8, 144, 16, device=cuda, generator=g)
+    tables = CodeTables(mask).to(cuda)
+    _, (q, k, v) = _model_qkv(cuda, B, B)
+    go = torch.randn(B, 144, 128, device=cuda).view(B, 144, 8, 16) \
+        .transpose(1, 2)
     fused_mp.reset_counts()
-    got = code_attention(q, k, v, mask)
+    got = code_attention(q, k, v, mask, tables)
+    assert got.stride() == q.stride() == (144 * 128, 16, 128, 1)
+    grads = torch.autograd.grad(got, (q, k, v), go)
     assert fused_mp.CODE_ATTENTION_COUNTS == {"kernel_launches": 1,
+                                             "bwd_launches": 1,
                                              "plain_calls": 0}
+    assert all(t.stride() == q.stride() for t in grads)
     want = plain_attention(q, k, v, mask)
-    for a, b in zip([got] + list(torch.autograd.grad(got, (q, k, v), go)),
+    for a, b in zip([got] + list(grads),
                     [want] + list(torch.autograd.grad(want, (q, k, v), go))):
-        assert float((a - b).norm() / b.norm()) < 2e-6
+        assert _rel(a, b) < 2e-6
+
+
+def test_code_attention_other_layouts(cuda):
+    """q contiguous, k the model's strided view, v at an offset the
+    kernels do not read in place: k and v are copied into q's layout, out
+    and the gradients come back in q's, within 2e-6 of the plain route."""
+    from fgnn_tpu_torch.data import code_mask, parity_check
+    from fgnn_tpu_torch.ops.code_attention import (CodeTables,
+                                                   code_attention,
+                                                   plain_attention)
+
+    mask = torch.as_tensor(code_mask(parity_check()), device=cuda)
+    tables = CodeTables(mask).to(cuda)
+    B, n = 32, 32 * 8 * 144 * 16
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn(B, 8, 144, 16, device=cuda, generator=g)
+    k = torch.randn(B, 144, 128, device=cuda, generator=g) \
+        .view(B, 144, 8, 16).transpose(1, 2)
+    v = torch.randn(n + 1, device=cuda, generator=g)[1:].view(B, 8, 144, 16)
+    ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    go = torch.randn(B, 8, 144, 16, device=cuda, generator=g)
+    got = code_attention(*ins, mask, tables)
+    assert got.is_contiguous()
+    got = [got] + list(torch.autograd.grad(got, ins, go))
+    want = plain_attention(*ins, mask)
+    want = [want] + list(torch.autograd.grad(want, ins, go))
+    for a, b in zip(got, want):
+        assert _rel(a, b) < 2e-6
+
+
+def test_code_attention_roofline_reads_the_kernel(cuda):
+    """One traced call at the cell's batch inside a ``step``: the
+    benchmark's yardstick reads its shape from the ``attention`` span, and
+    its roofline share from the forward kernel's device time, at most
+    100%."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from fgnn_tpu_torch.data import code_mask, parity_check
+    from fgnn_tpu_torch.ops.code_attention import CodeTables, code_attention
+    from fgnn_tpu_torch.utils.profiling import annotate
+    from portbench import ecct_yardstick, harness, program_spans, trace
+
+    B = 4096
+    mask = torch.as_tensor(code_mask(parity_check()), device=cuda)
+    tables = CodeTables(mask).to(cuda)
+    with torch.no_grad():
+        _, (q, k, v) = _model_qkv(cuda, B, 3)
+        code_attention(q, k, v, mask, tables)  # builds the library
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            with record_function(trace.WINDOW):
+                with annotate("step"):
+                    code_attention(q, k, v, mask, tables)
+                torch.cuda.synchronize()
+    ops = trace.Trace(harness._events(prof))
+    assert ecct_yardstick.attention_calls(ops) == [(B, 8, 144, 16, 4)]
+    assert program_spans.device_ms(ops, "attention") > 0
+    share = ecct_yardstick.attention_roofline(ops)
+    assert share is not None and 0 < share <= 100
+
+
+@pytest.mark.parametrize("dh", [4, 8, 16, 32])
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_code_attention_head_widths_and_masks(cuda, dh, symmetric):
+    """Every head width the kernels take (d = 128 in 128 / dh heads), on
+    the code's mask and on a non-symmetric one with a key no query
+    attends to: forward and gradients within 2e-6 of the plain route."""
+    import numpy as np
+
+    from fgnn_tpu_torch.data import code_mask, parity_check
+    from fgnn_tpu_torch.ops.code_attention import (CodeTables,
+                                                   code_attention,
+                                                   plain_attention)
+
+    if symmetric:
+        mask = code_mask(parity_check())
+    else:
+        rng = np.random.RandomState(dh)
+        mask = rng.rand(144, 144) < 0.12
+        mask[np.arange(144), (np.arange(144) + 1) % 144] = True
+        mask[:, 17] = False  # a key no query attends to
+        mask[16, 16] = True  # row 16's shifted key was 17
+    mask = torch.as_tensor(mask, device=cuda)
+    tables = CodeTables(mask).to(cuda)
+    B, H = 64, 128 // dh
+    g = torch.Generator(device=cuda).manual_seed(dh)
+    q, k, v, go = (torch.randn(B, 144, 128, device=cuda, generator=g)
+                   .view(B, 144, H, dh).transpose(1, 2) for _ in range(4))
+    ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    got = code_attention(*ins, mask, tables)
+    got = [got] + list(torch.autograd.grad(got, ins, go))
+    want = plain_attention(*ins, mask)
+    want = [want] + list(torch.autograd.grad(want, ins, go))
+    for a, b in zip(got, want):
+        assert _rel(a, b) < 2e-6
+
+
+def test_code_attention_bf16(cuda):
+    """The bf16 instantiation (the compute-dtype policy's q, k, v): an f32
+    softmax and f32 sums over the bf16 values, out and the gradients
+    rounded once to bf16, so within 4e-3 (relative L2; bf16 keeps 8 bits)
+    of the plain route in f32 on the same bf16 values; a forward and a
+    backward launch."""
+    from fgnn_tpu_torch.data import code_mask, parity_check
+    from fgnn_tpu_torch.ops.code_attention import (CodeTables,
+                                                   code_attention,
+                                                   plain_attention)
+
+    mask = torch.as_tensor(code_mask(parity_check()), device=cuda)
+    tables = CodeTables(mask).to(cuda)
+    _, qkv = _model_qkv(cuda, 256, 9, torch.bfloat16)
+    go = torch.randn(256, 144, 128, device=cuda).to(torch.bfloat16) \
+        .view(256, 144, 8, 16).transpose(1, 2)
+    fused_mp.reset_counts()
+    out = code_attention(*qkv, mask, tables)
+    assert out.dtype == torch.bfloat16
+    got = [out] + list(torch.autograd.grad(out, qkv, go))
+    assert fused_mp.CODE_ATTENTION_COUNTS == {"kernel_launches": 1,
+                                             "bwd_launches": 1,
+                                             "plain_calls": 0}
+    assert all(t.dtype == torch.bfloat16 for t in got)
+    ins = [t.detach().float().requires_grad_(True) for t in qkv]
+    want = plain_attention(*ins, mask)
+    want = [want] + list(torch.autograd.grad(want, ins, go.float()))
+    for a, b in zip(got, want):
+        assert _rel(a, b) < 4e-3
+
+
+@pytest.mark.parametrize("dims, layers", [(32, 2), (128, 6)])
+def test_ecct_step_on_the_card(cuda, dims, layers):
+    """One ECCT train step on the card against the port's CPU path from
+    the same weights and batch: one forward and one backward launch per
+    layer, no plain call; the loss within 1e-5 and each gradient within
+    1e-4 relative L2 (of the larger of its norm and a thousandth of the
+    largest: the key maps' biases have a gradient of round-off alone)."""
+    import numpy as np
+
+    from fgnn_tpu_torch.models import init_weights
+    from fgnn_tpu_torch.train import ecct as T
+    from fgnn_tpu_torch.train.common import make_optimizer
+
+    models = [init_weights(T.new_model(dims, layers, 8), 7)
+              for _ in range(2)]
+    models[1].load_state_dict(models[0].state_dict())
+    models[1].to(cuda)
+    batch = T.words(np.random.RandomState(6), 128, T.TRAIN_SNRS)
+    losses, grads = [], []
+    for model, dev in zip(models, ("cpu", cuda)):
+        opt = make_optimizer(model.parameters(), T.BASE_LR, weight_decay=0.0)
+        fused_mp.reset_counts()
+        losses.append(float(T.train_step(model, opt, batch, dev)["loss"]))
+        grads.append({n: p.grad.detach().cpu()
+                      for n, p in model.named_parameters()})
+    assert fused_mp.CODE_ATTENTION_COUNTS == {"kernel_launches": layers,
+                                             "bwd_launches": layers,
+                                             "plain_calls": 0}
+    assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0])
+    floor = 1e-3 * max(float(g.norm()) for g in grads[0].values())
+    for n, g in grads[0].items():
+        assert float((grads[1][n] - g).norm()) <= 1e-4 * max(
+            float(g.norm()), floor), n

@@ -4,8 +4,10 @@ the real 96.3.963 code, against the benchmark's plain reference
 (``portbench/reference/ecct.py``, which imports nothing of the port):
 logits, loss and every parameter's gradient; the code's mask; a masked key
 that leaves the output's bits alone; the syndrome; the plain route against
-torch's attention; the reference in bfloat16 failing the tolerances the
-port meets; the train step's spans and counters; the CLI."""
+torch's attention; the card kernels' row and column tables, and their
+forward and backward recurrences over them in PyTorch ops against the
+plain route; the reference in bfloat16 failing the tolerances the port
+meets; the train step's spans and counters; the CLI."""
 
 import glob
 import math
@@ -18,7 +20,8 @@ import torch.nn.functional as F
 from fgnn_tpu_torch.data import code_mask, default_structure, parity_check, \
     syndrome
 from fgnn_tpu_torch.ops import fused_mp
-from fgnn_tpu_torch.ops.code_attention import code_attention, plain_attention
+from fgnn_tpu_torch.ops.code_attention import (CodeTables, code_attention,
+                                               plain_attention)
 from fgnn_tpu_torch.train import ecct as T
 from fgnn_tpu_torch.train.common import Schedules, make_optimizer
 from fgnn_tpu_torch.utils.profiling import record_spans
@@ -179,6 +182,7 @@ def test_plain_route_against_torch_attention():
     fused_mp.reset_counts()
     out = code_attention(q, k, v, mask)
     assert fused_mp.CODE_ATTENTION_COUNTS == {"kernel_launches": 0,
+                                             "bwd_launches": 0,
                                              "plain_calls": 1}
     assert torch.equal(out, plain_attention(q, k, v, mask))
     # f32 round-off of two summation orders
@@ -186,6 +190,157 @@ def test_plain_route_against_torch_attention():
     assert rel(out, sdpa_attention(q, k, v, torch.ones_like(mask))) > 0.1
     with pytest.raises(ValueError):
         code_attention(q, k, v, mask.float())
+
+
+def table_rows(table, L: int) -> dict:
+    """{row: its allowed columns, ascending} of a packed table of L rows
+    (``code_attention.packed_table``)."""
+    t = np.asarray(table)
+    order, count = t[:L], t[L:2 * L]
+    key = t[2 * L:].reshape(-1, L)
+    return {int(i): key[:c, s] for s, (i, c) in enumerate(zip(order, count))}
+
+
+def check_tables(mask: np.ndarray):
+    """The tables of ``mask`` give back the mask and its transpose, each
+    row's columns ascending, the rows longest first, -1 past a row's
+    length."""
+    t = CodeTables(torch.as_tensor(mask))
+    L = mask.shape[0]
+    assert t.tokens == L and t.pairs == mask.sum()
+    assert dict(t.state_dict()) == {}
+    for table, m in ((t.rows, mask), (t.cols, mask.T)):
+        assert table.dtype == torch.int32
+        width = int(m.sum(1).max())
+        assert table.numel() == (2 + width) * L
+        order, count = table[:L].numpy(), table[L:2 * L].numpy()
+        assert sorted(order) == list(range(L))
+        assert np.array_equal(count, m.sum(1)[order])
+        assert (np.diff(count) <= 0).all()
+        key = table[2 * L:].numpy().reshape(width, L)
+        assert ((key >= 0) == (np.arange(width)[:, None] < count)).all()
+        back = np.zeros_like(m)
+        for i, cols in table_rows(table, L).items():
+            assert (np.diff(cols) > 0).all()
+            back[i, cols] = True
+        assert np.array_equal(back, m)
+    return t
+
+
+def test_the_tables_reproduce_the_code_mask():
+    mask = code_mask(parity_check())
+    t = check_tables(mask)
+    rows = table_rows(t.rows, 144)
+    assert sum(len(c) for c in rows.values()) == 2198
+    assert {len(rows[i]) for i in range(96)} == {19, 20, 25, 26, 27}
+    assert {len(rows[i]) for i in range(96, 144)} == {7, 8}
+    # the bits, longest first, before every check
+    assert set(t.rows[:96].tolist()) == set(range(96))
+    # the model keeps them beside its mask, out of its state dict
+    model = T.new_model(CFG["dims"], CFG["layers"], CFG["heads"])
+    assert torch.equal(model.tables.rows, t.rows)
+    assert torch.equal(model.tables.cols, t.cols)
+    assert not any(k.startswith("tables") for k in model.state_dict())
+
+
+def test_the_tables_of_a_non_symmetric_mask():
+    rng = np.random.RandomState(7)
+    mask = rng.rand(37, 37) < 0.2
+    mask[np.arange(37), rng.randint(0, 37, 37)] = True  # no empty row
+    mask[:, 5] = False  # a key no query attends to: an empty column
+    assert not (mask == mask.T).all()
+    t = check_tables(mask)
+    assert len(table_rows(t.cols, 37)[5]) == 0
+
+
+def test_an_empty_row_raises():
+    mask = code_mask(parity_check())
+    mask[100] = False
+    with pytest.raises(ValueError, match="allow no key"):
+        CodeTables(mask)
+    q, k, v = qkv()
+    with pytest.raises(ValueError, match="allows no key"):
+        code_attention(q, k, v, torch.as_tensor(mask))
+    with pytest.raises(ValueError, match="square bool"):
+        CodeTables(mask[:, :100])
+
+
+def table_attention(q, k, v, tables):
+    """The forward over the row table: each query's allowed keys gathered,
+    then the softmax and the weighted sum of v; and the log-sum-exp."""
+    L, scale = q.shape[-2], q.shape[-1] ** -0.5
+    rows = table_rows(tables.rows, L)
+    out = torch.empty_like(q)
+    lse = q.new_empty(q.shape[:3])
+    for i, keys in rows.items():
+        keys = torch.as_tensor(keys, dtype=torch.long)
+        s = (q[..., i:i + 1, :] * k[..., keys, :]).sum(-1) * scale
+        out[..., i, :] = (torch.softmax(s, -1)[..., None]
+                          * v[..., keys, :]).sum(-2)
+        lse[..., i] = torch.logsumexp(s, -1)
+    return out, lse
+
+
+def table_grads(q, k, v, out, lse, dout, tables):
+    """The backward kernel's recurrences in PyTorch ops: dq over the row
+    table, dk and dv over the column table, p and ds recomputed from the
+    log-sum-exp and D = rowsum(dO * O)."""
+    L, scale = q.shape[-2], q.shape[-1] ** -0.5
+    D = (dout * out).sum(-1)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    for i, keys in table_rows(tables.rows, L).items():
+        keys = torch.as_tensor(keys, dtype=torch.long)
+        p = torch.exp((q[..., i:i + 1, :] * k[..., keys, :]).sum(-1) * scale
+                      - lse[..., i:i + 1])
+        dp = (dout[..., i:i + 1, :] * v[..., keys, :]).sum(-1)
+        ds = p * (dp - D[..., i:i + 1])
+        dq[..., i, :] = scale * (ds[..., None] * k[..., keys, :]).sum(-2)
+    for j, queries in table_rows(tables.cols, L).items():
+        qs = torch.as_tensor(queries, dtype=torch.long)
+        p = torch.exp((q[..., qs, :] * k[..., j:j + 1, :]).sum(-1) * scale
+                      - lse[..., qs])
+        dp = (dout[..., qs, :] * v[..., j:j + 1, :]).sum(-1)
+        ds = p * (dp - D[..., qs])
+        dk[..., j, :] = scale * (ds[..., None] * q[..., qs, :]).sum(-2)
+        dv[..., j, :] = (p[..., None] * dout[..., qs, :]).sum(-2)
+    return dq, dk, dv
+
+
+def test_table_attention_equals_the_plain_route():
+    mask = torch.as_tensor(code_mask(parity_check()))
+    tables = CodeTables(mask)
+    q, k, v = qkv(2)
+    out, lse = table_attention(q, k, v, tables)
+    assert rel(out, plain_attention(q, k, v, mask)) < 1e-6
+    scores = torch.matmul(q, k.transpose(-2, -1)) * 0.5
+    assert rel(lse, torch.logsumexp(scores.masked_fill(~mask, -math.inf),
+                                    -1)) < 1e-6
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_the_backward_recurrences_over_the_tables(symmetric):
+    """In f64 the recurrences give autograd's gradients of the plain route
+    to round-off, on the code's mask and on a non-symmetric one."""
+    if symmetric:
+        mask = code_mask(parity_check())
+    else:
+        rng = np.random.RandomState(3)
+        mask = rng.rand(144, 144) < 0.1
+        mask[np.arange(144), rng.randint(0, 144, 144)] = True
+        mask[:, 9] = False
+    mask = torch.as_tensor(mask)
+    tables = CodeTables(mask)
+    q, k, v = (t.double().requires_grad_(True) for t in qkv(4, d=8))
+    dout = torch.randn(q.shape, dtype=torch.float64,
+                       generator=torch.Generator().manual_seed(5))
+    want = plain_attention(q, k, v, mask)
+    grads = torch.autograd.grad(want, (q, k, v), dout)
+    with torch.no_grad():
+        out, lse = table_attention(q, k, v, tables)
+        got = table_grads(q, k, v, out, lse, dout, tables)
+    assert rel(out, want) < 1e-12
+    for a, b in zip(got, grads):
+        assert rel(a, b) < 1e-12
 
 
 def test_train_step_spans_counters_and_decisions(setup):
@@ -207,7 +362,7 @@ def test_train_step_spans_counters_and_decisions(setup):
                for i, n in enumerate(names) if n == "attention")
     assert forward < names.index("attention")
     assert fused_mp.CODE_ATTENTION_COUNTS == {
-        "kernel_launches": 0, "plain_calls": CFG["layers"]}
+        "kernel_launches": 0, "bwd_launches": 0, "plain_calls": CFG["layers"]}
     dec = T.decode_step(model, batch, "cpu")
     y = T.stage_batch(batch, "cpu")["y"]
     with torch.no_grad():
